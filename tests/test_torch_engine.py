@@ -1,0 +1,153 @@
+"""The port's ``PBDSEngine.run`` against the reference's, end to end: a
+seeded CB-OPT-GB workload of Q-AGH and Q-AAGH queries replayed on both
+engines must give equal canonical results, equal ``RunInfo``
+created/reused/attr, equal sketch bits and equal index contents (both
+engines sum float32 in row order on the CPU, so results are bit-equal)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as R
+from repro.core import datasets as rdata
+from repro.core.workload import CRIMES_SPEC as R_SPEC, generate_workload as r_generate
+import repro_torch.core as T
+from repro_torch.convert import sketch_from_numpy
+from repro_torch.core import datasets as tdata
+from repro_torch.core.workload import CRIMES_SPEC as T_SPEC, generate_workload as t_generate
+
+torch.set_num_threads(1)  # small tensors; leave the cores to the other xdist workers
+
+N_ROWS = 12_000
+
+
+@pytest.fixture(scope="module")
+def dbs():
+    return (R.Database({"crimes": rdata.make_crimes(N_ROWS, seed=31)}),
+            T.Database({"crimes": tdata.make_crimes(N_ROWS, seed=31, device="cpu")}))
+
+
+def _nested(mod, db_res_values):
+    """Two Q-AAGH queries with data-calibrated thresholds."""
+    tau = float(np.quantile(db_res_values, 0.6))
+    return [
+        mod.Query("crimes", ("district", "year"), mod.Aggregate("sum", "records"),
+                  having=mod.Having(">", tau), outer_groupby=("district",),
+                  outer_agg=mod.Aggregate("count"), outer_having=mod.Having(">", 2)),
+        mod.Query("crimes", ("district", "year"), mod.Aggregate("sum", "records"),
+                  having=mod.Having(">", tau * 1.2), outer_groupby=("district",),
+                  outer_agg=mod.Aggregate("count"), outer_having=mod.Having(">", 2)),
+    ]
+
+
+@pytest.fixture(scope="module")
+def workloads(dbs):
+    rdb, tdb = dbs
+    rq = r_generate(R_SPEC, rdb, 10, seed=4)
+    tq = t_generate(T_SPEC, tdb, 10, seed=4)
+    base = R.execute(R.Query("crimes", ("district", "year"), R.Aggregate("sum", "records")),
+                     rdb).values
+    return rq + _nested(R, base), tq + _nested(T, base)
+
+
+def test_generated_workloads_match(workloads):
+    rq, tq = workloads
+    assert [q.signature() for q in tq] == [q.signature() for q in rq]
+    assert {q.template for q in tq} == {"Q-AGH", "Q-AAGH"}
+
+
+def _index_contents(index):
+    return sorted(
+        (repr(e.query.signature()), e.sketch.attr, e.sketch.bits.tolist(), e.sketch.size_rows,
+         e.sketch.total_rows, e.uses, e.last_hit)
+        for e in index.entries())
+
+
+def _selection_state(eng):
+    state = eng.selection_state()
+    wl = state["workload"]
+    return (state["selection_cache"], wl["window"], wl["clock"],
+            [(stamp, q.signature()) for stamp, q in wl["entries"]])
+
+
+@pytest.mark.parametrize("strategy", ["CB-OPT-GB", "OPT", "NO-PS"])
+def test_workload_replay_matches_reference(dbs, workloads, strategy):
+    rdb, tdb = dbs
+    rq, tq = workloads
+    reng = R.PBDSEngine(rdb, strategy=strategy, seed=9)
+    teng = T.PBDSEngine(tdb, strategy=strategy, seed=9)
+    created = reused = 0
+    for _ in range(2):
+        for q1, q2 in zip(rq, tq):
+            r_res, r_info = reng.run(q1)
+            t_res, t_info = teng.run(q2)
+            assert t_res.canonical() == r_res.canonical(), q1
+            assert (t_info.created, t_info.reused, t_info.attr, t_info.selectivity) == (
+                r_info.created, r_info.reused, r_info.attr, r_info.selectivity), q1
+            created += t_info.created
+            reused += t_info.reused
+    assert _index_contents(teng.index) == _index_contents(reng.index)
+    assert (teng.index.hits, teng.index.misses) == (reng.index.hits, reng.index.misses)
+    assert _selection_state(teng) == _selection_state(reng)
+    if strategy != "NO-PS":
+        assert created >= 1 and reused >= 1
+    # Every served result is the full-table result (Def. 4, extensionally).
+    for q in tq:
+        assert teng.run(q)[0].canonical() == T.execute(q, tdb).canonical()
+
+
+def test_selection_state_round_trips(dbs, workloads):
+    _, tdb = dbs
+    _, tq = workloads
+    eng = T.PBDSEngine(tdb, seed=9)
+    for q in tq[:4]:
+        eng.run(q)
+    state = eng.selection_state()
+    fresh = T.PBDSEngine(tdb, seed=9)
+    fresh.restore_selection_state(state)
+    assert fresh.selection_state() == state
+    assert fresh.workload.reach(tq[0]) == eng.workload.reach(tq[0])
+
+
+def test_reference_sketch_applies_in_the_port(dbs, workloads):
+    """A sketch captured by the reference, carried over as numpy, selects the
+    same instance rows and gives the same result in the port."""
+    rdb, tdb = dbs
+    rq, tq = workloads
+    q1, q2 = rq[0], tq[0]
+    ranges = R.equi_depth_ranges(rdb["crimes"], q1.groupby[0], 100)
+    rsk = R.capture_sketch(q1, rdb, ranges, catalog=R.Catalog())
+    tsk = sketch_from_numpy(tdb["crimes"], rsk.attr, rsk.ranges.bounds, rsk.bits,
+                            rsk.size_rows, rsk.total_rows)
+    rcat, tcat = R.Catalog(), T.Catalog()
+    rinst = R.apply_sketch(rsk, rdb, catalog=rcat)["crimes"]
+    tinst = T.apply_sketch(tsk, tdb, catalog=tcat)["crimes"]
+    for a in rinst.schema:
+        np.testing.assert_array_equal(tinst[a].numpy(), np.asarray(rinst[a]))
+    assert (T.execute_with_sketch(q2, tdb, tsk, catalog=tcat).canonical()
+            == R.execute_with_sketch(q1, rdb, rsk, catalog=rcat).canonical())
+    assert T.is_safe_sketch(q2, tdb, tsk)
+    with pytest.raises(ValueError):
+        sketch_from_numpy(tdb["crimes"], rsk.attr, rsk.ranges.bounds, rsk.bits[:-1],
+                          rsk.size_rows, rsk.total_rows)
+
+
+def test_deferred_paths_name_their_slice(dbs, workloads):
+    _, tdb = dbs
+    _, tq = workloads
+    eng = T.PBDSEngine(tdb)
+    with pytest.raises(NotImplementedError):
+        eng.append_rows("crimes", {})
+    with pytest.raises(NotImplementedError):
+        eng.delete_rows("crimes", np.zeros(N_ROWS, dtype=bool))
+    with pytest.raises(NotImplementedError):
+        eng.run_batch(tq[:2])
+    joined = dataclasses.replace(tq[0], join=T.JoinSpec("orders", "pid", "o_orderkey"))
+    with pytest.raises(NotImplementedError):
+        T.execute(joined, tdb)
+
+
+def test_engine_runs_on_its_tables_device(dbs):
+    _, tdb = dbs
+    assert T.PBDSEngine(tdb).device.type == "cpu"

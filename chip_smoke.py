@@ -10,7 +10,8 @@ both, the bandwidth bound and one PyTorch library call as a yardstick.
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
-over the full table.  Any failed check raises, so the exit code is not 0.
+over the full table; it also times selection's host incidence pass.  Any
+failed check raises, so the exit code is not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as ``nvidia-smi`` reports them, and last
@@ -114,7 +115,7 @@ def phase_build() -> None:
 def phase_kernels(n: int, seed: int) -> dict:
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -128,7 +129,7 @@ def phase_kernels(n: int, seed: int) -> dict:
     # Leave some fragments empty so the bitmap is not all ones.
     prov &= bucket % 7 != 3
     got = ops.fragment_bitmap(prov, bucket, n_ranges)
-    want = ops.fragment_bitmap(prov, bucket, n_ranges, backend="ref")
+    want = ref.fragment_bitmap_ref(prov, bucket, n_ranges)
     torch.cuda.synchronize()
     require(torch.equal(got, want), "fragment_bitmap disagrees with its plain version")
     bucket_l, prov_i = bucket.long(), prov.to(torch.int32)
@@ -137,7 +138,7 @@ def phase_kernels(n: int, seed: int) -> dict:
     rows["fragment_bitmap"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: ops.fragment_bitmap(prov, bucket, n_ranges)),
-        plain_ms=time_ms(lambda: ops.fragment_bitmap(prov, bucket, n_ranges, backend="ref")),
+        plain_ms=time_ms(lambda: ref.fragment_bitmap_ref(prov, bucket, n_ranges)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.zeros(n_ranges, dtype=torch.int32, device=dev)
                            .scatter_reduce_(0, bucket_l, prov_i, reduce="amax")),
@@ -147,14 +148,14 @@ def phase_kernels(n: int, seed: int) -> dict:
     # sketch_filter: the instance build's keep-mask over 100 ranges.
     bits = torch.rand(n_ranges, generator=gen, device=dev) < 0.4
     got = ops.sketch_filter(bucket, bits)
-    want = ops.sketch_filter(bucket, bits, backend="ref")
+    want = ref.sketch_filter_ref(bucket, bits)
     torch.cuda.synchronize()
     require(torch.equal(got, want), "sketch_filter disagrees with its plain version")
     b_ms, b_by = bound(n * 4 + n_ranges + n * 1, 0)
     rows["sketch_filter"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: ops.sketch_filter(bucket, bits)),
-        plain_ms=time_ms(lambda: ops.sketch_filter(bucket, bits, backend="ref")),
+        plain_ms=time_ms(lambda: ref.sketch_filter_ref(bucket, bits)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: bits[bucket_l]),
     )
@@ -167,7 +168,7 @@ def phase_kernels(n: int, seed: int) -> dict:
         w = (torch.rand(n, generator=gen, device=dev) < 0.5).to(torch.float32)
         integral = torch.randint(0, 8, (n,), generator=gen, device=dev).to(torch.float32)
         s1, c1 = ops.segment_aggregate(integral, gid, g, w)
-        s2, c2 = ops.segment_aggregate(integral, gid, g, w, backend="ref")
+        s2, c2 = ref.segment_aggregate_ref(integral, gid, g, w)
         torch.cuda.synchronize()
         require(float(s2.max()) < ENVELOPE, "integral test sums left the 2^24 envelope")
         require(torch.equal(s1, s2) and torch.equal(c1, c2),
@@ -177,7 +178,7 @@ def phase_kernels(n: int, seed: int) -> dict:
         # |v * w| (the scale of float32 summation error).
         normal = torch.randn(n, generator=gen, device=dev)
         s1, c1 = ops.segment_aggregate(normal, gid, g, w)
-        s2, _ = ops.segment_aggregate(normal, gid, g, w, backend="ref")
+        s2, _ = ref.segment_aggregate_ref(normal, gid, g, w)
         gl = gid.long()
         truth = torch.zeros(g, dtype=torch.float64, device=dev).index_add_(
             0, gl, (normal * w).double())
@@ -188,6 +189,11 @@ def phase_kernels(n: int, seed: int) -> dict:
         require(err_k <= 1e-5 and err_p <= 1e-5,
                 f"segment_aggregate (G={g}) normal sums off: kernel {err_k:.2e}, plain {err_p:.2e}")
         require(torch.equal(c1, c2), f"segment_aggregate (G={g}) counts differ")
+        # The kernel adds in a fixed order: reruns give the same bits.
+        for _ in range(3):
+            s3, c3 = ops.segment_aggregate(normal, gid, g, w)
+            require(torch.equal(s1, s3) and torch.equal(c1, c3),
+                    f"segment_aggregate (G={g}) gave other bits on a rerun of normal inputs")
         diff = float((s1 - s2).abs().max())
         seg_err = max(seg_err, diff)
         vw2 = torch.stack([integral * w, w], dim=1)
@@ -197,12 +203,13 @@ def phase_kernels(n: int, seed: int) -> dict:
         row = dict(
             max_abs_err=diff,
             ms=time_ms(lambda: ops.segment_aggregate(integral, gid, g, w)),
-            plain_ms=time_ms(lambda: ops.segment_aggregate(integral, gid, g, w, backend="ref")),
+            plain_ms=time_ms(lambda: ref.segment_aggregate_ref(integral, gid, g, w)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: out2.index_add_(0, gl, vw2)),
         )
         log(f"[kernels] segment_aggregate n={n} G={g} integral bit-exact; normal "
-            f"rel err kernel {err_k:.2e} plain {err_p:.2e}, max |kernel-plain| {diff:.3e}; {row}")
+            f"rel err kernel {err_k:.2e} plain {err_p:.2e}, max |kernel-plain| {diff:.3e}, "
+            f"3 reruns bit-equal; {row}")
         rows["segment_aggregate"] = row  # the widest pad is the one reported
     rows["segment_aggregate"]["max_abs_err"] = seg_err
     return rows
@@ -247,9 +254,11 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
 
     from repro_torch.core import Database, PBDSEngine, default_catalog, execute
     from repro_torch.core.datasets import make_crimes
+    from repro_torch.core.strategies import select_attribute
     from repro_torch.core.workload import CRIMES_SPEC, generate_workload
     from repro_torch.device import to_host
     from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.prng import PRNGKey
     from repro_torch.runtime.guards import LAUNCH_COUNTS
 
     t0 = time.perf_counter()
@@ -264,6 +273,21 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
     log(f"[engine] workload: {len(workload)} unique queries x {replays} replays, "
         f"generated in {time.perf_counter() - t0:.2f} s")
     require(len(workload) == n_unique, "workload generator returned too few queries")
+
+    # Selection's incidence pass runs on the host (the reference runs it on
+    # the device): time each call inside t_select.
+    from repro_torch.aqp import size_estimation
+
+    incidence = []  # (candidates, pairs, ranges, ms) of each call
+    incidence_pass = size_estimation._incidence_pass
+
+    def timed_incidence_pass(frag, valid, p_pair, sizes):
+        t0 = time.perf_counter()
+        out = incidence_pass(frag, valid, p_pair, sizes)
+        incidence.append((*frag.shape, sizes.shape[1], (time.perf_counter() - t0) * 1e3))
+        return out
+
+    size_estimation._incidence_pass = timed_incidence_pass
 
     eng = PBDSEngine(db, strategy="CB-OPT-GB", n_ranges=100, theta=0.05, seed=seed)
     stream = [q for _ in range(replays) for q in workload]
@@ -289,6 +313,22 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
     created = sum(info.created for _, _, info in results)
     log(f"[engine] {len(stream)} queries in {t_run:.2f} s: index hits {eng.index.hits}, "
         f"misses {eng.index.misses}, sketches created {created}; launches {launches}")
+
+    def log_incidence(what: str) -> None:
+        log(f"[engine] host _incidence_pass, {what}: {len(incidence)} calls, (candidates, "
+            f"pairs, ranges, ms) {[(c, p, r, round(ms, 3)) for c, p, r, ms in incidence]}")
+
+    log_incidence("main path")
+    # The stats prefilter may leave one candidate and skip the estimate; a
+    # paper-faithful selection (no prefilter) of the first query ranks all
+    # its candidates through the pass.
+    incidence.clear()
+    t0 = time.perf_counter()
+    pick = select_attribute("CB-OPT-GB", PRNGKey(seed), workload[0], db, 100,
+                            catalog=eng.catalog)
+    log_incidence(f"paper-faithful selection of q00 ({len(pick.candidates)} candidates, "
+                  f"picked {pick.attr}, {(time.perf_counter() - t0) * 1e3:.1f} ms in all)")
+    size_estimation._incidence_pass = incidence_pass
     require(created >= 1, "no sketch was created")
     require(eng.index.hits >= 1, "no index hit occurred")
     for name, count in launches.items():

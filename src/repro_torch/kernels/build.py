@@ -34,7 +34,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "segment_aggregate": {
-        "segagg_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _I, _I]),
+        "segagg_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _I]),
     },
     "fragment_bitmap": {
         "bitmap_threads": (_I, []),

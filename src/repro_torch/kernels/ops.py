@@ -3,9 +3,7 @@
 
 Each function casts its inputs to the kernel's types and goes to the
 kernel wrapper, which launches the CUDA kernel for a CUDA tensor and runs
-the plain version for a CPU tensor.  ``backend="ref"`` forces the plain
-version on either device: ``chip_smoke.py`` uses it to hold each kernel
-against its plain version on the card.
+the plain version (``kernels/ref.py``) for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -13,36 +11,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
 from repro_torch.kernels.fragment_bitmap import fragment_bitmap as _fragment_bitmap
 from repro_torch.kernels.segment_aggregate import segment_aggregate as _segment_aggregate
 from repro_torch.kernels.sketch_filter import sketch_filter as _sketch_filter
 
-BACKENDS = (None, "ref")
+
+def fragment_bitmap(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int) -> torch.Tensor:
+    return _fragment_bitmap(prov.to(torch.bool).contiguous(),
+                            bucket.to(torch.int32).contiguous(), n_ranges)
 
 
-def _plain(backend: Optional[str]) -> bool:
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    return backend == "ref"
-
-
-def fragment_bitmap(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int,
-                    backend: Optional[str] = None) -> torch.Tensor:
-    prov = prov.to(torch.bool).contiguous()
-    bucket = bucket.to(torch.int32).contiguous()
-    if _plain(backend):
-        return ref.fragment_bitmap_ref(prov, bucket, n_ranges)
-    return _fragment_bitmap(prov, bucket, n_ranges)
-
-
-def sketch_filter(bucket: torch.Tensor, bits: torch.Tensor,
-                  backend: Optional[str] = None) -> torch.Tensor:
-    bucket = bucket.to(torch.int32).contiguous()
-    bits = bits.to(torch.bool).contiguous()
-    if _plain(backend):
-        return ref.sketch_filter_ref(bucket, bits)
-    return _sketch_filter(bucket, bits)
+def sketch_filter(bucket: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    return _sketch_filter(bucket.to(torch.int32).contiguous(), bits.to(torch.bool).contiguous())
 
 
 def segment_aggregate(
@@ -50,12 +30,9 @@ def segment_aggregate(
     gid: torch.Tensor,
     n_groups: int,
     weights: Optional[torch.Tensor] = None,
-    backend: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     values = values.to(torch.float32).contiguous()
     gid = gid.to(torch.int32).contiguous()
     weights = (torch.ones_like(values) if weights is None
                else weights.to(torch.float32).contiguous())
-    if _plain(backend):
-        return ref.segment_aggregate_ref(values, gid, n_groups, weights)
     return _segment_aggregate(values, gid, n_groups, weights)

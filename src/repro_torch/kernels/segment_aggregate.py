@@ -16,36 +16,54 @@ from repro_torch.kernels.ref import segment_aggregate_ref
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "segment_aggregate"
-# Per-block partials (2 * n_groups floats) stay in shared memory up to this
-# size; a block may use 227 KB on an H100, and 128 KB holds the 16,384-group
-# pad of the widest group-bys.
+# Where the per-block partials accumulate (the source's launch modes): one
+# copy per warp in shared memory (few groups), one copy per block in shared
+# memory, or the block's slice of global scratch.
+PRIVATE, SHARED, GLOBAL = 0, 1, 2
+# Few groups: 256-thread blocks, every warp with its own copy of the
+# partials while the 8 copies take at most PRIVATE_LIMIT, loading 2 runs of
+# 32 rows at a time.
+PRIV_THREADS = 256
+PRIV_ROWS = PRIV_THREADS * 2
+PRIVATE_LIMIT = 64 * 1024
+# Many groups: 512 threads (16 warps, each owning the groups g % 16 ==
+# warp), each loading 4 rows of a 2,048-row tile.  Shared memory before the
+# partials: the tile's rows sorted into the owners' lists (3 words a row),
+# the rows of each owner in each run of 32 rows, and 32 words of scan totals.
+THREADS = 512
+WARPS = THREADS // 32
+TILE_ROWS = THREADS * 4
+STAGE_BYTES = 4 * (3 * TILE_ROWS + WARPS * (TILE_ROWS // 32) + 32)
+# One copy of the partials (2 * n_groups floats) stays in shared memory up
+# to this size; a block may use 227 KB on an H100, and 128 KB holds the
+# 16,384-group pad of the widest group-bys.
 SHARED_LIMIT = 160 * 1024
 SHARED_PER_SM = 228 * 1024
 THREADS_PER_SM = 2048
-# Partials above this size take 1024-thread blocks (few blocks fit an SM).
-WIDE_PARTIALS = 24 * 1024
 # Above SHARED_LIMIT the partials live in global scratch, at most this big.
 GLOBAL_SCRATCH = 256 << 20
 
 
-def grid(n: int, n_groups: int, n_sms: int) -> Tuple[int, int, bool]:
-    """(blocks, threads per block, partials in shared memory?) for ``n``
-    rows and ``n_groups``.
+def grid(n: int, n_groups: int, n_sms: int) -> Tuple[int, int]:
+    """(blocks, mode) for ``n`` rows and ``n_groups``.
 
     Enough blocks to fill every SM as far as shared memory allows (and no
     more than the rows need): the merge pass reads every block's partials,
-    so a wide group-by runs fewer, fuller blocks.
+    so a wide group-by runs fewer blocks.  The grid fixes the order of the
+    float additions, so equal inputs on one card give equal bits.
     """
     part = 8 * n_groups
-    shared = part <= SHARED_LIMIT
-    threads = 1024 if part > WIDE_PARTIALS else 256
-    per_sm = THREADS_PER_SM // threads
-    if shared:
-        per_sm = max(1, min(per_sm, SHARED_PER_SM // (part + 1024)))
-    blocks = max(1, min(n_sms * per_sm, -(-n // threads)))
-    if not shared:
+    if (PRIV_THREADS // 32) * part <= PRIVATE_LIMIT:
+        mode, threads, rows, smem = PRIVATE, PRIV_THREADS, PRIV_ROWS, (PRIV_THREADS // 32) * part
+    else:
+        mode = SHARED if part <= SHARED_LIMIT else GLOBAL
+        threads, rows = THREADS, TILE_ROWS
+        smem = STAGE_BYTES + (part if mode == SHARED else 0)
+    per_sm = max(1, min(THREADS_PER_SM // threads, SHARED_PER_SM // (smem + 1024)))
+    blocks = max(1, min(n_sms * per_sm, -(-n // rows)))
+    if mode == GLOBAL:
         blocks = max(1, min(blocks, GLOBAL_SCRATCH // part))
-    return blocks, threads, shared
+    return blocks, mode
 
 
 def segment_aggregate(
@@ -66,14 +84,14 @@ def segment_aggregate(
     lib = build.library(NAME)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     n_sms = torch.cuda.get_device_properties(index).multi_processor_count
-    blocks, threads, shared = grid(n, n_groups, n_sms)
+    blocks, mode = grid(n, n_groups, n_sms)
     sums = torch.empty(n_groups, dtype=torch.float32, device=dev)
     counts = torch.empty(n_groups, dtype=torch.float32, device=dev)
     scratch = torch.empty(blocks * 2 * n_groups, dtype=torch.float32, device=dev)
     err = lib.segagg_launch(
         index, build.stream_handle(dev), values.data_ptr(), gid.data_ptr(),
         weights.data_ptr(), n, n_groups, sums.data_ptr(), counts.data_ptr(),
-        scratch.data_ptr(), blocks, threads, int(shared))
+        scratch.data_ptr(), blocks, mode)
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
     return sums, counts

@@ -1,33 +1,25 @@
-"""Hot-path marker and shared telemetry counters (port of the part of
+"""Hot-path marker and kernel launch counters (port of the part of
 ``repro/runtime/guards.py`` the single-table engine path uses).
 
 ``LAUNCH_COUNTS``
     Bumped by each CUDA kernel wrapper exactly where it launches its kernel
     (keys are the kernel names, e.g. ``"segment_aggregate"``), so a run can
     show that the main path went through the hand-written kernels.
-``TRACE_COUNTS``
-    Kept for parity with the reference's registry; nothing in the port is
-    traced, so no key moves yet.
 
-``@hot_path`` tags serving-critical entry points and records their names;
-it adds no wrapper and costs nothing at run time.
+``@hot_path`` tags serving-critical entry points, as in the reference; it
+returns the function unchanged.
 """
 from __future__ import annotations
 
 import collections
-from typing import Callable, List, TypeVar
+from typing import Callable, TypeVar
 
 F = TypeVar("F", bound=Callable)
 
-TRACE_COUNTS: collections.Counter = collections.Counter()
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
-
-HOT_PATHS: List[str] = []
 
 
 def hot_path(fn: F) -> F:
     """Mark ``fn`` as a serving-critical hot path (no host-device sync
     outside the reference's merge points, pow2-padded shapes)."""
-    HOT_PATHS.append(f"{fn.__module__}.{fn.__qualname__}")
-    fn.__hot_path__ = True  # type: ignore[attr-defined]
     return fn

@@ -2,6 +2,9 @@
 version against the jnp oracle (bit-equal: both add in row order) and the
 Pallas kernel run in interpret mode, at ``tests/test_kernels.py``'s shapes.
 The CUDA kernels themselves run only on the card (``cuda`` marker)."""
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +13,10 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels.segment_aggregate import GLOBAL_SCRATCH, SHARED_LIMIT, grid
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.segment_aggregate import (
+    GLOBAL, GLOBAL_SCRATCH, PRIV_ROWS, PRIV_THREADS, PRIVATE, PRIVATE_LIMIT, SHARED,
+    SHARED_LIMIT, STAGE_BYTES, THREADS, TILE_ROWS, grid)
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 torch.set_num_threads(1)  # small tensors; leave the cores to the other xdist workers
@@ -93,26 +99,39 @@ def test_cpu_wrappers_use_plain_versions_without_launching():
     assert dict(LAUNCH_COUNTS) == before
 
 
-def test_backend_rejects_unknown_names():
-    with pytest.raises(ValueError):
-        ops.sketch_filter(torch.zeros(2, dtype=torch.int32), torch.ones(1, dtype=torch.bool),
-                          backend="pallas")
+def test_segment_aggregate_block_shape_matches_source():
+    """The wrapper sizes the grid and shared memory from the block shapes
+    that the CUDA source fixes."""
+    src = (Path(build.__file__).parent / "csrc" / "segment_aggregate.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["kPrivThreads"] == PRIV_THREADS
+    assert const["kPrivThreads"] * const["kSteps"] == PRIV_ROWS
+    threads, rows = const["kThreads"], const["kRows"]
+    assert threads == THREADS and threads * rows == TILE_ROWS
+    runs = rows * threads // 32
+    assert STAGE_BYTES == 4 * (3 * threads * rows + threads // 32 * runs + 32)
 
 
-@pytest.mark.parametrize("n,g,sms", [(1 << 23, 16, 132), (1 << 23, 16384, 132),
+@pytest.mark.parametrize("n,g,sms", [(1 << 23, 16, 132), (1 << 23, 1024, 132),
+                                     (1 << 23, 2048, 132), (1 << 23, 16384, 132),
                                      (100, 4, 132), (1 << 20, 1 << 16, 132)])
 def test_segment_aggregate_grid(n, g, sms):
-    """The launch shape: partials in shared memory while they fit, bounded
-    global scratch above, and never more blocks than rows need."""
-    blocks, threads, shared = grid(n, g, sms)
-    assert threads in (256, 1024)
-    assert 1 <= blocks <= max(1, -(-n // threads))
-    assert shared == (8 * g <= SHARED_LIMIT)
-    if shared:
-        assert blocks * threads <= 2048 * sms  # resident at once
-        assert blocks // sms * (8 * g) <= 228 * 1024
+    """The launch shape: per-warp partials while few groups, one shared copy
+    while it fits, bounded global scratch above, and never more blocks than
+    the rows need."""
+    blocks, mode = grid(n, g, sms)
+    part = 8 * g
+    assert mode == (PRIVATE if 8 * part <= PRIVATE_LIMIT
+                    else SHARED if part <= SHARED_LIMIT else GLOBAL)
+    threads, rows = (PRIV_THREADS, PRIV_ROWS) if mode == PRIVATE else (THREADS, TILE_ROWS)
+    assert 1 <= blocks <= max(1, -(-n // rows))
+    assert blocks * threads <= 2048 * sms  # resident at once
+    if mode == PRIVATE:
+        assert blocks // sms * 8 * part <= 228 * 1024
+    elif mode == SHARED:
+        assert blocks // sms * (part + STAGE_BYTES) <= 228 * 1024
     else:
-        assert blocks * 8 * g <= GLOBAL_SCRATCH
+        assert blocks * part <= GLOBAL_SCRATCH
 
 
 @pytest.mark.cuda
@@ -125,10 +144,26 @@ def test_segment_aggregate_kernel_matches_plain(cuda, g):
     w = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
     before = LAUNCH_COUNTS["segment_aggregate"]
     s1, c1 = ops.segment_aggregate(vals, gid, g, w)
-    s2, c2 = ops.segment_aggregate(vals, gid, g, w, backend="ref")
+    s2, c2 = ref.segment_aggregate_ref(vals, gid, g, w)
     torch.cuda.synchronize()
     assert torch.equal(s1, s2) and torch.equal(c1, c2)  # integral: exact in any order
     assert LAUNCH_COUNTS["segment_aggregate"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [16, 16384, 65536])
+def test_segment_aggregate_kernel_reruns_give_equal_bits(cuda, g):
+    """Non-integral sums: the kernel adds in a fixed order, so a rerun on the
+    same inputs gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    n = 1 << 20
+    gid = torch.randint(0, g, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    vals = torch.randn(n, generator=gen, device=cuda)
+    w = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    first = ops.segment_aggregate(vals, gid, g, w)
+    for _ in range(3):
+        again = ops.segment_aggregate(vals, gid, g, w)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.mark.cuda
@@ -139,9 +174,8 @@ def test_bitmap_and_filter_kernels_match_plain(cuda, n):
     prov = torch.rand(n, generator=gen, device=cuda) < 0.1
     bits = torch.rand(100, generator=gen, device=cuda) < 0.4
     assert torch.equal(ops.fragment_bitmap(prov, bucket, 100),
-                       ops.fragment_bitmap(prov, bucket, 100, backend="ref"))
-    assert torch.equal(ops.sketch_filter(bucket, bits),
-                       ops.sketch_filter(bucket, bits, backend="ref"))
+                       ref.fragment_bitmap_ref(prov, bucket, 100))
+    assert torch.equal(ops.sketch_filter(bucket, bits), ref.sketch_filter_ref(bucket, bits))
 
 
 @pytest.mark.cuda

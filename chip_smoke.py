@@ -3,15 +3,21 @@
 
     python3 chip_smoke.py
 
-Phase 1 builds every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``
+Phase 1 builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once).  Phase 2 holds each kernel against
 its plain PyTorch version on the card at the main path's shapes and times
 both, the bandwidth bound and one PyTorch library call as a yardstick.
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
-over the full table; it also times selection's host incidence pass.  Any
-failed check raises, so the exit code is not 0.
+over the full table; it also times selection's host incidence pass.
+Phase 4 drives ``PBDSEngine.run_batch`` and maintenance on the same table
+with a fresh engine: bursts of queries that differ only in their HAVING
+thresholds, a replay, an append of 1% of the rows, a burst that repairs
+every sketch, a delete of one year and another burst; it checks every
+result against full-table execution of the current version and every
+maintained sketch against a fresh capture.  Any failed check raises, so the
+exit code is not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as ``nvidia-smi`` reports them, and last
@@ -36,6 +42,7 @@ ENVELOPE = float(1 << 24)  # float32 adds integers exactly below this
 KERNEL_ROWS = 1 << 23  # 6.7M rows padded to pow2, the executor's row class
 ROWS = 6_700_000  # Chicago Crime in the paper's evaluation
 UNIQUE, REPLAYS, SEED = 8, 3, 9
+APPEND_FRAC = 0.01  # phase 4 appends 1% of the rows
 
 # (name, source, TPU kernel it replaces)
 KERNELS = (
@@ -45,6 +52,8 @@ KERNELS = (
      "src/repro/kernels/fragment_bitmap.py:44"),
     ("sketch_filter", "src/repro_torch/kernels/csrc/sketch_filter.cu",
      "src/repro/kernels/sketch_filter.py:35"),
+    ("fragment_bitmap_batch", "src/repro_torch/kernels/csrc/fragment_bitmap_batch.cu",
+     "src/repro/kernels/fragment_bitmap.py:99"),
 )
 
 
@@ -161,6 +170,36 @@ def phase_kernels(n: int, seed: int) -> dict:
     )
     log(f"[kernels] sketch_filter n={n} n_ranges={n_ranges} bit-exact; {rows['sketch_filter']}")
 
+    # fragment_bitmap_batch: a wave's capture, B masks over one bucketization.
+    # The row is B = 8 (a pow2-padded burst of 5-8 thresholds); B = 32 is logged.
+    for b in (32, 8):
+        provs = torch.rand((b, n), generator=gen, device=dev) < 0.3
+        # Each mask leaves its own fragments empty, so no two rows are alike.
+        provs &= (bucket[None, :] + torch.arange(b, device=dev)[:, None]) % 7 != 3
+        got = ops.fragment_bitmap_batch(provs, bucket, n_ranges)
+        want = ref.fragment_bitmap_batch_ref(provs, bucket, n_ranges)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"fragment_bitmap_batch (B={b}) disagrees with its plain version")
+        for i in range(b):
+            require(torch.equal(got[i], ops.fragment_bitmap(provs[i], bucket, n_ranges)),
+                    f"fragment_bitmap_batch (B={b}) row {i} disagrees with fragment_bitmap")
+        require(bool(got.any()) and not bool(got.all()), "batch bitmap test is degenerate")
+        provs_i = provs.to(torch.int32)
+        index = bucket_l.expand(b, n)
+        b_ms, b_by = bound(n * 4 + b * n + b * n_ranges, 0)
+        rows["fragment_bitmap_batch"] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: ops.fragment_bitmap_batch(provs, bucket, n_ranges)),
+            plain_ms=time_ms(lambda: ref.fragment_bitmap_batch_ref(provs, bucket, n_ranges)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.zeros((b, n_ranges), dtype=torch.int32, device=dev)
+                               .scatter_reduce_(1, index, provs_i, reduce="amax")),
+        )
+        log(f"[kernels] fragment_bitmap_batch n={n} n_ranges={n_ranges} B={b} bit-exact, "
+            f"rows equal to fragment_bitmap; {rows['fragment_bitmap_batch']}")
+        del provs, provs_i, index, got, want
+
     # segment_aggregate: the executor's group pads, integral and normal values.
     seg_err = 0.0
     for g in (16, 16384):
@@ -248,7 +287,16 @@ def check_result(q, res, full, envelope_left: bool) -> str:
     return "within 1e-6"
 
 
-def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
+# The kernels each engine path launches (phase 3: ``run``; phase 4: ``run_batch``
+# and repairs, whose captures are all batched and whose repairs are maintained).
+RUN_KERNELS = ("segment_aggregate", "fragment_bitmap", "sketch_filter")
+BATCH_KERNELS = ("segment_aggregate", "sketch_filter", "fragment_bitmap_batch")
+
+
+def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int):
+    """Returns the launches of ``run``'s path, the database, the workload and
+    each query's full-table result values (phase 4 takes its thresholds from
+    them)."""
     import numpy as np
     import torch
 
@@ -291,7 +339,7 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
 
     eng = PBDSEngine(db, strategy="CB-OPT-GB", n_ranges=100, theta=0.05, seed=seed)
     stream = [q for _ in range(replays) for q in workload]
-    for name in BUILT:
+    for name in BUILT:  # every count, so a stray launch of another kernel shows
         LAUNCH_COUNTS[name] = 0
     torch.cuda.synchronize()
     t_run = time.perf_counter()
@@ -309,6 +357,8 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
             f"execute={info.t_execute * 1e3:.1f}ms wall={wall * 1e3:.1f}ms "
             f"groups_out={len(res.values)}")
     launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    require(launches["fragment_bitmap_batch"] == 0, "run launched the batched bitmap")
+    launches = {name: launches[name] for name in RUN_KERNELS}
     t_run = time.perf_counter() - t_run
     created = sum(info.created for _, _, info in results)
     log(f"[engine] {len(stream)} queries in {t_run:.2f} s: index hits {eng.index.hits}, "
@@ -339,8 +389,10 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
     check_catalog = default_catalog()
     records = to_host(crimes["records"]).astype(np.float64)
     outcomes = {}
+    full_values = {}
     for q, res, _ in results:
         full = execute(q, db, catalog=check_catalog)
+        full_values[q.signature()] = full.values
         enc = check_catalog.groups(crimes, q.groupby)
         vals = records if q.agg.fn != "count" else np.ones_like(records)
         left = float(np.bincount(enc.gid, weights=vals, minlength=enc.n_groups).max()) >= ENVELOPE
@@ -366,6 +418,228 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int) -> dict:
     log(f"[engine] one miss, group-by {'/'.join(q.groupby)} ({n_groups} groups): host "
         f"encode_groups {t_encode * 1e3:.1f} ms, device segment_sums_counts "
         f"{t_agg * 1e3:.2f} ms; engine catalog {dict(eng.catalog.stats)}")
+    return launches, db, workload, full_values
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: run_batch and maintenance at real scale
+# ---------------------------------------------------------------------------
+
+
+def _bursts(workload, full_values, n_groups: int = 2, per_group: int = 6):
+    """One burst of queries in ``n_groups`` signature groups: for each group
+    (fewest group-by attributes first) whose full-table result has enough
+    distinct values, up to ``per_group`` thresholds at quantiles of those
+    values, highest first, so that no member subsumes a later one and the
+    burst is one admission wave."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import Having
+
+    seen, groups = set(), []
+    for q in sorted(workload, key=lambda q: len(q.groupby)):
+        if q.inner_signature() in seen:
+            continue
+        seen.add(q.inner_signature())
+        vals = np.asarray(full_values[q.signature()], dtype=np.float64)
+        if vals.size == 0:
+            continue
+        taus = np.unique(np.quantile(vals, np.linspace(0.9, 0.2, per_group)))
+        if taus.size < 4:
+            continue
+        groups.append([dataclasses.replace(q, having=Having(q.having.op, float(t)))
+                       for t in taus[::-1]])
+        if len(groups) == n_groups:
+            break
+    require(len(groups) == n_groups,
+            f"the workload has {len(groups)} signature groups with 4 distinct thresholds")
+    return [q for g in groups for q in g]
+
+
+def _check_version(label, version, db, queries, outputs, entries, catalog, envelope_cache):
+    """Every result of a burst equals full-table execution of the table
+    ``version`` it ran on (``db`` holds the same rows), and every sketch in
+    the index then, current for ``version``, equals a fresh capture over
+    ``db`` (its maintainer's bits too)."""
+    import numpy as np
+
+    from repro_torch.core import capture_sketch, execute
+    from repro_torch.device import to_host
+
+    crimes = db["crimes"]
+    outcomes = {}
+    for q, (res, _) in zip(queries, outputs):
+        full = execute(q, db, catalog=catalog)
+        key = (id(crimes), q.groupby, q.agg.fn)
+        if key not in envelope_cache:
+            enc = catalog.groups(crimes, q.groupby)
+            vals = to_host(crimes["records"]).astype(np.float64)
+            if q.agg.fn == "count":
+                vals = np.ones_like(vals)
+            envelope_cache[key] = float(np.bincount(
+                enc.gid, weights=vals, minlength=enc.n_groups).max()) >= ENVELOPE
+        outcome = check_result(q, res, full, envelope_cache[key])
+        outcomes[outcome] = outcomes.get(outcome, 0) + 1
+    for q, sketch, maintained_bits in entries:
+        require(sketch.current_for(version), f"{label}: a sketch is not current for its version")
+        fresh = capture_sketch(q, db, sketch.ranges, catalog=catalog)
+        require(np.array_equal(fresh.bits, sketch.bits) and fresh.size_rows == sketch.size_rows,
+                f"{label}: the maintained sketch of {q} differs from a fresh capture")
+        require(maintained_bits is None or np.array_equal(maintained_bits, sketch.bits),
+                f"{label}: maintainer bits differ from the sketch of {q}")
+    log(f"[batch] {label}: {len(queries)} results vs full-table execution {outcomes}; "
+        f"{len(entries)} sketches equal a fresh capture")
+
+
+def phase_batch(n_rows: int, seed: int, db=None, workload=None, full_values=None) -> dict:
+    """``run_batch`` and maintenance over the crimes table, with a fresh
+    engine: burst, replay, append 1%, burst (repairs), delete one year,
+    burst (repairs).  Without phase 3's table, workload and full-table
+    results it makes its own."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        Catalog, ColumnTable, Database, PBDSEngine, default_catalog, execute)
+    from repro_torch.core import admission
+    from repro_torch.core.datasets import make_crimes
+    from repro_torch.core.workload import CRIMES_SPEC, generate_workload
+    from repro_torch.device import to_host
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    t_phase = time.perf_counter()
+    if db is None:
+        db = Database({"crimes": make_crimes(n_rows, seed=seed, device="cuda")})
+    if workload is None:
+        workload = generate_workload(CRIMES_SPEC, db, UNIQUE, seed=seed)
+    if full_values is None:
+        full_values = {q.signature(): execute(q, db, catalog=default_catalog()).values
+                       for q in workload}
+    burst = _bursts(workload, full_values)
+    n_sigs = len({q.inner_signature() for q in burst})
+    log(f"[batch] burst of {len(burst)} queries in {n_sigs} signature groups: "
+        + "; ".join(f"gb={'/'.join(q.groupby)} {q.agg.fn} > {q.having.value:g}" for q in burst))
+
+    waves = []  # (misses, launches by kernel) of each admission wave
+    admit = admission.admit_misses
+
+    def counted_admit(engine, misses):
+        before = {k: LAUNCH_COUNTS[k] for k in BUILT}
+        out = admit(engine, misses)
+        waves.append((len(misses), {k: LAUNCH_COUNTS[k] - before[k] for k in BUILT
+                                    if LAUNCH_COUNTS[k] != before[k]}))
+        return out
+
+    eng = PBDSEngine(db, strategy="CB-OPT-GB", n_ranges=100, theta=0.05, seed=seed)
+    rng = np.random.default_rng(seed)
+    steps = []  # (label, db of the version, outputs, index snapshot)
+    stats = {}
+
+    def run_burst(label):
+        first = len(waves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run_batch(burst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for i, (q, (res, info)) in enumerate(zip(burst, out)):
+            log(f"[batch] {label} q{i:02d} gb={'/'.join(q.groupby)} >{q.having.value:g} "
+                f"{'hit ' if info.reused else 'miss'} created={info.created} "
+                f"repaired={info.repaired} attr={info.attr} sel={info.selectivity} "
+                f"probe={info.t_probe * 1e3:.2f}ms select={info.t_select * 1e3:.1f}ms "
+                f"capture={info.t_capture * 1e3:.1f}ms repair={info.t_repair * 1e3:.1f}ms "
+                f"execute={info.t_execute * 1e3:.1f}ms total={info.t_total * 1e3:.1f}ms "
+                f"groups_out={len(res.values)}")
+        log(f"[batch] {label}: {len(burst)} queries in {wall * 1e3:.1f} ms wall, "
+            f"{len(waves) - first} admission waves (misses, launches) {waves[first:]}")
+        snapshot = [(e.query, e.sketch, None if e.maintainer is None else e.maintainer.bits())
+                    for e in eng.index.entries()]
+        steps.append((label, eng.db, out, snapshot))
+        stats[label] = dict(eng.catalog.stats)
+        return out
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"[batch] {what}: {ms:.1f} ms wall; crimes now {eng.db['crimes'].num_rows} rows, "
+            f"version {eng.db['crimes'].version}")
+        return ms
+
+    admission.admit_misses = counted_admit
+    try:
+        for name in BUILT:
+            LAUNCH_COUNTS[name] = 0
+        out = run_burst("burst")
+        created = sum(info.created for _, info in out)
+        require(created == len(burst), f"the first burst created {created} of {len(burst)} sketches")
+        out = run_burst("replay")
+        require(all(info.reused and not info.repaired for _, info in out), "replay missed")
+
+        crimes = eng.db["crimes"]
+        m = int(round(APPEND_FRAC * crimes.num_rows))
+        # Each column's values drawn from its own domain (rows of the table,
+        # independently per column, so some group keys are new).
+        rows = {a: to_host(crimes[a].index_select(0, torch.from_numpy(
+                    rng.integers(0, crimes.num_rows, m)).to(crimes.device)))
+                for a in crimes.schema}
+        t_append = timed(f"append_rows of {m} rows", lambda: eng.append_rows("crimes", rows))
+        out = run_burst("after append")
+        require(all(info.reused and info.repaired for _, info in out),
+                "the burst after the append did not repair every sketch")
+
+        year = int(np.median(to_host(crimes["year"])))
+        mask = to_host(eng.db["crimes"]["year"] == year)
+        t_delete = timed(f"delete_rows of year {year} ({int(mask.sum())} rows)",
+                         lambda: eng.delete_rows("crimes", mask))
+        out = run_burst("after delete")
+        require(all(info.reused and info.repaired for _, info in out),
+                "the burst after the delete did not repair every sketch")
+        launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    finally:
+        admission.admit_misses = admit
+    t_run = time.perf_counter() - t_phase
+    log(f"[batch] driven in {t_run:.1f} s; launches {launches}; append {t_append:.1f} ms, "
+        f"delete {t_delete:.1f} ms; engine catalog {stats['after delete']}")
+
+    for name in BATCH_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the run_batch path")
+    require(launches["fragment_bitmap_batch"] < created,
+            "fragment_bitmap_batch launched once per sketch, not once per partition")
+    before, after_append, after_delete = stats["replay"], stats["after append"], stats["after delete"]
+    for counter in ("encode_groups", "bucketize", "fragment_sizes"):
+        require(before.get(counter, 0) == after_append.get(counter, 0)
+                == after_delete.get(counter, 0),
+                f"a mutation caused whole-table work: {counter} "
+                f"{before.get(counter, 0)} -> {after_delete.get(counter, 0)}")
+    for counter in ("encode_groups_delta", "bucketize_delta", "fragment_sizes_delta"):
+        require(before.get(counter, 0) < after_append.get(counter, 0)
+                < after_delete.get(counter, 0), f"no delta refresh counted in {counter}")
+    require(after_delete.get("sketch_maintained", 0) == 2 * created
+            and after_delete.get("sketch_recaptured", 0) == 0,
+            f"repairs: {after_delete.get('sketch_maintained', 0)} maintained, "
+            f"{after_delete.get('sketch_recaptured', 0)} re-captured of {2 * created}")
+
+    # Checks, after the counts were read: version 0 through phase 3's check
+    # catalog, each mutated version as a fresh table with a fresh catalog.
+    envelope_cache = {}
+    check_dbs = {}
+    for label, vdb, outputs, snapshot in steps:
+        t = vdb["crimes"]
+        if t.delta is None:
+            cdb, cat = vdb, default_catalog()
+        else:
+            if id(t) not in check_dbs:
+                root = ColumnTable(t.name, dict(t.columns), t.primary_key)
+                check_dbs[id(t)] = (t, Database({"crimes": root}), Catalog())
+            _, cdb, cat = check_dbs[id(t)]
+        _check_version(label, t, cdb, burst, outputs, snapshot, cat, envelope_cache)
+    log(f"[batch] phase done in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -386,7 +660,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(KERNEL_ROWS, SEED)
-    launches = phase_engine(ROWS, UNIQUE, REPLAYS, SEED)
+    launches, db, workload, full_values = phase_engine(ROWS, UNIQUE, REPLAYS, SEED)
+    batch_launches = phase_batch(ROWS, SEED, db, workload, full_values)
+    launches["fragment_bitmap_batch"] = batch_launches["fragment_bitmap_batch"]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,

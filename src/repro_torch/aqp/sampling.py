@@ -6,8 +6,8 @@ group gets its own reservoir of ``max(min_per_group, floor(theta * #g))``
 rows; when there are more groups than the sample budget a plain uniform
 reservoir is drawn instead.  The random keys come from the port's threefry
 (bit-exact with ``jax.random``) on the table's device; the index math runs
-on the host, as in the reference.  Extending a cached sample after an
-append waits for the maintenance slice.
+on the host, as in the reference.  After an append, a cached sample is
+extended by a delta pass over the appended rows instead of being redrawn.
 """
 from __future__ import annotations
 
@@ -122,14 +122,83 @@ def uniform_reservoir_sample(
     )
 
 
+def extend_sample_for_append(
+    key: torch.Tensor,
+    s: SampleSet,
+    batches: "Tuple[ColumnTable, ...]",
+    row_offsets: Tuple[int, ...],
+) -> SampleSet:
+    """Delta pass: fold appended batches into a cached sample.
+
+    Each new row is Bernoulli(theta)-included (a group with no sampled row
+    keeps its first batch row, the stratified ``min_per_group=1`` floor),
+    group sizes count *all* delta rows, and unseen group keys are numbered
+    after the existing ones (``map_group_keys``).  Old rows are never displaced;
+    estimators only need per-group uniformity, which Bernoulli inclusion
+    keeps.  One ``prng.split`` per batch, as the reference splits.
+    """
+    from repro_torch.core.catalog import extend_group_values, map_group_keys
+
+    indices = [s.indices]
+    sample_gid = [s.sample_gid]
+    group_sizes = s.group_sizes.copy()
+    sample_sizes = s.sample_sizes.copy()
+    group_values = {a: v.copy() for a, v in s.group_values.items()}
+    n_groups = s.n_groups
+    key_index: Dict[Tuple, int] = {}
+    if s.groupby:
+        cols = [group_values[a].tolist() for a in s.groupby]
+        key_index = {k: g for g, k in enumerate(zip(*cols))}
+
+    for batch, offset in zip(batches, row_offsets):
+        m = batch.num_rows
+        if m == 0:
+            continue
+        if s.groupby:
+            stacked = np.stack([to_host(batch[a]) for a in s.groupby], axis=1)
+            gid_b, new_keys, n_groups = map_group_keys(stacked, key_index, n_groups)
+            group_values = extend_group_values(group_values, s.groupby, new_keys)
+        else:
+            gid_b = np.zeros(m, dtype=np.int64)
+        if n_groups > group_sizes.shape[0]:
+            pad = n_groups - group_sizes.shape[0]
+            group_sizes = np.concatenate([group_sizes, np.zeros(pad, dtype=group_sizes.dtype)])
+            sample_sizes = np.concatenate([sample_sizes, np.zeros(pad, dtype=sample_sizes.dtype)])
+        np.add.at(group_sizes, gid_b, 1)
+        key, k_b = prng.split(key)
+        take = _draw(k_b, batch) < s.theta
+        # Unsampled groups keep their first batch row (the stratified floor).
+        uniq_g, first_idx = np.unique(gid_b, return_index=True)
+        force = first_idx[sample_sizes[uniq_g] == 0]
+        take[force] = True
+        np.add.at(sample_sizes, gid_b[take], 1)
+        indices.append(np.nonzero(take)[0] + offset)
+        sample_gid.append(gid_b[take])
+
+    return SampleSet(
+        table=s.table, groupby=s.groupby, theta=s.theta,
+        indices=np.concatenate(indices),
+        sample_gid=np.concatenate(sample_gid).astype(s.sample_gid.dtype),
+        n_groups=n_groups, group_sizes=group_sizes, sample_sizes=sample_sizes,
+        group_values=group_values, stratified=s.stratified,
+    )
+
+
 class SampleCache:
     """Sec. 7.1 reuse: cache stratified samples keyed by (table, group-by,
-    theta), valid for the exact table object they were drawn from."""
+    theta).
+
+    Version-aware: an entry remembers the table object it was drawn from.  A
+    lookup with a *newer* version of the same relation extends the sample
+    with a delta pass when every step between them is an append; deletes
+    (which invalidate row indices) and lineage changes redraw.
+    """
 
     def __init__(self):
         self._cache: Dict[Tuple[str, Tuple[str, ...], float], Tuple[SampleSet, "ColumnTable"]] = {}
         self.hits = 0
         self.misses = 0
+        self.extended = 0
 
     def get_or_create(
         self,
@@ -140,13 +209,39 @@ class SampleCache:
     ) -> SampleSet:
         ck = (table.name, tuple(groupby), theta)
         cached = self._cache.get(ck)
-        if cached is not None and cached[1] is table:
-            self.hits += 1
-            return cached[0]
+        if cached is not None:
+            s, src = cached
+            if src is table:
+                self.hits += 1
+                return s
+            if src.uid == table.uid and src.version < table.version:
+                # Walk the delta chain back to the sampled version; extend if
+                # it is appends all the way down.
+                batches, offsets = [], []
+                t = table
+                ok = True
+                while t is not src and t.version > src.version:
+                    if t.delta is None or t.delta.kind != "append":
+                        ok = False
+                        break
+                    batches.append(t.delta.appended)
+                    offsets.append(t.delta.parent.num_rows)
+                    t = t.delta.parent
+                if ok and t is src:
+                    s2 = extend_sample_for_append(
+                        key, s, tuple(reversed(batches)), tuple(reversed(offsets)))
+                    self._cache[ck] = (s2, table)
+                    self.extended += 1
+                    return s2
         self.misses += 1
         s = stratified_reservoir_sample(key, table, groupby, theta)
         self._cache[ck] = (s, table)
         return s
+
+    def invalidate(self, table_name: str) -> None:
+        """Drop cached samples of one table (its delta history was dropped)."""
+        for ck in [ck for ck in self._cache if ck[0] == table_name]:
+            del self._cache[ck]
 
 
 def aqr_cache_key(q: "Query", table: "ColumnTable", theta: float) -> Tuple:
@@ -192,3 +287,9 @@ class AQRCache:
             self.evictions += 1
         self._cache[ck] = entry
         return entry
+
+    def invalidate(self, table_name: str) -> None:
+        # Key layout: (uid, version, theta) + inner_signature, whose first
+        # element is the table name.
+        for ck in [ck for ck in self._cache if ck[3] == table_name]:
+            del self._cache[ck]

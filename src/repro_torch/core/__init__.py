@@ -2,6 +2,12 @@
 from repro_torch.core.catalog import Catalog, default_catalog
 from repro_torch.core.engine import PBDSEngine, RunInfo
 from repro_torch.core.index import IndexEntry, SketchIndex, subsumes
+from repro_torch.core.maintenance import (
+    MaintenanceError,
+    SketchMaintainer,
+    build_maintainer,
+    repair_sketch,
+)
 from repro_torch.core.queries import (
     Aggregate,
     Having,
@@ -15,6 +21,7 @@ from repro_torch.core.queries import (
 )
 from repro_torch.core.ranges import RangeSet, equi_depth_ranges, equi_width_ranges, fragment_sizes
 from repro_torch.core.safety import (
+    monotone_safe,
     prefilter_candidates,
     safe_attributes,
     stats_prefilter,
@@ -23,6 +30,7 @@ from repro_torch.core.sketch import (
     ProvenanceSketch,
     apply_sketch,
     capture_sketch,
+    capture_sketches_batch,
     execute_with_sketch,
     is_safe_sketch,
     sketch_keep_mask,
@@ -38,5 +46,5 @@ from repro_torch.core.strategies import (
     select_attribute,
     selection_cache_key,
 )
-from repro_torch.core.table import ColumnTable, Database, encode_groups, from_numpy
+from repro_torch.core.table import ColumnTable, Database, TableDelta, encode_groups, from_numpy
 from repro_torch.core.workload import WorkloadLog

@@ -13,8 +13,15 @@ A sketch instance remembers the base-table row of each of its rows, so its
 group encodings and WHERE masks derive from the base table's cached ones by
 a gather instead of fresh host passes.
 
-Not in this slice: the delta refresh of mutated tables, join layouts and
-the stacked shard cache.
+A relation evolves through versions (``ColumnTable.append``/``.delete``),
+each carrying a ``TableDelta`` back to its parent.  A miss on a table with a
+delta is refreshed from the parent's entry (bucketize the batch and
+concatenate, number the batch's unseen group keys after the existing ones,
+add or subtract per-fragment counts, gather the kept rows)
+instead of redoing the full-table host work.  The ``*_delta`` stat counters
+separate that delta-sized work from full misses.
+
+Not in this slice: join layouts and the stacked shard cache.
 """
 from __future__ import annotations
 
@@ -40,6 +47,80 @@ class GroupEncoding:
     gid_dev: torch.Tensor  # same, on the table's device
     n_groups: int
     group_values: Dict[str, np.ndarray]  # per-group key values
+    _key_index: Optional[Dict[Tuple, int]] = None  # lazy key-tuple -> gid
+
+    def key_index(self, attrs: Tuple[str, ...]) -> Dict[Tuple, int]:
+        """key tuple -> gid, built lazily (delta refresh needs the lookup)."""
+        if self._key_index is None:
+            cols = [self.group_values[a].tolist() for a in attrs]
+            self._key_index = {key: g for g, key in enumerate(zip(*cols))} if cols else {(): 0}
+        return self._key_index
+
+
+def map_group_keys(
+    stacked: np.ndarray, key_index: Dict[Tuple, int], n_groups: int,
+    grow: bool = True,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Map a batch of stacked group-key rows through an existing dictionary.
+
+    Known keys take their existing gid; unseen ones get fresh ids in the
+    order ``np.unique`` lists them (``key_index`` is mutated in place), or
+    raise ``KeyError`` when ``grow=False``.  The shared primitive of the
+    catalog's encoding refresh, sketch maintainers and sample extension.
+    Returns ``(gid per batch row, unseen unique key rows in assignment
+    order, new group count)``.
+    """
+    uniq, inv = np.unique(stacked, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    mapped = np.empty(uniq.shape[0], dtype=np.int64)
+    new_rows = []
+    for i, row in enumerate(uniq):
+        key = tuple(row.tolist())
+        g = key_index.get(key)
+        if g is None:
+            if not grow:
+                raise KeyError(key)
+            g = n_groups
+            key_index[key] = g
+            n_groups += 1
+            new_rows.append(i)
+        mapped[i] = g
+    return mapped[inv], uniq[new_rows], n_groups
+
+
+def extend_group_values(
+    group_values: Dict[str, np.ndarray],
+    attrs: Tuple[str, ...],
+    new_keys: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """Append freshly assigned groups' key values (dtype-preserving); a new
+    dict, since the inputs are shared with live cache entries."""
+    if not len(new_keys):
+        return group_values
+    return {
+        a: np.concatenate([group_values[a],
+                           new_keys[:, j].astype(group_values[a].dtype, copy=False)])
+        for j, a in enumerate(attrs)
+    }
+
+
+def extend_encoding(
+    parent: GroupEncoding, batch: ColumnTable, attrs: Tuple[str, ...]
+) -> GroupEncoding:
+    """Dictionary-encode ``batch`` against ``parent``'s group dictionary:
+    known keys keep their gid, unseen keys get fresh ids appended.  Work is
+    O(batch + new groups), never O(table)."""
+    if not attrs:
+        gid = np.concatenate([parent.gid, np.zeros(batch.num_rows, dtype=np.int32)])
+        return GroupEncoding(gid, torch.from_numpy(gid).to(batch.device), parent.n_groups,
+                             parent.group_values)
+    stacked = np.stack([to_host(batch[a]) for a in attrs], axis=1)
+    key_index = dict(parent.key_index(attrs))  # copy: parent entry stays valid
+    delta_gid, new_keys, n_groups = map_group_keys(stacked, key_index, parent.n_groups)
+    group_values = extend_group_values(parent.group_values, attrs, new_keys)
+    gid = np.concatenate([parent.gid, delta_gid]).astype(np.int32)
+    return GroupEncoding(gid, torch.from_numpy(gid).to(batch.device), n_groups,
+                         group_values, key_index)
 
 
 class Catalog:
@@ -56,7 +137,7 @@ class Catalog:
         self._buckets: Dict[Tuple[int, Tuple], Tuple[ColumnTable, torch.Tensor]] = {}
         self._frag_sizes: Dict[Tuple[int, Tuple], Tuple[ColumnTable, np.ndarray]] = {}
         self._instances: Dict[Tuple[int, int], Tuple[object, ColumnTable, ColumnTable]] = {}
-        self._distinct: Dict[Tuple[int, str], Tuple[ColumnTable, int]] = {}
+        self._distinct: Dict[Tuple[int, str], Tuple[ColumnTable, int, np.ndarray]] = {}
         self._nonneg: Dict[Tuple[int, str], Tuple[ColumnTable, bool]] = {}
         self._wheres: Dict[Tuple[int, Tuple], Tuple[ColumnTable, torch.Tensor]] = {}
         # Fragment id per group, keyed by *value* (uid, version, group-by,
@@ -70,6 +151,28 @@ class Catalog:
             cache.pop(next(iter(cache)))  # FIFO eviction (insertion-ordered)
             self.stats["evictions"] += 1
         cache[key] = value
+
+    def invalidate_table(self, table: ColumnTable) -> None:
+        """Drop every entry keyed to ``table`` (it was replaced): entries of
+        a dead object can never hit again but would pin its columns."""
+        tid = id(table)
+        for cache in (self._groups, self._buckets, self._frag_sizes,
+                      self._distinct, self._nonneg, self._wheres):
+            for k in [k for k in cache if k[0] == tid]:
+                del cache[k]
+        for k in [k for k in self._instances if k[1] == tid]:
+            del self._instances[k]
+        for k in [k for k, v in self._instance_rows.items()
+                  if k == tid or v[1] is table]:
+            del self._instance_rows[k]
+
+    def invalidate_chain(self, table: ColumnTable) -> None:
+        """Invalidate ``table`` and every ancestor on its delta chain (the
+        companion of ``ColumnTable.collapse``)."""
+        t = table
+        while t is not None:
+            self.invalidate_table(t)
+            t = t.delta.parent if t.delta is not None else None
 
     # -- group-by dictionary encodings --------------------------------------
     def groups(self, table: ColumnTable, attrs: Tuple[str, ...]) -> GroupEncoding:
@@ -95,6 +198,21 @@ class Catalog:
             self.stats["encode_groups_instance"] += 1
             self._put(self._groups, key, (table, enc))
             return enc
+        d = table.delta
+        if d is not None and attrs:
+            parent_enc = self.groups(d.parent, attrs)
+            if d.kind == "append":
+                enc = extend_encoding(parent_enc, d.appended, tuple(attrs))
+            else:
+                gid = parent_enc.gid[d.kept_idx].astype(np.int32)
+                # Group numbering survives a delete; emptied groups simply
+                # stop appearing (the executor's present-mask hides them).
+                enc = GroupEncoding(gid, torch.from_numpy(gid).to(table.device),
+                                    parent_enc.n_groups, parent_enc.group_values,
+                                    parent_enc._key_index)
+            self.stats["encode_groups_delta"] += 1
+            self._put(self._groups, key, (table, enc))
+            return enc
         self.stats["encode_groups"] += 1
         gid, n_groups, group_values = encode_groups(table, attrs)
         enc = GroupEncoding(gid, torch.from_numpy(gid).to(table.device), n_groups,
@@ -109,6 +227,17 @@ class Catalog:
         if hit is not None and hit[0] is table:
             self.stats["bucketize_hit"] += 1
             return hit[1]
+        d = table.delta
+        if d is not None:
+            parent_bucket = self.bucketize(d.parent, ranges)
+            if d.kind == "append":
+                bucket = torch.cat([parent_bucket, ranges.bucketize(d.appended[ranges.attr])])
+            else:
+                bucket = parent_bucket.index_select(
+                    0, torch.from_numpy(d.kept_idx).to(table.device))
+            self.stats["bucketize_delta"] += 1
+            self._put(self._buckets, key, (table, bucket))
+            return bucket
         self.stats["bucketize"] += 1
         bucket = ranges.bucketize(table[ranges.attr])
         self._put(self._buckets, key, (table, bucket))
@@ -140,11 +269,16 @@ class Catalog:
         return frag
 
     def cached_bucket(self, table: ColumnTable, ranges: "RangeSet") -> Optional[torch.Tensor]:
-        """The full bucket vector iff it is cached (no full-table work)."""
-        hit = self._buckets.get((id(table), ranges.key()))
-        if hit is not None and hit[0] is table:
-            return hit[1]
-        return None
+        """The full bucket vector iff it is available without full-table
+        work: cached, or delta-refreshable from a cached ancestor."""
+        t = table
+        while True:
+            hit = self._buckets.get((id(t), ranges.key()))
+            if hit is not None and hit[0] is t:
+                return self.bucketize(table, ranges)  # delta-refresh the chain
+            if t.delta is None:
+                return None
+            t = t.delta.parent
 
     def fragment_sizes(self, table: ColumnTable, ranges: "RangeSet") -> np.ndarray:
         """Rows per fragment (host int32), from the cached bucketization."""
@@ -153,6 +287,24 @@ class Catalog:
         if hit is not None and hit[0] is table:
             self.stats["fragment_sizes_hit"] += 1
             return hit[1]
+        d = table.delta
+        if d is not None:
+            parent_sizes = self.fragment_sizes(d.parent, ranges)
+            if d.kind == "append":
+                # Refresh the full bucket vector through the delta path: its
+                # batch-sized tail feeds the counts, and the cached vector is
+                # what sketch application gathers from next.
+                delta_bucket = to_host(self.bucketize(table, ranges)[d.parent.num_rows:])
+                sign = 1
+            else:
+                delta_bucket = to_host(self.bucketize(d.parent, ranges).index_select(
+                    0, torch.from_numpy(d.deleted_idx).to(table.device)))
+                sign = -1
+            counts = np.bincount(delta_bucket, minlength=ranges.n_ranges)
+            sizes = parent_sizes + sign * counts.astype(parent_sizes.dtype)
+            self.stats["fragment_sizes_delta"] += 1
+            self._put(self._frag_sizes, key, (table, sizes))
+            return sizes
         self.stats["fragment_sizes"] += 1
         bucket = self.bucketize(table, ranges)
         sizes = to_host(torch.bincount(bucket, minlength=ranges.n_ranges).to(torch.int32))
@@ -173,7 +325,9 @@ class Catalog:
     # -- predicate-pushdown WHERE masks --------------------------------------
     def where_mask(self, table: ColumnTable, pred) -> torch.Tensor:
         """The row mask of ``pred`` over ``table``, cached per (table,
-        predicate); an instance's mask is gathered from its base table's."""
+        predicate); an instance's mask is gathered from its base table's, and
+        a mutated version's is refreshed from its parent's (appends evaluate
+        the batch alone, deletes gather the kept rows)."""
         key = (id(table), (pred.attr, pred.op, pred.value))
         hit = self._wheres.get(key)
         if hit is not None and hit[0] is table:
@@ -185,6 +339,17 @@ class Catalog:
             mask = self.where_mask(base, pred).index_select(
                 0, torch.from_numpy(rows).to(table.device))
             self.stats["where_mask_instance"] += 1
+            self._put(self._wheres, key, (table, mask))
+            return mask
+        d = table.delta
+        if d is not None:
+            parent_mask = self.where_mask(d.parent, pred)
+            if d.kind == "append":
+                mask = torch.cat([parent_mask, pred.mask(d.appended)])
+            else:
+                mask = parent_mask.index_select(
+                    0, torch.from_numpy(d.kept_idx).to(table.device))
+            self.stats["where_mask_delta"] += 1
             self._put(self._wheres, key, (table, mask))
             return mask
         self.stats["where_mask"] += 1
@@ -223,16 +388,40 @@ class Catalog:
         hit = self._distinct.get(key)
         if hit is not None and hit[0] is table:
             return hit[1]
+        d = table.delta
+        if d is not None and d.kind == "append":
+            parent_hit = self._distinct.get((id(d.parent), attr))
+            if parent_hit is not None and parent_hit[0] is d.parent:
+                uniq = np.union1d(parent_hit[2], to_host(d.appended[attr]))
+                self.stats["distinct_count_delta"] += 1
+                self._put(self._distinct, key, (table, int(uniq.shape[0]), uniq))
+                return int(uniq.shape[0])
+        # Deletes may or may not remove a value's last occurrence, so they
+        # recompute; appends without a cached parent do too.
         self.stats["distinct_count"] += 1
-        n = int(np.unique(to_host(table[attr])).shape[0])
-        self._put(self._distinct, key, (table, n))
-        return n
+        uniq = np.unique(to_host(table[attr]))
+        self._put(self._distinct, key, (table, int(uniq.shape[0]), uniq))
+        return int(uniq.shape[0])
 
     def column_nonnegative(self, table: ColumnTable, attr: str) -> bool:
         key = (id(table), attr)
         hit = self._nonneg.get(key)
         if hit is not None and hit[0] is table:
             return hit[1]
+        d = table.delta
+        if d is not None:
+            parent_hit = self._nonneg.get((id(d.parent), attr))
+            if parent_hit is not None and parent_hit[0] is d.parent:
+                parent_ok = parent_hit[1]
+                if d.kind == "append":
+                    ok = parent_ok and not bool((d.appended[attr] < 0).any())
+                    self.stats["column_stats_delta"] += 1
+                    self._put(self._nonneg, key, (table, ok))
+                    return ok
+                if parent_ok:  # removing rows cannot introduce negatives
+                    self.stats["column_stats_delta"] += 1
+                    self._put(self._nonneg, key, (table, True))
+                    return True
         self.stats["column_stats"] += 1
         ok = not bool((table[attr] < 0).any())
         self._put(self._nonneg, key, (table, ok))

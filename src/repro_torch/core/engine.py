@@ -1,25 +1,30 @@
 """PBDSEngine — the Fig. 3 workflow as one online component (port of
-``repro/core/engine.py``, single-table ``run``).
+``repro/core/engine.py``, single-table templates).
 
 For each incoming query:
-  1. probe the sketch index; on a hit, run the query over the catalog-cached
-     sketch instance (the rows of the sketch's fragments, pow2-padded);
+  1. probe the sketch index; on a hit, bring the sketch current if its table
+     mutated (delta maintenance, or re-capture) and run the query over the
+     catalog-cached sketch instance (the rows of the sketch's fragments,
+     pow2-padded);
   2. otherwise run the configured selection strategy (samples, AQR passes
      and whole selection results are cached), capture an accurate sketch on
-     the chosen attribute through the fused capture+execute path, store it,
-     warm its instance and return the shared result;
+     the chosen attribute through the fused capture+execute path, build its
+     maintainer, store both, warm its instance and return the shared result;
   3. when no candidate is worth it, fall back to NO-PS execution.
 
-The engine runs on its tables' device.  Not in this slice: incremental
-maintenance (index entries carry ``maintainer=None``; on a static table a
-sketch never goes stale), mutations, ``run_batch`` and fragment-major
-re-clustering.
+``run_batch`` serves a batch's index hits at once and admits its misses
+through the batched pipeline (``repro_torch.core.admission``), with the
+same results and index contents as sequential ``run``.  ``append_rows`` and
+``delete_rows`` mutate a table; sketches repair lazily on their next hit.
+
+The engine runs on its tables' device.  Not in this slice: fragment-major
+re-clustering (``cluster_tables``, ``compact_tail_frac``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +34,7 @@ from repro_torch.aqp.sampling import AQRCache, SampleCache
 from repro_torch.aqp.size_estimation import EstimationConfig
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.index import IndexEntry, SketchIndex
+from repro_torch.core.maintenance import MaintenanceError, build_maintainer, repair_sketch
 from repro_torch.core.queries import Query, QueryResult, execute, execute_and_provenance
 from repro_torch.core.ranges import RangeSet, equi_depth_ranges
 from repro_torch.core.sketch import ProvenanceSketch, apply_sketch, capture_sketch, execute_with_sketch
@@ -43,8 +49,6 @@ from repro_torch.core.workload import WorkloadLog
 from repro_torch.runtime.guards import hot_path
 from repro_torch.runtime.stable_hash import stable_hash32
 
-MAINTENANCE_SLICE = "table mutations come with the maintenance slice of the port"
-
 
 @dataclasses.dataclass
 class RunInfo:
@@ -56,11 +60,18 @@ class RunInfo:
     t_select: float = 0.0
     t_capture: float = 0.0
     t_execute: float = 0.0
+    # Hit-path split: ``t_probe`` is the index lookup, ``t_repair`` the
+    # bring-current work on a mutated table.
     t_probe: float = 0.0
+    t_repair: float = 0.0
+    # Index hit on a mutated table: the sketch was brought current before use
+    # (maintained, or re-captured when maintenance refused; the catalog's
+    # ``sketch_maintained``/``sketch_recaptured`` stats tell them apart).
+    repaired: bool = False
 
     @property
     def t_total(self) -> float:
-        return self.t_probe + self.t_select + self.t_capture + self.t_execute
+        return self.t_probe + self.t_select + self.t_capture + self.t_repair + self.t_execute
 
 
 class PBDSEngine:
@@ -73,6 +84,7 @@ class PBDSEngine:
         cfg: EstimationConfig = EstimationConfig(),
         seed: int = 0,
         min_selectivity_gain: float = 0.9,
+        max_delta_chain: int = 64,
         selection: Optional[SelectionConfig] = None,
     ):
         self.db = db
@@ -90,6 +102,9 @@ class PBDSEngine:
         self.workload = WorkloadLog(self.selection.reuse_window)
         self._base_key = prng.PRNGKey(seed)
         self._ranges_cache: Dict[Tuple[str, str], RangeSet] = {}
+        # Delta chains pin every prior version's columns; past this depth the
+        # engine advances all maintainers and collapses the history.
+        self.max_delta_chain = max_delta_chain
         # Sketches estimated to cover >= this fraction of the table are not
         # worth creating (problem definition (i) in Sec. 4.5).
         self.min_selectivity_gain = min_selectivity_gain
@@ -123,38 +138,66 @@ class PBDSEngine:
             self._ranges_cache[ck] = equi_depth_ranges(self.db[table], attr, self.n_ranges)
         return self._ranges_cache[ck]
 
-    # -- mutations (maintenance slice) ----------------------------------------
+    # -- mutations -------------------------------------------------------------
     def append_rows(self, table_name: str, rows: Mapping[str, np.ndarray]) -> None:
-        raise NotImplementedError(MAINTENANCE_SLICE)
+        """Append a batch; sketches repair lazily on their next index hit."""
+        self.db = self.db.with_table(self.db[table_name].append(rows))
+        self.catalog.stats["table_append"] += 1
+        self._bound_history(table_name)
 
     def delete_rows(self, table_name: str, mask: np.ndarray) -> None:
-        raise NotImplementedError(MAINTENANCE_SLICE)
+        """Delete the masked rows; sketches repair lazily on their next hit."""
+        self.db = self.db.with_table(self.db[table_name].delete(mask))
+        self.catalog.stats["table_delete"] += 1
+        self._bound_history(table_name)
 
     def _bound_history(self, table_name: str) -> None:
-        raise NotImplementedError(MAINTENANCE_SLICE)
+        """Cap the delta chain: past ``max_delta_chain`` advance every
+        maintainer to the current version (delta-sized work), then drop the
+        parent references and every cache entry of the chain, so prior
+        versions' columns can be freed."""
+        table = self.db[table_name]
+        if table.delta_depth() <= self.max_delta_chain:
+            return
+        for e in self.index.entries():
+            if e.query.table != table_name or e.maintainer is None:
+                continue
+            try:
+                e.maintainer.apply(table, self.db)
+                e.sketch = e.maintainer.to_sketch(table, self.catalog)
+            except MaintenanceError:
+                e.maintainer = None  # next hit re-captures
+        self.db = self.db.with_table(table.collapse())
+        self.catalog.invalidate_chain(table)
+        self.samples.invalidate(table_name)
+        self.selection_cache.invalidate(table_name)
+        self.catalog.stats["history_collapse"] += 1
 
-    def _maybe_compact(self, table_name: str) -> None:
-        raise NotImplementedError(MAINTENANCE_SLICE)
-
-    def _current_sketch(self, entry: IndexEntry) -> ProvenanceSketch:
-        """The entry's sketch; tables never change in this slice, so a stale
-        sketch means a mutation slipped past the engine."""
-        if not entry.sketch.current_for(self.db[entry.query.table]):
-            raise NotImplementedError(MAINTENANCE_SLICE)
-        return entry.sketch
+    def _current_sketch(self, entry: IndexEntry) -> Tuple[ProvenanceSketch, bool]:
+        """The entry's sketch, repaired first if its table mutated."""
+        table = self.db[entry.query.table]
+        if entry.sketch.current_for(table):
+            return entry.sketch, False
+        result, maintainer = repair_sketch(
+            entry.query, self.db, entry.sketch, entry.maintainer, catalog=self.catalog)
+        entry.sketch = result.sketch
+        entry.maintainer = maintainer
+        return result.sketch, True
 
     @hot_path
     def _serve_hit(
         self, q: Query, entry: IndexEntry, t_probe: float
     ) -> Tuple[QueryResult, RunInfo]:
-        """Serve one index hit over the sketch instance."""
+        """Serve one index hit over the (repaired-if-stale) sketch instance:
+        the shared hit path of ``run`` and ``run_batch``."""
         tp = time.perf_counter()
-        sketch = self._current_sketch(entry)
+        sketch, repaired = self._current_sketch(entry)
+        tr = time.perf_counter()
         res = execute_with_sketch(q, self.db, sketch, catalog=self.catalog)
         return res, RunInfo(
             reused=True, created=False, attr=sketch.attr, strategy=self.strategy,
-            selectivity=sketch.selectivity, t_probe=t_probe,
-            t_execute=time.perf_counter() - tp,
+            selectivity=sketch.selectivity, t_probe=t_probe, t_repair=tr - tp,
+            t_execute=time.perf_counter() - tr, repaired=repaired,
         )
 
     def _worth_it(self, sel: SelectionResult, q: Query,
@@ -209,7 +252,11 @@ class PBDSEngine:
         res, prov = execute_and_provenance(q, self.db, catalog=self.catalog)
         t2 = time.perf_counter()
         sketch = capture_sketch(q, self.db, ranges, prov=prov, catalog=self.catalog)
-        self.index.insert(q, sketch)
+        # Maintenance state rides along from capture: its group encoding and
+        # bucketization are catalog hits here, so the build is one counting
+        # pass on the host.
+        maintainer = build_maintainer(q, self.db, ranges, self.catalog)
+        self.index.insert(q, sketch, maintainer=maintainer)
         # Warm the reuse path while capture is being paid for: materialize the
         # sketch instance and run the query over it once, so its catalog
         # entries exist before the first index hit.
@@ -221,5 +268,42 @@ class PBDSEngine:
             t_select=t1 - tp, t_capture=(tc - t1) + (t3 - t2), t_execute=t2 - tc,
         )
 
-    def run_batch(self, qs):
-        raise NotImplementedError("run_batch comes with the batched-admission slice of the port")
+    @hot_path
+    def run_batch(self, qs: Sequence[Query]) -> List[Tuple[QueryResult, RunInfo]]:
+        """Batched admission: serve index hits at once, admit the misses
+        through the shared-selection / fused-capture pipeline.
+
+        Equivalent to ``[self.run(q) for q in qs]``: results, index contents,
+        sketch bits and maintainer counters are equal.  Misses are grouped
+        by inner-block signature, so each group pays one sample, one AQR
+        pass, one inner-block scan and one maintainer build; capture emits
+        all of a partition's bitvectors from one ``fragment_bitmap_batch``
+        launch.  A query whose sketch an earlier member of the batch would
+        create is deferred a wave and served as an index hit, as sequential
+        execution would serve it.
+        """
+        from repro_torch.core.admission import admit_misses
+
+        if self.selection.reuse_aware and self.strategy != "NO-PS":
+            # Reserve workload-log stamps per batch position up front: wave
+            # deferral records misses out of arrival order, and the stamps
+            # keep ``reach`` equal to a sequential replay's.
+            self.workload.begin_batch(len(qs))
+        out: List[Optional[Tuple[QueryResult, RunInfo]]] = [None] * len(qs)
+        pending: List[Tuple[int, Query]] = list(enumerate(qs))
+        while pending:
+            misses: List[Tuple[int, Query, float]] = []
+            for i, q in pending:
+                t0 = time.perf_counter()
+                entry = self.index.lookup_entry(q) if self.strategy != "NO-PS" else None
+                tp = time.perf_counter()
+                if entry is None:
+                    misses.append((i, q, tp - t0))
+                    continue
+                out[i] = self._serve_hit(q, entry, tp - t0)
+            if not misses:
+                break
+            served, pending = admit_misses(self, misses)
+            for i, item in served.items():
+                out[i] = item
+        return out  # type: ignore[return-value]

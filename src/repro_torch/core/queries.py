@@ -384,6 +384,18 @@ def _provenance_from_inner(q: Query, ib: InnerBlock) -> np.ndarray:
     return inner_keep[ib.gid] & ib.where_np
 
 
+# Public names for the inner-block products: batched admission
+# (``repro_torch.core.admission``) evaluates the shared FROM/WHERE/GROUP
+# BY/agg block once per signature group and derives every member's result
+# and provenance from the same ``InnerBlock``; the group-level tails are pure
+# functions of it, so sharing is bit-exact.  Without joins the inner block's
+# rows are the fact table's rows, so ``provenance_from_inner`` takes no
+# ``n_fact_rows`` (the reference's scatters a joined block back through it).
+inner_block = _inner_block
+result_from_inner = _result_from_inner
+provenance_from_inner = _provenance_from_inner
+
+
 @hot_path
 def execute(q: Query, db: Database, catalog: Optional[Catalog] = None) -> QueryResult:
     return _result_from_inner(q, _inner_block(db, q, catalog))

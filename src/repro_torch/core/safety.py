@@ -49,6 +49,43 @@ def _agg_monotone(q: Query, db: Database, catalog: Catalog) -> bool:
     return True
 
 
+def monotone_safe(q: Query, db: Database, catalog: Optional[Catalog] = None) -> bool:
+    """Upward-monotone HAVING chain + removal-monotone aggregates.
+
+    Under this condition row removal can only shrink a group's aggregate
+    (and row insertion only grow it), so a maintained sketch may *clear*
+    bits on group flips without risking an unsafe (subset) sketch — see
+    ``repro_torch.core.maintenance``.  Sharper than ``_agg_monotone`` for the
+    nested templates: an outer ``sum`` over the inner aggregate values
+    (attr None) is monotone whenever those values are non-negative (COUNT,
+    or SUM of a non-negative column).
+    """
+    catalog = catalog or default_catalog()
+    if not _having_upward_monotone(q):
+        return False
+    fact = db[q.table]
+
+    def col_nonneg(attr: Optional[str]) -> bool:
+        return (attr is not None and fact.has(attr)
+                and catalog.column_nonnegative(fact, attr))
+
+    if q.agg.fn == "avg":
+        return False
+    if q.agg.fn == "sum" and not col_nonneg(q.agg.attr):
+        return False
+    inner_nonneg = q.agg.fn == "count" or col_nonneg(q.agg.attr)
+    if q.outer_agg is not None:
+        if q.outer_agg.fn == "avg":
+            return False
+        if q.outer_agg.fn == "sum":
+            if q.outer_agg.attr is None:
+                if not inner_nonneg:
+                    return False
+            elif not col_nonneg(q.outer_agg.attr):
+                return False
+    return True
+
+
 def safe_attributes(
     q: Query, db: Database, catalog: Optional[Catalog] = None
 ) -> Tuple[str, ...]:

@@ -6,13 +6,15 @@ ranges whose fragments contain >= 1 provenance row.  Capture is a segmented
 OR of the provenance mask by fragment id (the ``fragment_bitmap`` kernel);
 the instance of a sketch is the rows whose fragment bit is set (the
 ``sketch_filter`` kernel's keep-mask, compacted), pow2-padded, cached per
-sketch in the catalog.  The batched capture waits for ``run_batch``; the
-fragment-major slice path waits for ``cluster_by``.
+sketch in the catalog.  Batched admission captures B sketches of one
+partition from one scan (``capture_sketches_batch``, the
+``fragment_bitmap_batch`` kernel).  The fragment-major slice path waits for
+``cluster_by``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +92,55 @@ def capture_sketch(
         table_uid=table.uid,
         table_version=table.version,
     )
+
+
+def capture_sketches_batch(
+    qs: Sequence[Query],
+    db: Database,
+    ranges_list: Sequence[RangeSet],
+    provs: Sequence[np.ndarray],
+    catalog: Optional[Catalog] = None,
+) -> List[ProvenanceSketch]:
+    """Multi-sketch fused capture: B provenance masks, one scan per partition.
+
+    Queries are grouped by (table, partition); each group pays one cached
+    bucketization, one host-to-device copy of its stacked masks and one
+    ``fragment_bitmap_batch`` launch.  The mask batch is pow2-padded (empty
+    masks), as in the reference.  Bits are equal to per-query capture.
+    """
+    from repro_torch.kernels import ops as kops
+
+    catalog = catalog or default_catalog()
+    out: List[Optional[ProvenanceSketch]] = [None] * len(qs)
+    groups: Dict[Tuple, List[int]] = {}
+    for i, (q, ranges) in enumerate(zip(qs, ranges_list)):
+        groups.setdefault((q.table, ranges.key()), []).append(i)
+    for (table_name, _), idxs in groups.items():
+        table = db[table_name]
+        ranges = ranges_list[idxs[0]]
+        bucket = catalog.bucketize(table, ranges)
+        stacked = np.stack([np.asarray(provs[i], dtype=bool) for i in idxs])
+        b = stacked.shape[0]
+        b_pad = 1 << (b - 1).bit_length()
+        if b_pad != b:
+            stacked = np.concatenate(
+                [stacked, np.zeros((b_pad - b, stacked.shape[1]), dtype=bool)])
+        provs_dev = torch.from_numpy(stacked).to(table.device)
+        # The whole wave's bits come to the host at once (a reference merge point).
+        bits_b = to_host(kops.fragment_bitmap_batch(provs_dev, bucket, ranges.n_ranges))
+        sizes = catalog.fragment_sizes(table, ranges)
+        for j, i in enumerate(idxs):
+            bits = bits_b[j].astype(bool)
+            out[i] = ProvenanceSketch(
+                table=table_name,
+                ranges=ranges_list[i],
+                bits=bits,
+                size_rows=int(sizes[bits].sum()),
+                total_rows=table.num_rows,
+                table_uid=table.uid,
+                table_version=table.version,
+            )
+    return out  # type: ignore[return-value]
 
 
 def sketch_keep_mask(

@@ -109,6 +109,12 @@ class SelectionCache:
             self._cache.pop(next(iter(self._cache)))
         self._cache[key] = result
 
+    def invalidate(self, table_name: str) -> None:
+        # Key layout: (strategy, uid, version, theta, n_ranges, ops) +
+        # inner_signature, whose first element is the table name.
+        for ck in [ck for ck in self._cache if ck[6] == table_name]:
+            del self._cache[ck]
+
     def __len__(self) -> int:
         return len(self._cache)
 

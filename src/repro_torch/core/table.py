@@ -1,16 +1,20 @@
 """Columnar tables on a torch device (port of ``repro/core/table.py``).
 
 A ``ColumnTable`` is an immutable struct of 1-D column tensors, all on one
-device.  This slice carries what the single-table ``PBDSEngine.run`` path
-needs: the uid/version lineage, ``gather``/``with_column``, ``from_numpy`` (which casts like ``jnp.asarray`` with x64 off),
-``encode_groups`` and the float32 host bucketizer.  Appends, deletes,
-compaction and the fragment-major layout come with the maintenance slice.
+device, with a uid/version lineage: ``append`` and ``delete`` produce the
+next version of the same relation and link it to its parent through a
+``TableDelta``, from which catalog caches and sketch maintainers refresh
+with delta-sized work.  Also here: ``gather``/``with_column``,
+``from_numpy`` (which casts like ``jnp.asarray`` with x64 off),
+``encode_groups`` and the float32 host bucketizer.  The fragment-major
+layout (``cluster_by``, ``take_fragments``, ``compact``) comes with the
+clustering slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, Iterable, Mapping, Sequence, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,13 +52,41 @@ def as_column(values: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(device)
 
 
+def _numpy_dtype(col: torch.Tensor) -> np.dtype:
+    return to_host(col[:0]).dtype
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TableDelta:
+    """One append/delete step linking a table version to its parent.
+
+    Catalog caches refresh from the parent entry plus the delta, and
+    ``repro_torch.core.maintenance`` folds the delta rows into its counters.
+    ``parent`` is a strong reference so id()-keyed parent cache entries stay
+    valid while the delta is reachable.
+    """
+
+    kind: str  # 'append' | 'delete'
+    parent: "ColumnTable"
+    appended: Optional["ColumnTable"] = None  # kind='append': the new rows
+    deleted_idx: Optional[np.ndarray] = None  # kind='delete': parent rows removed
+    kept_idx: Optional[np.ndarray] = None  # kind='delete': parent rows kept
+
+    @property
+    def n_delta(self) -> int:
+        if self.kind == "append":
+            return self.appended.num_rows
+        return int(self.deleted_idx.shape[0])
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ColumnTable:
     """An immutable bag-semantics relation stored column-major.
 
-    ``uid`` is the lineage identity (fresh for every derived table in this
-    slice, since nothing here mutates a relation); ``version`` is its
-    per-lineage version token.  Compared and hashed by identity.
+    ``uid`` is the lineage identity, kept by ``append``/``delete`` and fresh
+    for any other derived table; ``version`` is the per-lineage version
+    token they bump; ``delta`` is the step that produced this version (None
+    for a root table).  Compared and hashed by identity.
     """
 
     name: str
@@ -62,6 +94,7 @@ class ColumnTable:
     primary_key: Tuple[str, ...] = ()
     version: int = 0
     uid: int = 0
+    delta: Optional[TableDelta] = None
 
     def __post_init__(self):
         if self.uid == 0:
@@ -100,6 +133,75 @@ class ColumnTable:
             self.name,
             {k: v.index_select(0, idx) for k, v in self.columns.items()},
             self.primary_key,
+        )
+
+    # -- mutations (delta-aware) ----------------------------------------------
+    def delta_depth(self) -> int:
+        """Length of the delta chain behind this version."""
+        depth, t = 0, self
+        while t.delta is not None:
+            depth += 1
+            t = t.delta.parent
+        return depth
+
+    def collapse(self) -> "ColumnTable":
+        """Drop the delta history: same contents, version and lineage, no
+        parent references (so prior versions' columns can be freed)."""
+        if self.delta is None:
+            return self
+        return ColumnTable(self.name, self.columns, self.primary_key,
+                           version=self.version, uid=self.uid)
+
+    def append(self, rows: Mapping[str, np.ndarray]) -> "ColumnTable":
+        """Append a batch of rows (numpy columns), producing the next version.
+
+        The batch is cast to the columns' dtypes on the table's device; a
+        lossy cast raises, since a silently truncated value would flow
+        through every maintained aggregate undetectably.
+        """
+        if set(rows) != set(self.columns):
+            raise ValueError(
+                f"append schema mismatch: {sorted(rows)} vs {sorted(self.columns)}")
+        batch = {}
+        for k, v in rows.items():
+            src = np.asarray(v)
+            dst = src.astype(_numpy_dtype(self.columns[k]))
+            if not np.array_equal(dst.astype(np.float64), src.astype(np.float64),
+                                  equal_nan=True):
+                raise ValueError(
+                    f"append column {k!r}: lossy cast {src.dtype} -> "
+                    f"{self.columns[k].dtype}")
+            batch[k] = dst
+        lengths = {int(v.shape[0]) for v in batch.values()}
+        if len(lengths) != 1:
+            raise ValueError(
+                f"ragged append batch: { {k: int(v.shape[0]) for k, v in batch.items()} }")
+        dev = self.device
+        appended = ColumnTable(
+            self.name,
+            {k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(dev)
+             for k, v in batch.items()},
+            self.primary_key)
+        cols = {k: torch.cat([v, appended.columns[k]]) for k, v in self.columns.items()}
+        return ColumnTable(
+            self.name, cols, self.primary_key, version=self.version + 1, uid=self.uid,
+            delta=TableDelta(kind="append", parent=self, appended=appended),
+        )
+
+    def delete(self, mask: np.ndarray) -> "ColumnTable":
+        """Delete the rows where ``mask`` (numpy bool[num_rows]) is True,
+        producing the next version; the kept rows keep their order."""
+        mask = np.asarray(mask, dtype=bool)
+        if mask.shape != (self.num_rows,):
+            raise ValueError(f"delete mask of shape {mask.shape} for {self.num_rows} rows")
+        deleted_idx = np.nonzero(mask)[0]
+        kept_idx = np.nonzero(~mask)[0]
+        keep = torch.from_numpy(kept_idx).to(self.device)
+        cols = {k: v.index_select(0, keep) for k, v in self.columns.items()}
+        return ColumnTable(
+            self.name, cols, self.primary_key, version=self.version + 1, uid=self.uid,
+            delta=TableDelta(kind="delete", parent=self,
+                             deleted_idx=deleted_idx, kept_idx=kept_idx),
         )
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid

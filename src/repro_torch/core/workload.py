@@ -30,16 +30,19 @@ class WorkloadLog:
     same predicate the index uses to serve hits — so the worth-it rule can
     trade estimated coverage against expected future hits.
 
-    Each entry carries its arrival stamp and ``reach(q, stamp)`` counts only
-    entries at or before ``stamp`` (the batched path that needs explicit
-    stamps comes with ``run_batch``).  Hits never enter the log: a served
-    query needs no new sketch.
+    Stamps make batched admission order-exact: ``run_batch`` admits whole
+    waves and defers subsumed members to later waves, so entries can be
+    *inserted* out of batch-position order.  Each entry carries the stamp of
+    its batch position and ``reach(q, stamp)`` counts only entries at or
+    before ``stamp``, which is what a sequential replay would have seen.
+    Hits never enter the log: a served query needs no new sketch.
     """
 
     def __init__(self, window: int = 256):
         self.window = window
         self._log: collections.deque = collections.deque(maxlen=max(1, window))
         self._clock = 0
+        self._batch_base: Optional[int] = None
 
     def __len__(self) -> int:
         return len(self._log)
@@ -47,6 +50,18 @@ class WorkloadLog:
     @property
     def clock(self) -> int:
         return self._clock
+
+    def begin_batch(self, n: int) -> None:
+        """Reserve stamp slots for an ``n``-query batch: position ``i`` gets
+        stamp ``base + i + 1`` no matter which admission wave records it."""
+        self._batch_base = self._clock
+        self._clock += n
+
+    def batch_stamp(self, pos: int) -> Optional[int]:
+        """The reserved stamp of batch position ``pos`` (None outside a batch)."""
+        if self._batch_base is None:
+            return None
+        return self._batch_base + pos + 1
 
     def record(self, q: Query, stamp: Optional[int] = None) -> int:
         """Log one miss; returns its stamp (auto-incremented when not given)."""

@@ -20,7 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
-KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filter")
+KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
+                            "fragment_bitmap_batch")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,6 +44,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "sketch_filter": {
         "filter_threads": (_I, []),
         "filter_launch": (_I, [_I, _P, _P, _P, _LL, _I, _P, _I]),
+    },
+    "fragment_bitmap_batch": {
+        "bitmap_batch_threads": (_I, []),
+        "bitmap_batch_masks_per_chunk": (_I, []),
+        "bitmap_batch_launch": (_I, [_I, _P, _P, _P, _LL, _I, _I, _P, _P, _I]),
     },
 }
 

@@ -12,6 +12,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.fragment_bitmap import fragment_bitmap as _fragment_bitmap
+from repro_torch.kernels.fragment_bitmap import (
+    fragment_bitmap_batch as _fragment_bitmap_batch,
+)
 from repro_torch.kernels.segment_aggregate import segment_aggregate as _segment_aggregate
 from repro_torch.kernels.sketch_filter import sketch_filter as _sketch_filter
 
@@ -19,6 +22,13 @@ from repro_torch.kernels.sketch_filter import sketch_filter as _sketch_filter
 def fragment_bitmap(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int) -> torch.Tensor:
     return _fragment_bitmap(prov.to(torch.bool).contiguous(),
                             bucket.to(torch.int32).contiguous(), n_ranges)
+
+
+def fragment_bitmap_batch(provs: torch.Tensor, bucket: torch.Tensor,
+                          n_ranges: int) -> torch.Tensor:
+    """B stacked provenance masks -> B sketch bitvectors, one scan."""
+    return _fragment_bitmap_batch(provs.to(torch.bool).contiguous(),
+                                  bucket.to(torch.int32).contiguous(), n_ranges)
 
 
 def sketch_filter(bucket: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:

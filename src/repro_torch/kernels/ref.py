@@ -19,6 +19,22 @@ def fragment_bitmap_ref(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int)
     return hits > 0
 
 
+def fragment_bitmap_batch_ref(provs: torch.Tensor, bucket: torch.Tensor,
+                              n_ranges: int) -> torch.Tensor:
+    """bits[b, r] = OR over rows in fragment r of provenance mask b (one
+    ``scatter_reduce_`` over a (B, n_ranges) output).  Rows whose bucket lies
+    outside ``[0, n_ranges)`` set nothing, as ``segment_max`` drops them."""
+    b = int(provs.shape[0])
+    idx = bucket.long()
+    flags = provs.to(torch.int32)
+    ok = (idx >= 0) & (idx < n_ranges)
+    if not bool(ok.all()):
+        idx, flags = idx[ok], flags[:, ok]
+    hits = torch.zeros((b, n_ranges), dtype=torch.int32, device=bucket.device)
+    hits.scatter_reduce_(1, idx.expand(b, -1), flags, reduce="amax")
+    return hits > 0
+
+
 def sketch_filter_ref(bucket: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """keep[i] = bits[bucket[i]] — the sketch's disjunction of ranges."""
     return bits.to(torch.bool)[bucket.long()]

@@ -134,18 +134,24 @@ def test_reference_sketch_applies_in_the_port(dbs, workloads):
 
 
 def test_deferred_paths_name_their_slice(dbs, workloads):
+    """What later slices bring still refuses: joins, the random strategies
+    (in ``run`` and ``run_batch``) and fragment-major clustering."""
     _, tdb = dbs
     _, tq = workloads
-    eng = T.PBDSEngine(tdb)
-    with pytest.raises(NotImplementedError):
-        eng.append_rows("crimes", {})
-    with pytest.raises(NotImplementedError):
-        eng.delete_rows("crimes", np.zeros(N_ROWS, dtype=bool))
-    with pytest.raises(NotImplementedError):
-        eng.run_batch(tq[:2])
     joined = dataclasses.replace(tq[0], join=T.JoinSpec("orders", "pid", "o_orderkey"))
     with pytest.raises(NotImplementedError):
         T.execute(joined, tdb)
+    with pytest.raises(NotImplementedError):
+        T.PBDSEngine(tdb).run(joined)
+    rand = T.PBDSEngine(tdb, strategy="RAND-GB")
+    with pytest.raises(NotImplementedError):
+        rand.run(tq[0])
+    with pytest.raises(NotImplementedError):
+        rand.run_batch(tq[:2])
+    with pytest.raises(TypeError):
+        T.PBDSEngine(tdb, cluster_tables=True)
+    with pytest.raises(TypeError):
+        T.PBDSEngine(tdb, compact_tail_frac=0.1)
 
 
 def test_engine_runs_on_its_tables_device(dbs):

@@ -16,8 +16,18 @@ with a fresh engine: bursts of queries that differ only in their HAVING
 thresholds, a replay, an append of 1% of the rows, a burst that repairs
 every sketch, a delete of one year and another burst; it checks every
 result against full-table execution of the current version and every
-maintained sketch against a fresh capture.  Any failed check raises, so the
-exit code is not 0.
+maintained sketch against a fresh capture.  Phase 5 drives the sharded path
+on the same table: a ``ShardedEngine`` over 4 fragment shards placed on the
+``community`` partition, a ``run_batch`` burst of three signature groups
+(two grouping by ``community``, whose bits the shards maintain, one not,
+whose bits the coordinator maintains), a replay served by one fused
+``segment_aggregate_batch`` launch, the same replay through the per-shard
+host loop and fused again, and an append and a delete each followed by the
+burst; after the delete a burst with thresholds taken anew from the current
+table and its replay, so that the post-delete check holds real output;
+every result is checked against a plain numpy group-by of the full table,
+the fused and host-loop results against each other bit for bit, and no
+route may be served degraded.  Any failed check raises, so the exit code is not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as ``nvidia-smi`` reports them, and last
@@ -54,7 +64,11 @@ KERNELS = (
      "src/repro/kernels/sketch_filter.py:35"),
     ("fragment_bitmap_batch", "src/repro_torch/kernels/csrc/fragment_bitmap_batch.cu",
      "src/repro/kernels/fragment_bitmap.py:99"),
+    ("segment_aggregate_batch", "src/repro_torch/kernels/csrc/segment_aggregate_batch.cu",
+     "src/repro/kernels/segment_aggregate.py:74"),
 )
+N_SHARDS = 4
+SHARD_ATTR = "community"  # the partition phase 4's waves chose
 
 
 class SmokeFailure(RuntimeError):
@@ -251,7 +265,67 @@ def phase_kernels(n: int, seed: int) -> dict:
             f"3 reruns bit-equal; {row}")
         rows["segment_aggregate"] = row  # the widest pad is the one reported
     rows["segment_aggregate"]["max_abs_err"] = seg_err
+    rows["segment_aggregate_batch"] = _kernel_segment_aggregate_batch(n, gen, rows)
     return rows
+
+
+def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
+    """segment_aggregate_batch at the fused launch's shapes (B sketches of
+    S_pad * R_pad = 4 * 2^18 rows, at a narrow and a wide group pad), and at
+    B = 1 over ``n`` rows to compare with the unbatched kernel's row.  The
+    reported row is B = 8, G = 128 (phase 5's group-bys pad to 128-512)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    out = {}
+    for b, n_b, g in ((8, 4 << 18, 16384), (1, n, 16384), (8, 4 << 18, 128)):
+        gid = torch.randint(0, g, (b, n_b), generator=gen, device=dev, dtype=torch.int32)
+        w = (torch.rand((b, n_b), generator=gen, device=dev) < 0.5).to(torch.float32)
+        integral = torch.randint(0, 8, (b, n_b), generator=gen, device=dev).to(torch.float32)
+        s1, c1 = ops.segment_aggregate_batch(integral, gid, g, w)
+        s2, c2 = ref.segment_aggregate_batch_ref(integral, gid, g, w)
+        torch.cuda.synchronize()
+        require(float(s2.max()) < ENVELOPE, "integral test sums left the 2^24 envelope")
+        require(torch.equal(s1, s2) and torch.equal(c1, c2),
+                f"segment_aggregate_batch (B={b}, G={g}) is not bit-exact on integral inputs")
+        for i in range(b):
+            su, cu = ops.segment_aggregate(integral[i], gid[i], g, w[i])
+            require(torch.equal(s1[i], su) and torch.equal(c1[i], cu),
+                    f"segment_aggregate_batch (B={b}, G={g}) row {i} differs from "
+                    f"segment_aggregate")
+        normal = torch.randn((b, n_b), generator=gen, device=dev)
+        s1, c1 = ops.segment_aggregate_batch(normal, gid, g, w)
+        for _ in range(3):
+            s3, c3 = ops.segment_aggregate_batch(normal, gid, g, w)
+            require(torch.equal(s1, s3) and torch.equal(c1, c3),
+                    f"segment_aggregate_batch (B={b}, G={g}) gave other bits on a rerun")
+        rows_equal = all(torch.equal(s1[i], ops.segment_aggregate(normal[i], gid[i], g, w[i])[0])
+                         for i in range(b))
+        s2, _ = ref.segment_aggregate_batch_ref(normal, gid, g, w)
+        diff = float((s1 - s2).abs().max())
+        flat = (gid.long() + g * torch.arange(b, device=dev)[:, None]).reshape(-1)
+        vw2 = torch.stack([(integral * w).reshape(-1), w.reshape(-1)], dim=1)
+        out2 = torch.zeros(b * g, 2, dtype=torch.float32, device=dev)
+        nnz_w = int((w != 0).sum())
+        b_ms, b_by = bound(b * n_b * 8 + nnz_w * 4 + b * g * 8, 3 * nnz_w)
+        row = dict(
+            max_abs_err=diff,
+            ms=time_ms(lambda: ops.segment_aggregate_batch(integral, gid, g, w)),
+            plain_ms=time_ms(lambda: ref.segment_aggregate_batch_ref(integral, gid, g, w)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: out2.index_add_(0, flat, vw2)),
+        )
+        log(f"[kernels] segment_aggregate_batch B={b} n={n_b} G={g} integral bit-exact and "
+            f"equal to segment_aggregate row by row; normal: 3 reruns bit-equal, rows equal "
+            f"to the unbatched kernel {rows_equal}, max |kernel-plain| {diff:.3e}; {row}")
+        if b == 1:
+            log(f"[kernels] segment_aggregate_batch B=1 vs segment_aggregate at n={n} G={g}: "
+                f"{row['ms']:.4f} ms vs {rows['segment_aggregate']['ms']:.4f} ms")
+        out = row
+        del gid, w, integral, normal, flat, vw2, out2
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +717,307 @@ def phase_batch(n_rows: int, seed: int, db=None, workload=None, full_values=None
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: fragment-sharded serving at real scale
+# ---------------------------------------------------------------------------
+
+
+def _shard_burst(workload, full_values, per_group: int = 4):
+    """Two signature groups whose GROUP BY holds ``SHARD_ATTR`` (group-local:
+    the shards maintain their bits) and one whose GROUP BY lacks it (the
+    coordinator maintains its bits), each with ``per_group`` thresholds at
+    high quantiles of its full-table values, highest first (selective
+    sketches, so routed hits skip shards)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import Having
+
+    seen, local, spanning = set(), [], []
+    for q in sorted(workload, key=lambda q: len(q.groupby)):
+        if q.inner_signature() in seen:
+            continue
+        seen.add(q.inner_signature())
+        vals = np.asarray(full_values[q.signature()], dtype=np.float64)
+        taus = np.unique(np.quantile(vals, np.linspace(0.95, 0.6, per_group))) if vals.size else []
+        if len(taus) < per_group:
+            continue
+        group = [dataclasses.replace(q, having=Having(q.having.op, float(t))) for t in taus[::-1]]
+        (local if SHARD_ATTR in q.groupby else spanning).append(group)
+    require(len(local) >= 2 and len(spanning) >= 1,
+            f"the workload has {len(local)} {SHARD_ATTR} and {len(spanning)} other signature "
+            f"groups with {per_group} distinct thresholds")
+    return [q for g in local[:2] + spanning[:1] for q in g]
+
+
+def _plain_groups(q, cols):
+    """Every group of a Q-AGH query's inner block over the full table, by a
+    plain numpy group-by (one 1-D ``np.unique`` over a mixed-radix key,
+    float64 sums) independent of the engine's executor, catalog and kernels:
+    ``(group values, float32 aggregate, whether a sum leaves the float32
+    integer envelope)``."""
+    import numpy as np
+
+    key = np.zeros(cols[q.groupby[0]].shape[0], dtype=np.int64)
+    lows, sizes = [], []
+    for a in q.groupby:
+        v = cols[a].astype(np.int64)
+        lows.append(int(v.min()))
+        sizes.append(int(v.max()) - lows[-1] + 1)
+        key = key * sizes[-1] + (v - lows[-1])
+    uniq, inv = np.unique(key, return_inverse=True)
+    counts = np.bincount(inv, minlength=uniq.shape[0]).astype(np.float64)
+    sums = counts if q.agg.fn == "count" else np.bincount(
+        inv, weights=cols[q.agg.attr].astype(np.float64), minlength=uniq.shape[0])
+    agg = sums.astype(np.float32)
+    if q.agg.fn == "avg":
+        agg = agg / np.maximum(counts.astype(np.float32), np.float32(1.0))
+    group_values, rest = {}, uniq
+    for a, lo, size in reversed(list(zip(q.groupby, lows, sizes))):
+        group_values[a] = (rest % size + lo).astype(cols[a].dtype)
+        rest = rest // size
+    return group_values, agg, bool(sums.size) and float(np.abs(sums).max()) >= ENVELOPE
+
+
+def _rethreshold(burst, cols, levels=(0.97, 0.93, 0.89, 0.85)):
+    """The burst's signature groups with thresholds at ``levels`` quantiles
+    of the current table's group aggregates (``_plain_groups``), highest
+    first: a burst whose answers are not empty after a delete that drops
+    every group below the old thresholds."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import Having
+
+    out, seen = [], set()
+    for q in burst:
+        if q.inner_signature() in seen:
+            continue
+        seen.add(q.inner_signature())
+        agg = _plain_groups(q, cols)[1]
+        taus = np.unique(np.quantile(agg.astype(np.float64), levels))[::-1]
+        out += [dataclasses.replace(q, having=Having(q.having.op, float(t))) for t in taus]
+    return out
+
+
+def _plain_result(q, groups):
+    """``q``'s result from ``_plain_groups``: its HAVING over the groups."""
+    import numpy as np
+
+    from repro_torch.core import QueryResult
+
+    group_values, agg, _ = groups
+    keep = np.asarray(q.having.mask(agg))
+    return QueryResult(group_values={a: v[keep] for a, v in group_values.items()},
+                       values=agg[keep])
+
+
+SHARD_KERNELS = ("segment_aggregate_batch",)
+
+
+def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None) -> dict:
+    """``ShardedEngine`` over ``N_SHARDS`` fragment shards on the
+    ``SHARD_ATTR`` partition: burst (misses), replay (one fused launch),
+    replay through the host loop, replay fused again, append 1% and burst,
+    delete one year and burst.  Without phase 3's table, workload and full-table results it
+    makes its own."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Database, ShardedEngine, default_catalog, execute
+    from repro_torch.core.datasets import make_crimes
+    from repro_torch.core.workload import CRIMES_SPEC, generate_workload
+    from repro_torch.device import to_host
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    t_phase = time.perf_counter()
+    check_db = db
+    if db is None:
+        db = Database({"crimes": make_crimes(n_rows, seed=seed, device="cuda")})
+    if workload is None:
+        workload = generate_workload(CRIMES_SPEC, db, UNIQUE, seed=seed)
+    if full_values is None:
+        full_values = {q.signature(): execute(q, db, catalog=default_catalog()).values
+                       for q in workload}
+    burst = _shard_burst(workload, full_values)
+    log(f"[shard] burst of {len(burst)} queries: "
+        + "; ".join(f"gb={'/'.join(q.groupby)} {q.agg.fn} > {q.having.value:g}" for q in burst))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se = ShardedEngine(db, "crimes", SHARD_ATTR, n_shards=N_SHARDS, n_ranges=100,
+                       strategy="CB-OPT-GB", theta=0.05, seed=seed)
+    torch.cuda.synchronize()
+    log(f"[shard] ShardedEngine built in {time.perf_counter() - t0:.2f} s: "
+        f"{se.ranges.n_ranges} fragments on {SHARD_ATTR}, shard rows "
+        f"{[int(s.table.num_rows) for s in se.shards]}, fragments per shard "
+        f"{[int(se.plan.fragments_of(s).size) for s in range(N_SHARDS)]}")
+
+    steps = []  # (label, table version, its needed columns on the host, queries, outputs)
+    needed = {a for q in burst for a in q.groupby} | {q.agg.attr for q in burst if q.agg.attr}
+    launch_log = {}
+
+    def host_cols():
+        crimes = se.db["crimes"]
+        if steps and steps[-1][1] is crimes:
+            return steps[-1][2]
+        return {a: to_host(crimes[a]) for a in needed}
+
+    def run_burst(label, expect_hits, expect_repaired=False, queries=burst):
+        before = {k: LAUNCH_COUNTS[k] for k in (*BUILT, "fused_partials")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = se.run_batch(queries)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCH_COUNTS[k] - v for k, v in before.items() if LAUNCH_COUNTS[k] != v}
+        launch_log[label] = launches
+        # A burst with no hit leaves an earlier burst's route behind.
+        route = se.last_route if any(info.reused for _, info in out) else None
+        for i, (q, (res, info)) in enumerate(zip(queries, out)):
+            log(f"[shard] {label} q{i:02d} gb={'/'.join(q.groupby)} >{q.having.value:g} "
+                f"{'hit ' if info.reused else 'miss'} created={info.created} "
+                f"repaired={info.repaired} attr={info.attr} sel={info.selectivity} "
+                f"shards contacted={info.shards_contacted} skipped={info.shards_skipped} "
+                f"execute={info.t_execute * 1e3:.2f}ms total={info.t_total * 1e3:.1f}ms "
+                f"groups_out={len(res.values)}")
+        n_degraded = sum(bool(info.degraded) for _, info in out)
+        n_empty = sum(len(res.values) == 0 for res, _ in out)
+        log(f"[shard] {label}: {len(queries)} queries in {wall * 1e3:.1f} ms wall; launches "
+            f"{launches}; route fused={route.fused if route else None} "
+            f"launch={route.t_launch_s * 1e3 if route else 0:.3f}ms "
+            f"merge={route.t_merge_s * 1e3 if route else 0:.3f}ms "
+            f"degraded={route.degraded if route else None}; results degraded {n_degraded}, "
+            f"empty {n_empty} of {len(queries)}; shard health {se.health}; stacked cache "
+            f"{se.stacked_bytes() / 1e6:.1f} MB")
+        require(n_degraded == 0 and not (route and route.degraded),
+                f"{label}: {n_degraded} results were served degraded (a shard missed its "
+                f"deadline; health {se.health})")
+        if expect_hits:
+            require(all(info.reused for _, info in out), f"{label}: a query missed")
+            require(all(info.repaired == expect_repaired for _, info in out),
+                    f"{label}: repaired is not {expect_repaired} everywhere")
+        steps.append((label, se.db["crimes"], host_cols(), queries, out))
+        return out, wall
+
+    for name in (*BUILT, "fused_partials"):
+        LAUNCH_COUNTS[name] = 0
+    out, t_burst = run_burst("burst", expect_hits=False)
+    created = sum(info.created for _, info in out)
+    require(created == len(burst), f"the burst created {created} of {len(burst)} sketches")
+    n_local = sum(reg.group_local for reg in se._registered.values())
+    log(f"[shard] {len(se._registered)} registered entries, {n_local} group-local; shard "
+        f"maintainers {[len(s.maintainers) for s in se.shards]}")
+    require(0 < n_local < len(se._registered), "the burst needs both kinds of entries")
+
+    fused_out, t_replay = run_burst("replay", expect_hits=True)
+    require(launch_log["replay"].get("fused_partials") == 1
+            and launch_log["replay"].get("segment_aggregate_batch") == 1,
+            f"the replay took {launch_log['replay']} launches, not one fused launch")
+    skipped = [info.shards_skipped for _, info in fused_out]
+    require(sum(skipped) > 0, "no routed hit skipped a shard")
+
+    se.fused = False
+    loop_out, _ = run_burst("replay, host loop", expect_hits=True)
+    se.fused = True
+    for i, ((rf, _), (rl, _)) in enumerate(zip(fused_out, loop_out)):
+        same = (np.array_equal(rf.values, rl.values)
+                and sorted(rf.group_values) == sorted(rl.group_values)
+                and all(np.array_equal(rf.group_values[a], rl.group_values[a])
+                        for a in rf.group_values))
+        require(same, f"q{i:02d}: the fused and host-loop results differ")
+    log(f"[shard] fused and host-loop results equal bit for bit ({len(burst)} queries)")
+    run_burst("replay, fused again", expect_hits=True)  # stacks cached: the steady state
+
+    rng = np.random.default_rng(seed)
+    crimes = se.db["crimes"]
+    m = int(round(APPEND_FRAC * crimes.num_rows))
+    rows = {a: to_host(crimes[a].index_select(0, torch.from_numpy(
+                rng.integers(0, crimes.num_rows, m)).to(crimes.device)))
+            for a in crimes.schema}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se.append_rows("crimes", rows)
+    t_append = (time.perf_counter() - t0) * 1e3
+    log(f"[shard] append_rows of {m} rows: {t_append:.1f} ms wall (shipped, not applied); "
+        f"watermark {se.min_watermark()} of {se.version}")
+    run_burst("after append", expect_hits=True, expect_repaired=True)
+    year = int(np.median(to_host(crimes["year"])))
+    mask = to_host(se.db["crimes"]["year"] == year)
+    t0 = time.perf_counter()
+    se.delete_rows("crimes", mask)
+    t_delete = (time.perf_counter() - t0) * 1e3
+    log(f"[shard] delete_rows of year {year} ({int(mask.sum())} rows): {t_delete:.1f} ms wall")
+    run_burst("after delete", expect_hits=True, expect_repaired=True)
+    # The delete drops most groups below the burst's thresholds, so the
+    # post-delete version is also read with thresholds taken anew from it:
+    # captures on the shrunk table, then a fused replay of them.
+    fresh = _rethreshold(burst, host_cols())
+    log(f"[shard] new thresholds: "
+        + "; ".join(f"gb={'/'.join(q.groupby)} > {q.having.value:g}" for q in fresh))
+    run_burst("after delete, new thresholds", expect_hits=False, queries=fresh)
+    out, _ = run_burst("after delete, new thresholds, replay", expect_hits=True, queries=fresh)
+    require(launch_log["after delete, new thresholds, replay"].get("fused_partials") == 1,
+            "the replay after the delete took more than one fused launch")
+    n_full = sum(len(res.values) > 0 for res, _ in out)
+    require(2 * n_full >= len(fresh),
+            f"only {n_full} of {len(fresh)} results after the delete hold a group")
+    launches = {name: LAUNCH_COUNTS[name] for name in (*BUILT, "fused_partials")}
+    t_run = time.perf_counter() - t_phase
+    require(se.min_watermark() == se.version, "a shard lags the watermark after a read")
+    log(f"[shard] driven in {t_run:.1f} s; launches {launches}; stacked cache "
+        f"{se.stacked_bytes() / 1e6:.1f} MB in {len(se.engine.catalog._stacked)} entries; "
+        f"coordinator catalog {dict(se.engine.catalog.stats)}")
+    for name in SHARD_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the sharded path")
+    t_route_ms = se.last_route.t_launch_s * 1e3
+    # The last burst's one launch, again on its own inputs (after the counts
+    # were read): its time on the card and the kernel against its plain
+    # version at the main path's shape.
+    bkey = ("stacked_batch",) + tuple(dict.fromkeys(
+        se.engine.index.lookup_entry(q).reg_id for q in fresh))
+    require(bkey in se.engine.catalog._stacked, "the last burst's assembled batch is not cached")
+    vals, gid, w, g_pad = se.engine.catalog._stacked[bkey][1]
+    k, s_pad, r_pad = vals.shape
+    flat = [t.reshape(k, s_pad * r_pad) for t in (vals, gid, w)]
+    got = ops.segment_aggregate_batch(*flat[:2], g_pad, flat[2])
+    want = ref.segment_aggregate_batch_ref(*flat[:2], g_pad, flat[2])
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "the fused launch's kernel disagrees with its plain version")
+    kernel_ms = time_ms(lambda: ops.segment_aggregate_batch(*flat[:2], g_pad, flat[2]))
+    nnz_w = int((flat[2] != 0).sum())
+    b_ms, b_by = bound(k * s_pad * r_pad * 8 + nnz_w * 4 + k * g_pad * 8, 3 * nnz_w)
+    log(f"[shard] fused launch (K, S_pad, R_pad, g_pad) = {(k, s_pad, r_pad, g_pad)}, "
+        f"{nnz_w} weighted rows of {k * s_pad * r_pad}: bit-exact against the plain "
+        f"version; kernel {kernel_ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms ({b_by}), "
+        f"the route's launch + copy to host {t_route_ms:.3f} ms")
+    del got, want, flat
+
+    # Checks, after the counts were read: every result against a plain
+    # group-by of its version's full table (and version 0 also against the
+    # executor over phase 3's table, whose encodings its catalog holds).
+    outcomes = {}
+    for label, crimes, cols, queries, outputs in steps:
+        cache = {}
+        for q, (res, _) in zip(queries, outputs):
+            sig = q.inner_signature()
+            if sig not in cache:
+                cache[sig] = _plain_groups(q, cols)
+            outcome = check_result(q, res, _plain_result(q, cache[sig]), cache[sig][2])
+            outcomes[outcome] = outcomes.get(outcome, 0) + 1
+            if check_db is not None and label == "burst":
+                require(res.canonical() == execute(q, check_db, catalog=default_catalog())
+                        .canonical(), f"{q}: differs from the executor over the full table")
+    log(f"[shard] {sum(outcomes.values())} results vs full-table group-by {outcomes}")
+    log(f"[shard] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a checkout of "
@@ -663,6 +1038,8 @@ def main() -> int:
     launches, db, workload, full_values = phase_engine(ROWS, UNIQUE, REPLAYS, SEED)
     batch_launches = phase_batch(ROWS, SEED, db, workload, full_values)
     launches["fragment_bitmap_batch"] = batch_launches["fragment_bitmap_batch"]
+    shard_launches = phase_shard(ROWS, SEED, db, workload, full_values)
+    launches["segment_aggregate_batch"] = shard_launches["segment_aggregate_batch"]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,

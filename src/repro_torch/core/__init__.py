@@ -9,6 +9,7 @@ from repro_torch.core.maintenance import (
     repair_sketch,
 )
 from repro_torch.core.queries import (
+    inner_group_partials,
     Aggregate,
     Having,
     JoinSpec,
@@ -46,5 +47,23 @@ from repro_torch.core.strategies import (
     select_attribute,
     selection_cache_key,
 )
-from repro_torch.core.table import ColumnTable, Database, TableDelta, encode_groups, from_numpy
+from repro_torch.core.table import (
+    ColumnTable,
+    Database,
+    FragmentLayout,
+    TableDelta,
+    encode_groups,
+    from_numpy,
+)
 from repro_torch.core.workload import WorkloadLog
+from repro_torch.core.shard import (
+    BackpressureError,
+    FragmentShard,
+    RouteInfo,
+    ShardedEngine,
+    ShardPlan,
+    StackedInstances,
+    local_table_for,
+    merge_partials_state,
+    plan_fragments,
+)

@@ -26,7 +26,10 @@ reference): selection randomness is content-derived
 (``PBDSEngine._select_key``), ranking ties break on ``(est_rows, attr)``,
 and every shared product is what sequential execution would have pulled
 from the caches.  The random strategies raise ``NotImplementedError`` as in
-``run``; re-clustering waits for the clustering slice.
+``run``.  With ``cluster_tables=True`` the first admission clusters the
+table mid-batch, after the wave's selection shared the pre-cluster sample;
+group-by candidates (CB-OPT-GB) pin incidence on group values, so the
+choice is the one sequential ``run`` makes.
 """
 from __future__ import annotations
 
@@ -253,6 +256,13 @@ def admit_wave(
                  if reuse else None)
         if engine._worth_it(sels[pos], q, stamp):
             admitted[pos] = engine.ranges_for(q.table, sels[pos].attr)
+
+    # Re-layout comes before the shared scans, in the sequential order
+    # (select, cluster, capture).
+    for pos, q, _ in wave:
+        if pos in admitted:
+            engine._maybe_cluster(q.table, admitted[pos])
+    db = engine.db  # clustering may have replaced tables
 
     # One inner-block evaluation per signature group feeds every member's
     # result and, for admitted members, the provenance its sketch captures.

@@ -21,7 +21,11 @@ add or subtract per-fragment counts, gather the kept rows)
 instead of redoing the full-table host work.  The ``*_delta`` stat counters
 separate that delta-sized work from full misses.
 
-Not in this slice: join layouts and the stacked shard cache.
+The sharded engine (``repro_torch.core.shard``) also keeps its stacked
+shard-major launch inputs here, keyed by registration and guarded by a
+freshness token (``get_stacked``/``put_stacked``/``drop_stacked``).
+
+Not in this slice: join layouts.
 """
 from __future__ import annotations
 
@@ -145,6 +149,10 @@ class Catalog:
         self._frag_groups: Dict[Tuple, np.ndarray] = {}
         # Instance -> (instance, base table, base-row index per instance row).
         self._instance_rows: Dict[int, Tuple[ColumnTable, ColumnTable, np.ndarray]] = {}
+        # Stacked shard-major launch inputs, keyed by registration (and table
+        # lineage and plan) with a token guard (per-shard table versions and
+        # the sketch bits); the values are opaque here.
+        self._stacked: Dict[Tuple, Tuple[Tuple, object]] = {}
 
     def _put(self, cache: Dict, key, value) -> None:
         if len(cache) >= self.max_entries:
@@ -173,6 +181,24 @@ class Catalog:
         while t is not None:
             self.invalidate_table(t)
             t = t.delta.parent if t.delta is not None else None
+
+    # -- stacked shard-major instances ---------------------------------------
+    def get_stacked(self, key: Tuple, token: Tuple) -> Optional[object]:
+        hit = self._stacked.get(key)
+        if hit is not None and hit[0] == token:
+            self.stats["stacked_hit"] += 1
+            return hit[1]
+        return None
+
+    def put_stacked(self, key: Tuple, token: Tuple, value: object) -> None:
+        self.stats["stacked_build"] += 1
+        self._put(self._stacked, key, (token, value))
+
+    def drop_stacked(self, key_prefix: Tuple) -> None:
+        """Drop the stacked entries whose key starts with ``key_prefix`` (an
+        evicted registration's stack must stop pinning device memory)."""
+        for k in [k for k in self._stacked if k[: len(key_prefix)] == key_prefix]:
+            del self._stacked[k]
 
     # -- group-by dictionary encodings --------------------------------------
     def groups(self, table: ColumnTable, attrs: Tuple[str, ...]) -> GroupEncoding:
@@ -371,8 +397,13 @@ class Catalog:
         self.stats["instance_build"] += 1
         self._put(self._instances, (id(sketch), id(table)), (sketch, table, instance))
         if rows is not None:
-            self._put(self._instance_rows, id(instance),
-                      (instance, table, np.asarray(rows)))
+            self.note_subset(instance, table, rows)
+
+    def note_subset(self, subset: ColumnTable, table: ColumnTable, rows: np.ndarray) -> None:
+        """Record that row i of ``subset`` is row ``rows[i]`` of ``table``, so
+        the subset's group encodings and WHERE masks derive from ``table``'s
+        by a gather."""
+        self._put(self._instance_rows, id(subset), (subset, table, np.asarray(rows)))
 
     def _instance_parent(
         self, table: ColumnTable

@@ -17,8 +17,14 @@ through the batched pipeline (``repro_torch.core.admission``), with the
 same results and index contents as sequential ``run``.  ``append_rows`` and
 ``delete_rows`` mutate a table; sketches repair lazily on their next hit.
 
-The engine runs on its tables' device.  Not in this slice: fragment-major
-re-clustering (``cluster_tables``, ``compact_tail_frac``).
+With ``cluster_tables=True`` the first created sketch of a table also lays
+the table out fragment-major on that sketch's partition
+(``ColumnTable.cluster_by``), so instances on it are slice concatenations;
+it is opt-in because the reorder changes the float32 order of additions for
+queries grouping on other attributes.  ``compact_tail_frac`` folds an
+oversized append tail back into fragment-major order.
+
+The engine runs on its tables' device.
 """
 from __future__ import annotations
 
@@ -68,6 +74,14 @@ class RunInfo:
     # (maintained, or re-captured when maintenance refused; the catalog's
     # ``sketch_maintained``/``sketch_recaptured`` stats tell them apart).
     repaired: bool = False
+    # Fragment-sharded serving (``repro_torch.core.shard``): shards sent work
+    # and shards skipped because the sketch has none of their fragments.
+    # ``None`` for single-node execution.
+    shards_contacted: Optional[int] = None
+    shards_skipped: Optional[int] = None
+    # Some shard's slices were served from the coordinator's table (the shard
+    # missed the op deadline).
+    degraded: bool = False
 
     @property
     def t_total(self) -> float:
@@ -84,7 +98,9 @@ class PBDSEngine:
         cfg: EstimationConfig = EstimationConfig(),
         seed: int = 0,
         min_selectivity_gain: float = 0.9,
+        cluster_tables: bool = False,
         max_delta_chain: int = 64,
+        compact_tail_frac: Optional[float] = None,
         selection: Optional[SelectionConfig] = None,
     ):
         self.db = db
@@ -100,6 +116,7 @@ class PBDSEngine:
         self.selection = SelectionConfig() if selection is None else selection
         self.selection_cache = SelectionCache()
         self.workload = WorkloadLog(self.selection.reuse_window)
+        self.cluster_tables = cluster_tables
         self._base_key = prng.PRNGKey(seed)
         self._ranges_cache: Dict[Tuple[str, str], RangeSet] = {}
         # Delta chains pin every prior version's columns; past this depth the
@@ -108,6 +125,9 @@ class PBDSEngine:
         # Sketches estimated to cover >= this fraction of the table are not
         # worth creating (problem definition (i) in Sec. 4.5).
         self.min_selectivity_gain = min_selectivity_gain
+        # A clustered table whose unsorted append tail exceeds this fraction
+        # of its rows is compacted (None: never).
+        self.compact_tail_frac = compact_tail_frac
 
     def selection_state(self) -> dict:
         """Picklable snapshot of the reuse-aware selection state: the
@@ -138,12 +158,44 @@ class PBDSEngine:
             self._ranges_cache[ck] = equi_depth_ranges(self.db[table], attr, self.n_ranges)
         return self._ranges_cache[ck]
 
+    def _maybe_cluster(self, table_name: str, ranges: RangeSet) -> None:
+        """Fragment-major layout, once per table (at its first created
+        sketch).  Equi-depth bounds do not depend on row order, so the
+        ranges cache stays valid; cached samples hold row positions and go."""
+        if not self.cluster_tables:
+            return
+        table = self.db[table_name]
+        if table.layout is not None:
+            return
+        self.db = self.db.with_table(table.cluster_by(ranges))
+        self.samples.invalidate(table_name)
+        self.selection_cache.invalidate(table_name)
+        self.catalog.invalidate_table(table)
+        self.catalog.stats["cluster"] += 1
+
     # -- mutations -------------------------------------------------------------
     def append_rows(self, table_name: str, rows: Mapping[str, np.ndarray]) -> None:
         """Append a batch; sketches repair lazily on their next index hit."""
         self.db = self.db.with_table(self.db[table_name].append(rows))
         self.catalog.stats["table_append"] += 1
         self._bound_history(table_name)
+        self._maybe_compact(table_name)
+
+    def _maybe_compact(self, table_name: str) -> None:
+        """Fold an oversized unsorted tail back into fragment-major order.
+        Compaction drops the delta chain, so every maintainer is advanced to
+        the current version first."""
+        table = self.db[table_name]
+        lay = table.layout
+        if (self.compact_tail_frac is None or lay is None or
+                lay.tail <= self.compact_tail_frac * max(table.num_rows, 1)):
+            return
+        self._advance_maintainers(table_name, table)
+        self.db = self.db.with_table(table.compact())
+        self.catalog.invalidate_chain(table)
+        self.samples.invalidate(table_name)
+        self.selection_cache.invalidate(table_name)
+        self.catalog.stats["compact"] += 1
 
     def delete_rows(self, table_name: str, mask: np.ndarray) -> None:
         """Delete the masked rows; sketches repair lazily on their next hit."""
@@ -159,6 +211,16 @@ class PBDSEngine:
         table = self.db[table_name]
         if table.delta_depth() <= self.max_delta_chain:
             return
+        self._advance_maintainers(table_name, table)
+        self.db = self.db.with_table(table.collapse())
+        self.catalog.invalidate_chain(table)
+        self.samples.invalidate(table_name)
+        self.selection_cache.invalidate(table_name)
+        self.catalog.stats["history_collapse"] += 1
+
+    def _advance_maintainers(self, table_name: str, table) -> None:
+        """Bring every maintainer of ``table_name`` to ``table``'s version
+        (delta-sized work) before its delta chain is dropped."""
         for e in self.index.entries():
             if e.query.table != table_name or e.maintainer is None:
                 continue
@@ -167,11 +229,6 @@ class PBDSEngine:
                 e.sketch = e.maintainer.to_sketch(table, self.catalog)
             except MaintenanceError:
                 e.maintainer = None  # next hit re-captures
-        self.db = self.db.with_table(table.collapse())
-        self.catalog.invalidate_chain(table)
-        self.samples.invalidate(table_name)
-        self.selection_cache.invalidate(table_name)
-        self.catalog.stats["history_collapse"] += 1
 
     def _current_sketch(self, entry: IndexEntry) -> Tuple[ProvenanceSketch, bool]:
         """The entry's sketch, repaired first if its table mutated."""
@@ -246,6 +303,7 @@ class PBDSEngine:
                                 t_probe=tp - t0, t_select=t1 - tp, t_execute=t2 - t1)
 
         ranges = self.ranges_for(q.table, sel.attr)
+        self._maybe_cluster(q.table, ranges)
         tc = time.perf_counter()
         # Fused path: one inner-block evaluation yields the result AND the
         # provenance the sketch is captured from.

@@ -61,17 +61,17 @@ class IndexEntry:
     sketch: ProvenanceSketch
     uses: int = 0
     last_hit: int = 0  # index clock at insert/last lookup hit (prune recency)
-    # Incremental-maintenance state for this sketch; always None until the
-    # maintenance slice ports ``SketchMaintainer``.  Opaque to the index.
+    # Incremental-maintenance state for this sketch (a
+    # ``SketchMaintainer``); opaque to the index.
     maintainer: Optional[object] = None
+    # Registration id the sharded serving layer assigns (0 = unassigned);
+    # shard maintainers and stacked caches key on it.
+    reg_id: int = 0
 
 
 class SketchIndex:
-    """In-memory sketch store with subsumption-based retrieval.
-
-    Eviction (``prune``/``remove``) and the serving layer's registration ids
-    come with the sharded and replicated slices of the port.
-    """
+    """In-memory sketch store with subsumption-based retrieval, eviction
+    (``remove``, ``prune`` by recency) and identity membership."""
 
     def __init__(self):
         self._entries: Dict[Tuple, List[IndexEntry]] = {}
@@ -114,6 +114,10 @@ class SketchIndex:
         self.hits += 1
         return best
 
+    def lookup(self, q: Query) -> Optional[ProvenanceSketch]:
+        e = self.lookup_entry(q)
+        return e.sketch if e is not None else None
+
     def insert(self, q: Query, sketch: ProvenanceSketch,
                maintainer: Optional[object] = None) -> IndexEntry:
         self._clock += 1
@@ -123,6 +127,41 @@ class SketchIndex:
 
     def entries(self) -> List[IndexEntry]:
         return [e for v in self._entries.values() for e in v]
+
+    def contains(self, entry: IndexEntry) -> bool:
+        """True while ``entry`` (by identity) is stored."""
+        return any(e is entry for e in self._entries.get(_pred_key(entry.query), []))
+
+    def remove(self, entry: IndexEntry) -> bool:
+        """Evict one entry by identity; True when it was stored."""
+        k = _pred_key(entry.query)
+        kept = [e for e in self._entries.get(k, []) if e is not entry]
+        if len(kept) == len(self._entries.get(k, [])):
+            return False
+        if kept:
+            self._entries[k] = kept
+        else:
+            self._entries.pop(k, None)
+        return True
+
+    def prune(self, max_entries: int) -> int:
+        """Keep the ``max_entries`` most recently hit entries (then by uses,
+        then smaller instances); returns the number evicted."""
+        all_entries = self.entries()
+        if len(all_entries) <= max_entries:
+            return 0
+        all_entries.sort(key=lambda e: (e.last_hit, e.uses, -e.sketch.size_rows),
+                         reverse=True)
+        keep = set(id(e) for e in all_entries[:max_entries])
+        evicted = 0
+        for k in list(self._entries):
+            kept = [e for e in self._entries[k] if id(e) in keep]
+            evicted += len(self._entries[k]) - len(kept)
+            if kept:
+                self._entries[k] = kept
+            else:
+                del self._entries[k]
+        return evicted
 
     def __len__(self) -> int:
         return sum(len(v) for v in self._entries.values())

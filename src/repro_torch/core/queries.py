@@ -261,6 +261,15 @@ def inner_block_arrays(q: Query, flat: ColumnTable, catalog: Catalog):
     return enc, where_mask, vals
 
 
+def inner_group_partials(q: Query, flat: ColumnTable, catalog: Catalog):
+    """WHERE mask, group encoding and per-group sums/counts over one flat
+    table: ``(enc, where_mask, sums, counts)``.  A fragment shard's partial
+    aggregate is this over its sketch instance."""
+    enc, where_mask, vals = inner_block_arrays(q, flat, catalog)
+    sums, counts = segment_sums_counts(vals, enc.gid_dev, enc.n_groups, weights=where_mask)
+    return enc, where_mask, sums, counts
+
+
 def _inner_block(db: Database, q: Query, catalog: Optional[Catalog] = None) -> InnerBlock:
     """Evaluate the inner block once; one fused segment pass yields both the
     aggregate values and group presence."""
@@ -268,8 +277,7 @@ def _inner_block(db: Database, q: Query, catalog: Optional[Catalog] = None) -> I
     if q.join is not None:
         raise NotImplementedError(JOIN_SLICE)
     flat = db[q.table]
-    enc, where_mask, vals = inner_block_arrays(q, flat, catalog)
-    sums, counts = segment_sums_counts(vals, enc.gid_dev, enc.n_groups, weights=where_mask)
+    enc, where_mask, sums, counts = inner_group_partials(q, flat, catalog)
     agg = _finalize_aggregate(q.agg.fn, sums, counts)
     return InnerBlock(
         flat=flat,

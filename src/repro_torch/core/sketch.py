@@ -4,12 +4,12 @@ selectivity (port of ``repro/core/sketch.py``).
 A sketch for query Q on range partition ``F_{R,a}`` is the bitvector over
 ranges whose fragments contain >= 1 provenance row.  Capture is a segmented
 OR of the provenance mask by fragment id (the ``fragment_bitmap`` kernel);
-the instance of a sketch is the rows whose fragment bit is set (the
-``sketch_filter`` kernel's keep-mask, compacted), pow2-padded, cached per
-sketch in the catalog.  Batched admission captures B sketches of one
-partition from one scan (``capture_sketches_batch``, the
-``fragment_bitmap_batch`` kernel).  The fragment-major slice path waits for
-``cluster_by``.
+the instance of a sketch is the rows whose fragment bit is set, pow2-padded
+and cached per sketch in the catalog: on a table clustered on the sketch's
+own partition the concatenated fragment slices (``take_fragments``), else
+the ``sketch_filter`` kernel's keep-mask, compacted.  Batched admission
+captures B sketches of one partition from one scan
+(``capture_sketches_batch``, the ``fragment_bitmap_batch`` kernel).
 """
 from __future__ import annotations
 
@@ -182,8 +182,21 @@ def _pad_instance_pow2(
 def _build_instance(
     sketch: ProvenanceSketch, table: ColumnTable, catalog: Catalog
 ) -> Tuple[ColumnTable, np.ndarray]:
-    """Materialize the sketch instance R_P of one table (+ its source rows)
-    from the per-row keep-mask kernel, pow2-padded."""
+    """Materialize the sketch instance R_P of one table (+ its source rows),
+    pow2-padded: fragment slices on a table clustered on the sketch's
+    partition, the per-row keep-mask kernel otherwise."""
+    lay = table.layout
+    if lay is not None and lay.matches(sketch.ranges):
+        catalog.stats["instance_slices"] += 1
+        # Tail rows are filtered through the catalog's (delta-refreshed)
+        # bucket ids, so the tail filter stays delta-sized.
+        tail_bucket = None
+        if lay.tail:
+            n = table.num_rows
+            tail_bucket = to_host(catalog.bucketize(table, sketch.ranges)[n - lay.tail:])
+        inst, rows = table.take_fragments(np.nonzero(sketch.bits)[0],
+                                          tail_bucket=tail_bucket, return_rows=True)
+        return _pad_instance_pow2(inst, rows, catalog)
     catalog.stats["instance_mask"] += 1
     mask = sketch_keep_mask(sketch, table, catalog=catalog)
     rows = np.nonzero(to_host(mask))[0]

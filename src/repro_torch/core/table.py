@@ -6,9 +6,13 @@ next version of the same relation and link it to its parent through a
 ``TableDelta``, from which catalog caches and sketch maintainers refresh
 with delta-sized work.  Also here: ``gather``/``with_column``,
 ``from_numpy`` (which casts like ``jnp.asarray`` with x64 off),
-``encode_groups`` and the float32 host bucketizer.  The fragment-major
-layout (``cluster_by``, ``take_fragments``, ``compact``) comes with the
-clustering slice.
+``encode_groups`` and the float32 host bucketizer.
+
+``cluster_by`` lays a table out fragment-major under a range partition
+(``FragmentLayout``): fragment ``f`` is the row slice ``[offsets[f],
+offsets[f+1])``, so a sketch on that partition is applied by concatenating
+slices (``take_fragments``).  Appends land in the layout's unsorted tail;
+``compact`` folds the tail back into fragment-major order.
 """
 from __future__ import annotations
 
@@ -57,6 +61,37 @@ def _numpy_dtype(col: torch.Tensor) -> np.dtype:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class FragmentLayout:
+    """Fragment-major physical layout of a clustered table.
+
+    Fragment ``f`` of the range partition is the contiguous row slice
+    ``[offsets[f], offsets[f+1])``; the last ``tail`` rows are appended rows
+    not yet sorted into their fragments.  Compared by identity.
+    """
+
+    attr: str
+    ranges_key: Tuple
+    offsets: np.ndarray  # (n_fragments + 1,) row offsets, offsets[0] == 0
+    tail: int = 0
+
+    @property
+    def n_fragments(self) -> int:
+        return int(self.offsets.shape[0]) - 1
+
+    def matches(self, ranges) -> bool:
+        return self.attr == ranges.attr and self.ranges_key == ranges.key()
+
+    def bounds(self) -> np.ndarray:
+        """The partition's interior split points, read back from the key
+        (``RangeSet.key()`` holds the float64 bounds' bytes), so tail rows
+        can be bucketized without the ``RangeSet``."""
+        bounds = np.frombuffer(self.ranges_key[2], dtype=np.float64)
+        if bounds.shape[0] != self.ranges_key[1] - 1:
+            raise ValueError("layout ranges_key does not hold float64 bounds")
+        return bounds
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class TableDelta:
     """One append/delete step linking a table version to its parent.
 
@@ -83,15 +118,18 @@ class TableDelta:
 class ColumnTable:
     """An immutable bag-semantics relation stored column-major.
 
-    ``uid`` is the lineage identity, kept by ``append``/``delete`` and fresh
-    for any other derived table; ``version`` is the per-lineage version
-    token they bump; ``delta`` is the step that produced this version (None
-    for a root table).  Compared and hashed by identity.
+    ``uid`` is the lineage identity, kept by ``append``/``delete``/
+    ``cluster_by`` and fresh for any other derived table; ``version`` is the
+    per-lineage version token ``append``/``delete`` bump; ``layout`` is the
+    fragment-major layout ``cluster_by`` sets (row-reordering operations drop
+    it, appends grow its tail); ``delta`` is the step that produced this
+    version (None for a root table).  Compared and hashed by identity.
     """
 
     name: str
     columns: Dict[str, torch.Tensor]
     primary_key: Tuple[str, ...] = ()
+    layout: Optional[FragmentLayout] = None
     version: int = 0
     uid: int = 0
     delta: Optional[TableDelta] = None
@@ -125,7 +163,13 @@ class ColumnTable:
     def with_column(self, attr: str, values: torch.Tensor) -> "ColumnTable":
         cols = dict(self.columns)
         cols[attr] = values
-        return ColumnTable(self.name, cols, self.primary_key)
+        # Row order is unchanged, so the layout survives.
+        return ColumnTable(self.name, cols, self.primary_key, self.layout)
+
+    def select(self, mask) -> "ColumnTable":
+        """Keep the rows where ``mask`` is True (compacted on the host)."""
+        mask = to_host(mask) if isinstance(mask, torch.Tensor) else np.asarray(mask)
+        return self.gather(np.nonzero(mask)[0])
 
     def gather(self, idx) -> "ColumnTable":
         idx = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
@@ -134,6 +178,80 @@ class ColumnTable:
             {k: v.index_select(0, idx) for k, v in self.columns.items()},
             self.primary_key,
         )
+
+    # -- fragment-major layout ---------------------------------------------------
+    def cluster_by(self, ranges) -> "ColumnTable":
+        """Fragment-major layout for a range partition: rows stably reordered
+        by fragment id (the reference's ``np.argsort(kind="stable")``, so
+        rows of one fragment keep their order).  Lineage and version
+        survive; the delta chain does not (row positions moved)."""
+        bucket = to_host(ranges.bucketize(self[ranges.attr]))
+        order = np.argsort(bucket, kind="stable")
+        counts = np.bincount(bucket, minlength=ranges.n_ranges)
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        clustered = self.gather(order)
+        layout = FragmentLayout(attr=ranges.attr, ranges_key=ranges.key(), offsets=offsets)
+        return ColumnTable(self.name, clustered.columns, self.primary_key, layout,
+                           version=self.version, uid=self.uid)
+
+    def take_fragments(
+        self, frag_ids: np.ndarray, tail_bucket: Optional[np.ndarray] = None,
+        return_rows: bool = False,
+    ):
+        """The given fragments' slices, concatenated (clustered tables only).
+
+        Tail rows are kept one by one when their fragment is among
+        ``frag_ids``; ``tail_bucket`` (their fragment ids, e.g. from the
+        catalog's delta-refreshed bucketization) is recomputed from the
+        layout's bounds when not given.  With ``return_rows`` the source row
+        of each output row comes back too.
+        """
+        if self.layout is None:
+            raise ValueError(f"{self.name}: take_fragments needs a clustered table")
+        lay = self.layout
+        frag_ids = np.asarray(frag_ids)
+        off = lay.offsets
+        parts = [np.arange(off[f], off[f + 1]) for f in frag_ids]
+        if lay.tail:
+            n = self.num_rows
+            if tail_bucket is None:
+                tail_bucket = _bucketize_np(lay.bounds(), to_host(self[lay.attr][n - lay.tail:]))
+            tail_bucket = np.asarray(tail_bucket)
+            if tail_bucket.shape[0] != lay.tail:
+                raise ValueError(
+                    f"tail_bucket has {tail_bucket.shape[0]} entries for a "
+                    f"{lay.tail}-row tail")
+            keep = np.zeros(lay.n_fragments, dtype=bool)
+            keep[frag_ids] = True
+            parts.append(np.arange(n - lay.tail, n)[keep[tail_bucket]])
+        idx = np.concatenate(parts) if parts else np.empty(0, dtype=np.int64)
+        out = self.gather(idx)
+        return (out, idx) if return_rows else out
+
+    def compact(self) -> "ColumnTable":
+        """Fold the unsorted tail into fragment-major order: each fragment's
+        tail rows follow its prefix rows, in tail order.  Same contents,
+        lineage and version; the delta chain is dropped, so row-position
+        caches must be invalidated by the caller."""
+        lay = self.layout
+        if lay is None or lay.tail == 0:
+            return self.collapse()
+        n = self.num_rows
+        tail_rows = np.arange(n - lay.tail, n)
+        tail_bucket = _bucketize_np(lay.bounds(), to_host(self[lay.attr][n - lay.tail:]))
+        order_t = np.argsort(tail_bucket, kind="stable")
+        tail_counts = np.bincount(tail_bucket, minlength=lay.n_fragments)
+        new_offsets = np.concatenate(
+            [[0], np.cumsum(np.diff(lay.offsets) + tail_counts)]).astype(np.int64)
+        t_off = np.concatenate([[0], np.cumsum(tail_counts)])
+        parts = []
+        for f in range(lay.n_fragments):
+            parts.append(np.arange(lay.offsets[f], lay.offsets[f + 1]))
+            parts.append(tail_rows[order_t[t_off[f]:t_off[f + 1]]])
+        compacted = self.gather(np.concatenate(parts))
+        layout = FragmentLayout(attr=lay.attr, ranges_key=lay.ranges_key, offsets=new_offsets)
+        return ColumnTable(self.name, compacted.columns, self.primary_key, layout,
+                           version=self.version, uid=self.uid)
 
     # -- mutations (delta-aware) ----------------------------------------------
     def delta_depth(self) -> int:
@@ -149,7 +267,7 @@ class ColumnTable:
         parent references (so prior versions' columns can be freed)."""
         if self.delta is None:
             return self
-        return ColumnTable(self.name, self.columns, self.primary_key,
+        return ColumnTable(self.name, self.columns, self.primary_key, self.layout,
                            version=self.version, uid=self.uid)
 
     def append(self, rows: Mapping[str, np.ndarray]) -> "ColumnTable":
@@ -157,7 +275,8 @@ class ColumnTable:
 
         The batch is cast to the columns' dtypes on the table's device; a
         lossy cast raises, since a silently truncated value would flow
-        through every maintained aggregate undetectably.
+        through every maintained aggregate undetectably.  A layout survives:
+        the batch lands in its unsorted tail.
         """
         if set(rows) != set(self.columns):
             raise ValueError(
@@ -183,14 +302,18 @@ class ColumnTable:
              for k, v in batch.items()},
             self.primary_key)
         cols = {k: torch.cat([v, appended.columns[k]]) for k, v in self.columns.items()}
+        layout = (dataclasses.replace(self.layout, tail=self.layout.tail + lengths.pop())
+                  if self.layout is not None else None)
         return ColumnTable(
-            self.name, cols, self.primary_key, version=self.version + 1, uid=self.uid,
+            self.name, cols, self.primary_key, layout,
+            version=self.version + 1, uid=self.uid,
             delta=TableDelta(kind="append", parent=self, appended=appended),
         )
 
     def delete(self, mask: np.ndarray) -> "ColumnTable":
         """Delete the rows where ``mask`` (numpy bool[num_rows]) is True,
-        producing the next version; the kept rows keep their order."""
+        producing the next version; the kept rows keep their order, so a
+        layout survives with its offsets and tail shrunk."""
         mask = np.asarray(mask, dtype=bool)
         if mask.shape != (self.num_rows,):
             raise ValueError(f"delete mask of shape {mask.shape} for {self.num_rows} rows")
@@ -198,8 +321,21 @@ class ColumnTable:
         kept_idx = np.nonzero(~mask)[0]
         keep = torch.from_numpy(kept_idx).to(self.device)
         cols = {k: v.index_select(0, keep) for k, v in self.columns.items()}
+        layout = None
+        if self.layout is not None:
+            lay = self.layout
+            prefix_len = self.num_rows - lay.tail
+            del_prefix = deleted_idx[deleted_idx < prefix_len]
+            frag_of_deleted = np.searchsorted(lay.offsets, del_prefix, side="right") - 1
+            counts = np.diff(lay.offsets) - np.bincount(
+                frag_of_deleted, minlength=lay.n_fragments)
+            offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            tail = lay.tail - int((deleted_idx >= prefix_len).sum())
+            layout = FragmentLayout(attr=lay.attr, ranges_key=lay.ranges_key,
+                                    offsets=offsets, tail=tail)
         return ColumnTable(
-            self.name, cols, self.primary_key, version=self.version + 1, uid=self.uid,
+            self.name, cols, self.primary_key, layout,
+            version=self.version + 1, uid=self.uid,
             delta=TableDelta(kind="delete", parent=self,
                              deleted_idx=deleted_idx, kept_idx=kept_idx),
         )

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/repro_torch/<name>-<hash>.so`` at the repository root (a
 directory ``.gitignore`` lists), the first time one of its kernels is
-launched.  The hash covers the source and the flags, so an edited source
-builds anew.  :func:`build_all` starts one ``nvcc`` per source at once, so
+launched.  The hash covers the source, the local files it includes and the
+flags, so an edited source builds anew.  :func:`build_all` starts one ``nvcc`` per source at once, so
 building every kernel takes as long as the slowest one.
 
 Nothing here runs at import: the CPU test suite imports every module on a
@@ -15,13 +15,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
-                            "fragment_bitmap_batch")
+                            "fragment_bitmap_batch", "segment_aggregate_batch")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -50,6 +51,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "bitmap_batch_masks_per_chunk": (_I, []),
         "bitmap_batch_launch": (_I, [_I, _P, _P, _P, _LL, _I, _I, _P, _P, _I]),
     },
+    "segment_aggregate_batch": {
+        "segagg_batch_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _I]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -67,9 +71,16 @@ def _nvcc() -> str:
         "nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the local files it includes (``#include "x"``)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    deps = re.findall(r'^#include "([^"]+)"', src.read_text(), flags=re.M)
+    return [src] + [CSRC / d for d in deps]
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in _sources(name))
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -37,6 +37,11 @@
 //   stable counting sort: match per run of 32 rows, then a prefix sum of the
 //   counts), and each warp adds its list as above.  The next tile's loads
 //   are in flight while the current one is split and added.
+//
+// Batch: blockIdx.y is a batch row.  Row b reads its own n rows at b * n,
+// accumulates into its own blocks' slice of the scratch and merges them in
+// block order, so a batched launch (segment_aggregate_batch.cu) computes
+// each row exactly as a launch over that row alone with the same block count.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,6 +122,10 @@ segagg_private(const float* __restrict__ values, const int32_t* __restrict__ gid
                const float* __restrict__ weights, int64_t n, int n_groups,
                float* __restrict__ partials) {
   extern __shared__ float smem[];  // kPrivWarps copies of (sums, counts)
+  values += (int64_t)blockIdx.y * n;
+  gid += (int64_t)blockIdx.y * n;
+  weights += (int64_t)blockIdx.y * n;
+  partials += (int64_t)blockIdx.y * gridDim.x * 2 * n_groups;
   for (int j = threadIdx.x; j < kPrivWarps * 2 * n_groups; j += kPrivThreads) smem[j] = 0.f;
   __syncthreads();
   const int warp = threadIdx.x / 32;
@@ -150,6 +159,10 @@ segagg_owned(const float* __restrict__ values, const int32_t* __restrict__ gid,
              const float* __restrict__ weights, int64_t n, int n_groups,
              float* __restrict__ partials) {
   extern __shared__ float smem[];
+  values += (int64_t)blockIdx.y * n;
+  gid += (int64_t)blockIdx.y * n;
+  weights += (int64_t)blockIdx.y * n;
+  partials += (int64_t)blockIdx.y * gridDim.x * 2 * n_groups;
   int32_t* lkey = reinterpret_cast<int32_t*>(smem);
   float* lp = smem + kTile;
   float* lw = lp + kTile;
@@ -258,6 +271,9 @@ __global__ void segagg_merge(const float* __restrict__ partials, int n_blocks,
                              float* __restrict__ counts) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= 2 * n_groups) return;
+  partials += (int64_t)blockIdx.y * n_blocks * 2 * n_groups;
+  sums += (int64_t)blockIdx.y * n_groups;
+  counts += (int64_t)blockIdx.y * n_groups;
   float t = 0.f;
   for (int b = 0; b < n_blocks; ++b) t += partials[(int64_t)b * 2 * n_groups + j];
   if (j < n_groups) {
@@ -267,43 +283,52 @@ __global__ void segagg_merge(const float* __restrict__ partials, int n_blocks,
   }
 }
 
-}  // namespace
-
-// scratch holds n_blocks * 2 * n_groups floats.  mode picks where the
-// per-block partials accumulate: 0 per-warp copies in shared memory
-// (segagg_private), 1 one copy in shared memory and 2 the block's slice of
-// scratch (segagg_owned).  Returns cudaGetLastError() after both launches
-// (0 on success).
-extern "C" int segagg_launch(int device, void* stream, const float* values,
-                             const int32_t* gid, const float* weights, long long n,
-                             int n_groups, float* sums, float* counts,
-                             float* scratch, int n_blocks, int mode) {
+// batch rows of n rows each; scratch holds batch * n_blocks * 2 * n_groups
+// floats.  mode picks where the per-block partials accumulate: 0 per-warp
+// copies in shared memory (segagg_private), 1 one copy in shared memory and
+// 2 the block's slice of scratch (segagg_owned).  Returns
+// cudaGetLastError() after both launches (0 on success).
+int segagg_run(int device, void* stream, const float* values, const int32_t* gid,
+               const float* weights, long long n, int batch, int n_groups, float* sums,
+               float* counts, float* scratch, int n_blocks, int mode) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t part = (size_t)2 * n_groups * sizeof(float);
   const size_t stage = (size_t)kStageWords * sizeof(float);
+  const dim3 grid(n_blocks, batch);
   if (mode == 0) {
     const size_t smem = kPrivWarps * part;
     err = cudaFuncSetAttribute(segagg_private, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    segagg_private<<<n_blocks, kPrivThreads, smem, s>>>(values, gid, weights, n, n_groups,
-                                                        scratch);
+    segagg_private<<<grid, kPrivThreads, smem, s>>>(values, gid, weights, n, n_groups,
+                                                    scratch);
   } else if (mode == 1) {
     err = cudaFuncSetAttribute(segagg_owned<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(stage + part));
     if (err != cudaSuccess) return (int)err;
-    segagg_owned<true><<<n_blocks, kThreads, stage + part, s>>>(values, gid, weights, n,
-                                                                n_groups, scratch);
+    segagg_owned<true><<<grid, kThreads, stage + part, s>>>(values, gid, weights, n,
+                                                            n_groups, scratch);
   } else {
-    segagg_owned<false><<<n_blocks, kThreads, stage, s>>>(values, gid, weights, n, n_groups,
-                                                          scratch);
+    segagg_owned<false><<<grid, kThreads, stage, s>>>(values, gid, weights, n, n_groups,
+                                                      scratch);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int outs = 2 * n_groups;
-  segagg_merge<<<(outs + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, s>>>(
-      scratch, n_blocks, n_groups, sums, counts);
+  segagg_merge<<<dim3((outs + kMergeThreads - 1) / kMergeThreads, batch), kMergeThreads, 0,
+                 s>>>(scratch, n_blocks, n_groups, sums, counts);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One segment problem of n rows (see segagg_run).
+extern "C" int segagg_launch(int device, void* stream, const float* values,
+                             const int32_t* gid, const float* weights, long long n,
+                             int n_groups, float* sums, float* counts,
+                             float* scratch, int n_blocks, int mode) {
+  return segagg_run(device, stream, values, gid, weights, n, 1, n_groups, sums, counts,
+                    scratch, n_blocks, mode);
 }

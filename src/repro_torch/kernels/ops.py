@@ -16,6 +16,9 @@ from repro_torch.kernels.fragment_bitmap import (
     fragment_bitmap_batch as _fragment_bitmap_batch,
 )
 from repro_torch.kernels.segment_aggregate import segment_aggregate as _segment_aggregate
+from repro_torch.kernels.segment_aggregate import (
+    segment_aggregate_batch as _segment_aggregate_batch,
+)
 from repro_torch.kernels.sketch_filter import sketch_filter as _sketch_filter
 
 
@@ -46,3 +49,17 @@ def segment_aggregate(
     weights = (torch.ones_like(values) if weights is None
                else weights.to(torch.float32).contiguous())
     return _segment_aggregate(values, gid, n_groups, weights)
+
+
+def segment_aggregate_batch(
+    values: torch.Tensor,
+    gid: torch.Tensor,
+    n_groups: int,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, n) inputs -> (B, n_groups) sums and counts, one launch."""
+    values = values.to(torch.float32).contiguous()
+    gid = gid.to(torch.int32).contiguous()
+    weights = (torch.ones_like(values) if weights is None
+               else weights.to(torch.float32).contiguous())
+    return _segment_aggregate_batch(values, gid, n_groups, weights)

@@ -60,3 +60,24 @@ def segment_aggregate_ref(
     sums = torch.zeros(n_groups, dtype=torch.float32, device=v.device).index_add_(0, g, v * w)
     counts = torch.zeros(n_groups, dtype=torch.float32, device=v.device).index_add_(0, g, w)
     return sums, counts
+
+
+def segment_aggregate_batch_ref(
+    values: torch.Tensor, gid: torch.Tensor, n_groups: int,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums, counts) as (B, n_groups): row ``b`` is
+    ``segment_aggregate_ref`` of row ``b``.  One ``index_add_`` over the
+    flattened rows with ids ``gid + b * n_groups`` adds each row's values in
+    row order, as the unbatched version does; out-of-range gids are dropped
+    per row."""
+    b = int(values.shape[0])
+    v = values.to(torch.float32)
+    w = torch.ones_like(v) if weights is None else weights.to(torch.float32)
+    g = gid.long()
+    ok = (g >= 0) & (g < n_groups)
+    flat = (g + n_groups * torch.arange(b, device=g.device)[:, None])[ok]
+    out = torch.zeros(2, b * n_groups, dtype=torch.float32, device=v.device)
+    out[0].index_add_(0, flat, (v * w)[ok])
+    out[1].index_add_(0, flat, w[ok])
+    return out[0].view(b, n_groups), out[1].view(b, n_groups)

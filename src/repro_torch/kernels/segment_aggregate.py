@@ -1,9 +1,11 @@
-"""Segmented sum/count: the wrapper of ``csrc/segment_aggregate.cu``.
+"""Segmented sum/count: the wrappers of ``csrc/segment_aggregate.cu`` and
+``csrc/segment_aggregate_batch.cu``.
 
-Replaces ``repro/kernels/segment_aggregate.py::segment_aggregate_pallas``;
-the source says how the kernel is built and what bounds it.  A CPU tensor
-goes to the plain version (``ref.segment_aggregate_ref``); a CUDA tensor
-goes to the kernel, or the call raises.
+They replace ``repro/kernels/segment_aggregate.py::segment_aggregate_pallas``
+and ``segment_aggregate_batch_pallas``; the sources say how the kernels are
+built and what bounds them.  A CPU tensor goes to the plain version
+(``ref.segment_aggregate_ref``, ``ref.segment_aggregate_batch_ref``); a
+CUDA tensor goes to the kernel, or the call raises.
 """
 from __future__ import annotations
 
@@ -12,10 +14,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import segment_aggregate_ref
+from repro_torch.kernels.ref import segment_aggregate_batch_ref, segment_aggregate_ref
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "segment_aggregate"
+BATCH_NAME = "segment_aggregate_batch"
 # Where the per-block partials accumulate (the source's launch modes): one
 # copy per warp in shared memory (few groups), one copy per block in shared
 # memory, or the block's slice of global scratch.
@@ -66,6 +69,15 @@ def grid(n: int, n_groups: int, n_sms: int) -> Tuple[int, int]:
     return blocks, mode
 
 
+def batch_grid(b: int, n: int, n_groups: int, n_sms: int) -> Tuple[int, int]:
+    """(blocks per batch row, mode) for ``b`` rows of ``n``: the unbatched
+    grid of one row, so each row adds in the order an unbatched launch
+    would, unless the ``b`` rows' scratch would pass ``GLOBAL_SCRATCH``;
+    then fewer blocks a row (each row is still summed in a fixed order)."""
+    blocks, mode = grid(n, n_groups, n_sms)
+    return max(1, min(blocks, GLOBAL_SCRATCH // (b * 8 * n_groups))), mode
+
+
 def segment_aggregate(
     values: torch.Tensor, gid: torch.Tensor, n_groups: int, weights: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,4 +106,37 @@ def segment_aggregate(
         scratch.data_ptr(), blocks, mode)
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
+    return sums, counts
+
+
+def segment_aggregate_batch(
+    values: torch.Tensor, gid: torch.Tensor, n_groups: int, weights: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B segment problems at once: (sums, counts) as f32[B, n_groups] from
+    (B, n) f32 ``values``, int32 ``gid`` and f32 ``weights``; rows with gid
+    outside [0, n_groups) add nothing."""
+    if values.device.type == "cpu":
+        return segment_aggregate_batch_ref(values, gid, n_groups, weights)
+    dev = values.device
+    b, n = (int(d) for d in values.shape)
+    build.check_tensor(values, "values", torch.float32, dev, (b, n))
+    build.check_tensor(gid, "gid", torch.int32, dev, (b, n))
+    build.check_tensor(weights, "weights", torch.float32, dev, (b, n))
+    if n_groups < 1:
+        raise ValueError(f"n_groups must be >= 1, got {n_groups}")
+    sums = torch.empty((b, n_groups), dtype=torch.float32, device=dev)
+    counts = torch.empty((b, n_groups), dtype=torch.float32, device=dev)
+    if b == 0:
+        return sums, counts
+    lib = build.library(BATCH_NAME)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_sms = torch.cuda.get_device_properties(index).multi_processor_count
+    blocks, mode = batch_grid(b, n, n_groups, n_sms)
+    scratch = torch.empty(b * blocks * 2 * n_groups, dtype=torch.float32, device=dev)
+    err = lib.segagg_batch_launch(
+        index, build.stream_handle(dev), values.data_ptr(), gid.data_ptr(),
+        weights.data_ptr(), n, b, n_groups, sums.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr(), blocks, mode)
+    build.check(err, BATCH_NAME)
+    LAUNCH_COUNTS[BATCH_NAME] += 1
     return sums, counts

@@ -135,7 +135,8 @@ def test_reference_sketch_applies_in_the_port(dbs, workloads):
 
 def test_deferred_paths_name_their_slice(dbs, workloads):
     """What later slices bring still refuses: joins, the random strategies
-    (in ``run`` and ``run_batch``) and fragment-major clustering."""
+    (in ``run`` and ``run_batch``) and the fault half of sharded serving
+    (subprocess shards, fault injection, rebalance)."""
     _, tdb = dbs
     _, tq = workloads
     joined = dataclasses.replace(tq[0], join=T.JoinSpec("orders", "pid", "o_orderkey"))
@@ -148,10 +149,13 @@ def test_deferred_paths_name_their_slice(dbs, workloads):
         rand.run(tq[0])
     with pytest.raises(NotImplementedError):
         rand.run_batch(tq[:2])
-    with pytest.raises(TypeError):
-        T.PBDSEngine(tdb, cluster_tables=True)
-    with pytest.raises(TypeError):
-        T.PBDSEngine(tdb, compact_tail_frac=0.1)
+    with pytest.raises(NotImplementedError):
+        T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
+    se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)
+    with pytest.raises(NotImplementedError):
+        se.shards[0].inject("kill")
+    with pytest.raises(NotImplementedError):
+        se.rebalance([0])
 
 
 def test_engine_runs_on_its_tables_device(dbs):

@@ -16,7 +16,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.segment_aggregate import (
     GLOBAL, GLOBAL_SCRATCH, PRIV_ROWS, PRIV_THREADS, PRIVATE, PRIVATE_LIMIT, SHARED,
-    SHARED_LIMIT, STAGE_BYTES, THREADS, TILE_ROWS, grid)
+    SHARED_LIMIT, STAGE_BYTES, THREADS, TILE_ROWS, batch_grid, grid)
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 torch.set_num_threads(1)  # small tensors; leave the cores to the other xdist workers
@@ -134,6 +134,66 @@ def test_segment_aggregate_grid(n, g, sms):
         assert blocks * part <= GLOBAL_SCRATCH
 
 
+@pytest.mark.parametrize("b,n,g", [(1, 100, 5), (4, 700, 130), (3, 2048, 512)])
+def test_segment_aggregate_batch_plain_matches_reference(b, n, g):
+    """At ``tests/test_kernels.py:53``'s shapes, on integral inputs: the
+    batched plain version equals the jnp oracle, the Pallas batch kernel in
+    interpret mode, and the unbatched version row by row, bit for bit."""
+    gid = RNG.integers(0, g, (b, n)).astype(np.int32)
+    vals = RNG.integers(0, 100, (b, n)).astype(np.float32)
+    w = (RNG.random((b, n)) < 0.5).astype(np.float32)
+    s_ref, c_ref = jref.segment_aggregate_batch_ref(jnp.asarray(vals), jnp.asarray(gid), g,
+                                                    jnp.asarray(w))
+    s_pl, c_pl = jops.segment_aggregate_batch(jnp.asarray(vals), jnp.asarray(gid), g,
+                                              jnp.asarray(w), backend="interpret")
+    s, c = ops.segment_aggregate_batch(torch.from_numpy(vals), torch.from_numpy(gid), g,
+                                       torch.from_numpy(w))
+    for got, want in ((s, s_ref), (c, c_ref), (s, s_pl), (c, c_pl)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for i in range(b):
+        s1, c1 = ops.segment_aggregate(torch.from_numpy(vals[i]), torch.from_numpy(gid[i]), g,
+                                       torch.from_numpy(w[i]))
+        assert torch.equal(s[i], s1) and torch.equal(c[i], c1)
+
+
+def test_segment_aggregate_batch_plain_drops_out_of_range_gids_per_row():
+    vals = torch.tensor([[1.0, 2.0, 4.0], [8.0, 16.0, 32.0]])
+    gid = torch.tensor([[0, -1, 2], [1, 1, 0]], dtype=torch.int32)
+    s, c = ref.segment_aggregate_batch_ref(vals, gid, 2)
+    assert s.tolist() == [[1.0, 0.0], [32.0, 24.0]] and c.tolist() == [[1.0, 0.0], [1.0, 2.0]]
+
+
+def test_batched_wrapper_on_the_cpu_launches_nothing():
+    before = dict(LAUNCH_COUNTS)
+    ops.segment_aggregate_batch(torch.ones(2, 3), torch.zeros(2, 3, dtype=torch.int32), 1)
+    assert dict(LAUNCH_COUNTS) == before
+
+
+@pytest.mark.parametrize("b,n,g", [(1, 1 << 23, 16384), (8, 1 << 20, 128), (8, 1 << 20, 16384),
+                                   (16, 1 << 23, 64), (64, 1 << 20, 1 << 16)])
+def test_segment_aggregate_batch_grid(b, n, g):
+    """The batched grid is the unbatched one per row (so each row adds in an
+    unbatched launch's order) while the rows' scratch fits its budget."""
+    blocks, mode = batch_grid(b, n, g, 132)
+    ub_blocks, ub_mode = grid(n, g, 132)
+    assert mode == ub_mode and 1 <= blocks <= ub_blocks
+    assert blocks == ub_blocks or b * blocks * 8 * g <= GLOBAL_SCRATCH
+    assert batch_grid(1, n, g, 132) == grid(n, g, 132)
+
+
+def test_batched_source_builds_on_the_unbatched_kernels():
+    """segment_aggregate_batch.cu includes segment_aggregate.cu (one set of
+    kernels, the batch row a grid axis), and its library's hash covers both,
+    so an edit of either rebuilds it."""
+    csrc = Path(build.__file__).parent / "csrc"
+    src = (csrc / "segment_aggregate_batch.cu").read_text()
+    assert '#include "segment_aggregate.cu"' in src and "segagg_run(" in src
+    assert build._sources("segment_aggregate_batch") == [
+        csrc / "segment_aggregate_batch.cu", csrc / "segment_aggregate.cu"]
+    assert "blockIdx.y" in (csrc / "segment_aggregate.cu").read_text()
+    assert "segment_aggregate_batch" in build.KERNELS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 16, 700, 16384, 65536])
 def test_segment_aggregate_kernel_matches_plain(cuda, g):
@@ -185,3 +245,45 @@ def test_kernel_wrappers_reject_bad_arguments(cuda):
     bucket = torch.zeros(8, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):
         sketch_filter(bucket, torch.ones(4, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,g", [(1, 100, 5), (4, 700, 130), (3, 2048, 512),
+                                   (8, 1 << 18, 128), (8, 1 << 18, 16384), (2, 1 << 16, 65536)])
+def test_segment_aggregate_batch_kernel_matches_plain_and_rows(cuda, b, n, g):
+    """Integral inputs: the batched kernel equals its plain version and the
+    unbatched kernel row by row, bit for bit, in one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(b * n + g)
+    gid = torch.randint(-1, g, (b, n), generator=gen, device=cuda, dtype=torch.int32)
+    vals = torch.randint(0, 50, (b, n), generator=gen, device=cuda).float()
+    w = (torch.rand((b, n), generator=gen, device=cuda) < 0.5).float()
+    before = LAUNCH_COUNTS["segment_aggregate_batch"]
+    s, c = ops.segment_aggregate_batch(vals, gid, g, w)
+    assert LAUNCH_COUNTS["segment_aggregate_batch"] == before + 1
+    s2, c2 = ref.segment_aggregate_batch_ref(vals, gid, g, w)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s2) and torch.equal(c, c2)
+    for i in range(b):
+        s1, c1 = ops.segment_aggregate(vals[i].contiguous(), gid[i].contiguous(), g,
+                                       w[i].contiguous())
+        assert torch.equal(s[i], s1) and torch.equal(c[i], c1), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [16, 16384])
+def test_segment_aggregate_batch_kernel_reruns_give_equal_bits(cuda, g):
+    """Normal inputs: reruns give equal bits, and each row equals the
+    unbatched kernel on it (same block count, same order of additions)."""
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    b, n = 4, 1 << 18
+    gid = torch.randint(0, g, (b, n), generator=gen, device=cuda, dtype=torch.int32)
+    vals = torch.randn((b, n), generator=gen, device=cuda)
+    w = (torch.rand((b, n), generator=gen, device=cuda) < 0.5).float()
+    first = ops.segment_aggregate_batch(vals, gid, g, w)
+    for _ in range(3):
+        again = ops.segment_aggregate_batch(vals, gid, g, w)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    for i in range(b):
+        s1, c1 = ops.segment_aggregate(vals[i].contiguous(), gid[i].contiguous(), g,
+                                       w[i].contiguous())
+        assert torch.equal(first[0][i], s1) and torch.equal(first[1][i], c1), i

@@ -27,7 +27,15 @@ burst; after the delete a burst with thresholds taken anew from the current
 table and its replay, so that the post-delete check holds real output;
 every result is checked against a plain numpy group-by of the full table,
 the fused and host-loop results against each other bit for bit, and no
-route may be served degraded.  Any failed check raises, so the exit code is not 0.
+route may be served degraded.  Phase 6 serves ``stablelm-1.6b`` at full
+width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
+random weights from the seed) through ``launch.serve.serve``: sketch-filtered
+admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
+layers run the flash-attention kernel, and 16 greedy tokens; it checks the
+admitted requests against the CPU pipeline and a plain numpy evaluation of
+the curation query, the kernel path's prefill logits against the plain
+chunked attention on float32 copies of the weights, decode against prefill,
+and a 2,048-token prompt.  Any failed check raises, so the exit code is not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as ``nvidia-smi`` reports them, and last
@@ -48,10 +56,12 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
 ENVELOPE = float(1 << 24)  # float32 adds integers exactly below this
 KERNEL_ROWS = 1 << 23  # 6.7M rows padded to pow2, the executor's row class
 ROWS = 6_700_000  # Chicago Crime in the paper's evaluation
 UNIQUE, REPLAYS, SEED = 8, 3, 9
+SEED_SERVE = 0  # serve.py's default --seed
 APPEND_FRAC = 0.01  # phase 4 appends 1% of the rows
 
 # (name, source, TPU kernel it replaces)
@@ -66,6 +76,8 @@ KERNELS = (
      "src/repro/kernels/fragment_bitmap.py:99"),
     ("segment_aggregate_batch", "src/repro_torch/kernels/csrc/segment_aggregate_batch.cu",
      "src/repro/kernels/segment_aggregate.py:74"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:89"),
 )
 N_SHARDS = 4
 SHARD_ATTR = "community"  # the partition phase 4's waves chose
@@ -104,9 +116,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -266,6 +278,7 @@ def phase_kernels(n: int, seed: int) -> dict:
         rows["segment_aggregate"] = row  # the widest pad is the one reported
     rows["segment_aggregate"]["max_abs_err"] = seg_err
     rows["segment_aggregate_batch"] = _kernel_segment_aggregate_batch(n, gen, rows)
+    rows["flash_attention"] = _kernel_flash_attention(seed)
     return rows
 
 
@@ -325,6 +338,106 @@ def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
                 f"{row['ms']:.4f} ms vs {rows['segment_aggregate']['ms']:.4f} ms")
         out = row
         del gid, w, integral, normal, flat, vw2, out2
+    return out
+
+
+# flash_attention in phase 2: (B, S, T, Hq, Hkv, D, causal, window, dtype).
+# The Pallas kernel's test grid (tests/test_kernels.py:82-97), serving
+# prefill at stablelm-1.6b's heads (the 64- and 2,048-token prompts of
+# phase 6), and gemma3's local layers (32 query heads on 16 kv heads, head
+# dim 168, window 1,024) over 4,096 tokens.  The JSON row is the 2,048-token
+# serving prefill.
+FLASH_SHAPES = (
+    [(2, s, t, 3, 3, 64, causal, window, dtype)
+     for dtype in ("float32", "bfloat16")
+     for s, t in ((64, 64), (96, 96), (1, 96))
+     for causal, window in ((True, 0), (True, 32), (False, 0))]
+    + [(16, 64, 64, 32, 32, 64, True, 0, "bfloat16"),
+       (1, 4096, 4096, 32, 16, 168, True, 1024, "bfloat16"),
+       (16, 2048, 2048, 32, 32, 64, True, 0, "bfloat16")]
+)
+FLASH_REPORTED = FLASH_SHAPES[-1]
+# Kernel against plain version: f32 sums in another order (f32); one bf16
+# ulp of outputs up to 2 (bf16).
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def live_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """Query-key pairs the masks leave live, q rows end-aligned with k."""
+    import numpy as np
+
+    pos = np.arange(s, dtype=np.int64) + (t - s)
+    hi = pos if causal else np.full(s, t - 1, dtype=np.int64)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(s, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _kernel_flash_attention(seed: int) -> dict:
+    """flash_attention against flash_attention_ref at FLASH_SHAPES, on the
+    (B, S, H, D) layout gqa_chunked hands it, timed beside the plain version
+    and torch's scaled_dot_product_attention (the library yardstick, never on
+    the path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out, worst = None, 0.0
+    for shape in FLASH_SHAPES:
+        b, s, t, hq, hkv, d, causal, window, dtype = shape
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dt)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D) views
+
+        def kernel():
+            return flash_attention(q, k, v, causal=causal, window=window, layout="bshd")
+
+        def plain():
+            return ref.flash_attention_ref(qh, kh, vh, causal, window)
+
+        got = kernel().transpose(1, 2)
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        bad = (got.float() - want.float()).abs() > tol + tol * want.float().abs()
+        require(not bool(bad.any()) and bool(torch.isfinite(got).all()),
+                f"flash_attention {shape} disagrees with its plain version: max err {err:.3e}")
+        worst = max(worst, err)
+        pos = torch.arange(s, device=dev)[:, None] + (t - s)
+        kpos = torch.arange(t, device=dev)[None, :]
+        mask = torch.ones((s, t), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= pos
+        if window > 0:
+            mask &= kpos > pos - window
+        sdpa_kw = (dict(is_causal=True) if causal and window == 0 and s == t
+                   else dict(attn_mask=mask))
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=hkv != hq, **sdpa_kw)
+
+        pairs = live_pairs(s, t, causal, window)
+        item = q.element_size()
+        b_ms, b_by = bound(item * (2 * b * hq * s * d + 2 * b * hkv * t * d),
+                           4 * b * hq * d * pairs,
+                           BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S)
+        row = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library))
+        log(f"[kernels] flash_attention B={b} S={s} T={t} Hq={hq} Hkv={hkv} D={d} "
+            f"causal={causal} window={window} {dtype}: live pairs {pairs}, within {tol} of "
+            f"plain; {row}")
+        if shape == FLASH_REPORTED:
+            out = row
+        del q, k, v, qh, kh, vh, got, want, mask, bad
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
     return out
 
 
@@ -1018,6 +1131,213 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: sketch-filtered LM serving at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "stablelm-1.6b"  # serve.py's default --arch
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_DOCS = 16, 64, 16, 5_000
+LONG_PROMPT = 2048
+# Float32, per layer, relative to the layer's output scale: kernel against
+# plain attention and decode against prefill sum in other orders (flash
+# tiles against the chunk loop; one query row against 64).
+SERVE_TOL = 1e-5
+
+
+def _plain_admitted(meta_cols, spec) -> "np.ndarray":
+    """Doc ids of the curation query evaluated in plain numpy: the docs of
+    the (domain, shard) groups whose mean quality passes the threshold."""
+    import numpy as np
+
+    keys = np.stack([meta_cols[a].astype(np.int64) for a in spec.groupby], axis=1)
+    _, gid = np.unique(keys, axis=0, return_inverse=True)
+    gid = gid.reshape(-1)
+    sums = np.bincount(gid, weights=meta_cols[spec.agg_attr].astype(np.float64))
+    means = sums / np.bincount(gid)
+    assert spec.agg == "avg" and spec.having_op == ">"
+    return np.sort(meta_cols["doc_id"][means[gid] > spec.having_value])
+
+
+def _serve_line(label: str, res, prompt_len: int) -> None:
+    b = res.prompt.shape[0]
+    log(f"[serve] {label}: B={b} prefill({prompt_len} tok)={res.t_prefill_s * 1e3:.1f}ms "
+        f"decode={res.per_token_s * 1e3:.2f}ms/tok over {res.n_decode_steps} steps "
+        f"throughput={res.tokens_per_s:.0f} tok/s")
+
+
+def _plain_attention(fn):
+    """Run ``fn()`` with ``layers.gqa_chunked`` bound to the plain chunked
+    loop on the card's tensors (the kernel's counterpart)."""
+    from repro_torch.models import layers
+
+    kernel = layers.gqa_chunked
+    layers.gqa_chunked = layers.gqa_chunked_plain
+    try:
+        return fn()
+    finally:
+        layers.gqa_chunked = kernel
+
+
+def _layerwise_check(cfg, params, tokens) -> None:
+    """Float32 prefill of ``tokens`` through every layer of ``cfg``.  At each
+    layer, on that layer's input: attention through the kernel against the
+    plain chunked loop, and one decode step at the last position (its cache
+    holding the layer's keys and values of the earlier positions) against
+    prefill's last row.  Each within SERVE_TOL of the layer's scale.  The
+    end-to-end logits are logged beside a 1e-6 relative perturbation of the
+    embeddings: the random model amplifies both into differences of order
+    one, so only the per-layer comparison can hold the kernel to a bound."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device)
+    worst = {"kernel vs plain": 0.0, "decode vs prefill": 0.0}
+    with torch.inference_mode():
+        h = lm._embed(cfg, params, tokens)
+        for i in range(cfg.n_periods):
+            period = lm._period_slice(params["periods"], i)
+            for j, (mixer, _) in enumerate(cfg.pattern):
+                p = period[f"b{j}"]
+                window = cfg.sliding_window if mixer == "swa" else 0
+                got = L.attention_train(p["mixer"], cfg, h, window=window)
+                want = _plain_attention(lambda: L.attention_train(p["mixer"], cfg, h,
+                                                                  window=window))
+                _, k, v = L._qkv(p["mixer"], cfg, L.rmsnorm(p["mixer"]["ln"], h))
+                cache = {"k": L.rope(k, pos, cfg.rope_theta), "v": v}
+                dec, _ = L.attention_decode(p["mixer"], cfg, h[:, -1:], cache, s - 1,
+                                            window=window)
+                scale = float(want.abs().max())
+                for label, x, y in (("kernel vs plain", got, want),
+                                    ("decode vs prefill", dec[:, 0], got[:, -1])):
+                    err = float((x - y).abs().max())
+                    worst[label] = max(worst[label], err / scale)
+                    require(err <= SERVE_TOL * scale,
+                            f"layer {i}.{j} f32 {label}: max |diff| {err:.3e} at scale {scale:.1f}")
+                h = L.mlp(p["ffn"], cfg, got)
+        logits = lm.prefill(params, cfg, {"tokens": tokens})
+        plain = _plain_attention(lambda: lm.prefill(params, cfg, {"tokens": tokens}))
+        gen = torch.Generator(device=tokens.device).manual_seed(1)
+        emb = lm._embed(cfg, params, tokens)
+        noisy = emb * (1 + 1e-6 * torch.randn(emb.shape, generator=gen, device=emb.device))
+        hn = L.rmsnorm(params["final_norm"], _plain_attention(lambda: lm._run_stack(cfg, params,
+                                                                                   noisy)))
+        perturbed = torch.einsum("bd,dv->bv", hn[:, -1], params["lm_head"]).float()
+    log(f"[serve] f32 layer by layer ({cfg.n_layers} layers, B={b}, S={s}): max |diff| / scale "
+        f"kernel vs plain attention {worst['kernel vs plain']:.2e}, decode vs prefill "
+        f"{worst['decode vs prefill']:.2e} (tolerance {SERVE_TOL})")
+    log(f"[serve] f32 end-to-end logits (up to {float(plain.abs().max()):.2f}): kernel vs plain "
+        f"max |diff| {float((logits - plain).abs().max()):.3e}; plain vs plain with the "
+        f"embeddings perturbed by 1e-6 relative {float((perturbed - plain).abs().max()):.3e}")
+
+
+def phase_serve(seed: int = 0) -> dict:
+    """Serve stablelm-1.6b at full width and depth on the card; returns the
+    main path's launches (the default serve: admission, prefill, decode)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.device import to_host
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.params import n_params
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = lm.concrete_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n = n_params(params)
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"(kv {cfg.n_kv_heads}), head dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}: {n} parameters ({n * 2 / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 1. The main path at serve.py's defaults, bf16.
+    for name in BUILT:
+        LAUNCH_COUNTS[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serve(cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=seed,
+                n_docs=SERVE_DOCS, params=params)
+    wall = time.perf_counter() - t0
+    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    log(f"[serve] admission sketch on {res.run_info.attr}: skipping "
+        f"{res.skipped_fraction:.1%} of request pool ({len(res.selected_docs)} of "
+        f"{SERVE_DOCS} admitted; created={res.run_info.created}, "
+        f"select={res.run_info.t_select * 1e3:.1f}ms capture={res.run_info.t_capture * 1e3:.1f}ms "
+        f"execute={res.run_info.t_execute * 1e3:.1f}ms)")
+    _serve_line("bf16 defaults", res, SERVE_PROMPT)
+    log(f"[serve] finite logits: {bool(torch.isfinite(res.last_logits).all())}; serve() wall "
+        f"{wall:.2f} s; launches {launches}")
+    require(launches["flash_attention"] == cfg.n_layers,
+            f"prefill launched flash_attention {launches['flash_attention']} times, "
+            f"expected {cfg.n_layers}")
+    require(launches["segment_aggregate"] > 0, "admission did not aggregate on the card")
+    require(res.prefill_logits.shape == (SERVE_REQUESTS, cfg.vocab_p)
+            and bool(torch.isfinite(res.prefill_logits).all())
+            and bool(torch.isfinite(res.last_logits).all()), "bf16 logits not finite")
+    require(res.generated.shape == (SERVE_REQUESTS, SERVE_GEN)
+            and int(res.generated.min()) >= 0 and int(res.generated.max()) < cfg.vocab_p,
+            "generated tokens out of range")
+
+    # Admission: the card's pipeline admits what the CPU's does, and every
+    # doc the curation query selects.
+    spec = pipeline.CurationSpec()
+    meta = pipeline.make_corpus_metadata(n_docs=SERVE_DOCS, seed=seed, device="cpu")
+    cpu_pipe = pipeline.SketchedDataPipeline(meta, spec, SERVE_REQUESTS, SERVE_PROMPT,
+                                             cfg.vocab_size, seed=seed, device="cpu")
+    require(np.array_equal(res.selected_docs, cpu_pipe.selected_docs),
+            "the card admitted other requests than the CPU pipeline")
+    plain = _plain_admitted({a: to_host(meta[a]) for a in meta.schema}, spec)
+    require(bool(np.isin(plain, res.selected_docs).all()),
+            "the sketch dropped requests the curation query selects")
+    log(f"[serve] admission: {len(res.selected_docs)} docs equal to the CPU pipeline's, "
+        f"containing all {len(plain)} of the plain query's")
+
+    # 2-3. Float32 copies of the same weights, layer by layer: each layer's
+    # attention through the kernel against the plain chunked loop, and decode
+    # at the last prompt position against prefill, on the same input.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = params.map(lambda x: x.to(torch.float32))
+    _layerwise_check(cfg32, params32, res.prompt)
+    del params32
+    torch.cuda.empty_cache()
+
+    # 4. A long prompt in bf16: one prefill of 2,048 tokens, 24 launches.
+    before = LAUNCH_COUNTS["flash_attention"]
+    long = serve(cfg, requests=SERVE_REQUESTS, prompt_len=LONG_PROMPT, gen=SERVE_GEN, seed=seed,
+                 n_docs=SERVE_DOCS, params=params)
+    long_launches = LAUNCH_COUNTS["flash_attention"] - before
+    _serve_line("bf16 long prompt", long, LONG_PROMPT)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (long.prefill_logits, long.decode_logits, long.last_logits))
+    log(f"[serve] long prompt: flash_attention launches {long_launches}, finite logits {finite}")
+    require(finite, "long-prompt logits are not finite")
+    require(long_launches == cfg.n_layers,
+            f"a 2048-token prefill launched flash_attention {long_launches} times")
+
+    # Warm prefill times (CUDA events; the serve() walls above include first calls).
+    with torch.inference_mode():
+        for tokens in (res.prompt, long.prompt):
+            ms = time_ms(lambda: lm.prefill(params, cfg, {"tokens": tokens}), reps=5, warmup=1)
+            log(f"[serve] warm bf16 prefill B={tokens.shape[0]} S={tokens.shape[1]}: {ms:.2f} ms "
+                f"({tokens.numel() / ms * 1e3:.0f} tok/s)")
+    log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
+        f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    del params, res, long
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a checkout of "
@@ -1040,6 +1360,7 @@ def main() -> int:
     launches["fragment_bitmap_batch"] = batch_launches["fragment_bitmap_batch"]
     shard_launches = phase_shard(ROWS, SEED, db, workload, full_values)
     launches["segment_aggregate_batch"] = shard_launches["segment_aggregate_batch"]
+    launches["flash_attention"] = phase_serve(SEED_SERVE)["flash_attention"]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -1,20 +1,28 @@
-"""Carry state across from the JAX reference: databases and sketches.
+"""Carry state across from the JAX reference: databases, sketches and LM
+weights.
 
-The reference's "weights" are its data and its captured sketches.  Both
-travel as numpy arrays (``ColumnTable.to_numpy()``, ``sketch.bits``), so a
-database built or a sketch captured by ``repro`` can be rebuilt here, and
-both packages then compute the same thing.
+The engine's "weights" are its data and its captured sketches; the LM's
+are its parameter tree.  All travel as numpy arrays
+(``ColumnTable.to_numpy()``, ``sketch.bits``, the reference's parameter
+leaves as ``np.asarray``), so a database built, a sketch captured or a
+model initialised by ``repro`` can be rebuilt here, and both packages then
+compute the same thing.
 """
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.ranges import RangeSet
 from repro_torch.core.sketch import ProvenanceSketch
 from repro_torch.core.table import ColumnTable, Database, from_numpy
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device, to_host
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import torch_dtype
+from repro_torch.models.lm import build_param_spec
+from repro_torch.models.params import ParamTree, leaves
 
 TableSpec = Tuple[str, Mapping[str, np.ndarray], Iterable[str]]
 
@@ -48,3 +56,56 @@ def sketch_from_numpy(
         table=table.name, ranges=ranges, bits=bits, size_rows=int(size_rows),
         total_rows=int(total_rows), table_uid=table.uid, table_version=table.version,
     )
+
+
+def _leaf_to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    arr = np.array(arr)  # a writable contiguous copy (jax hands out read-only views)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' numpy bfloat16: carry the bits
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                         device: DeviceLike = None) -> ParamTree:
+    """The port's parameters from the reference's parameter tree (nested
+    dicts with stacked ``periods`` and ``rem``; leaves as numpy, e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``), bit for bit, on
+    ``device`` (CUDA unless ``"cpu"``).  Raises when a leaf is missing,
+    extra, or of another shape or dtype than ``cfg`` gives it."""
+    dev = resolve_device(device)
+    want = dict(leaves(build_param_spec(cfg)))
+    have = dict(leaves(tree))
+    if set(want) != set(have):
+        raise ValueError(f"parameter tree does not match {cfg.name}: missing "
+                         f"{sorted(set(want) - set(have))}, extra {sorted(set(have) - set(want))}")
+    dtype = torch_dtype(cfg.dtype)
+    out: Dict[str, Any] = {}
+    for path, spec in want.items():
+        x = _leaf_to_tensor(np.asarray(have[path]), dev)
+        if tuple(x.shape) != spec.shape or x.dtype != dtype:
+            raise ValueError(f"{'/'.join(path)}: {tuple(x.shape)} {x.dtype}, expected "
+                             f"{spec.shape} {dtype}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return ParamTree(out)
+
+
+def lm_params_to_numpy(params: ParamTree) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_numpy`: nested dicts of numpy
+    arrays (bfloat16 leaves as ml_dtypes' ``bfloat16``, the reference's
+    numpy type for them)."""
+    out: Dict[str, Any] = {}
+    for path, x in leaves(params):
+        if x.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            arr = to_host(x.view(torch.int16)).view(ml_dtypes.bfloat16)
+        else:
+            arr = to_host(x)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return out

@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
-                            "fragment_bitmap_batch", "segment_aggregate_batch")
+                            "fragment_bitmap_batch", "segment_aggregate_batch",
+                            "flash_attention")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -33,7 +34,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 # C signatures of every exported function: (restype, argtypes).  Pointers
 # and the stream are c_void_p: ctypes would cut a bare int to 32 bits.
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "segment_aggregate": {
         "segagg_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _I]),
@@ -53,6 +54,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     },
     "segment_aggregate_batch": {
         "segagg_batch_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _I]),
+    },
+    "flash_attention": {
+        "flash_attention_block_q": (_I, []),
+        "flash_attention_max_head_dim": (_I, []),
+        "flash_attention_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+                                   + [_LL] * 12 + [_I, _I, _F]),
     },
 }
 

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.fragment_bitmap import fragment_bitmap as _fragment_bitmap
 from repro_torch.kernels.fragment_bitmap import (
     fragment_bitmap_batch as _fragment_bitmap_batch,
@@ -63,3 +64,9 @@ def segment_aggregate_batch(
     weights = (torch.ones_like(values) if weights is None
                else weights.to(torch.float32).contiguous())
     return _segment_aggregate_batch(values, gid, n_groups, weights)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """softmax(QK^T/sqrt(d))V for q (B, H, S, D), k/v (B, H, T, D), f32 or bf16."""
+    return _flash_attention(q, k, v, causal=causal, window=window, layout="bhsd")

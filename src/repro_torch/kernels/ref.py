@@ -81,3 +81,38 @@ def segment_aggregate_batch_ref(
     out[0].index_add_(0, flat, (v * w)[ok])
     out[1].index_add_(0, flat, w[ok])
     return out[0].view(b, n_groups), out[1].view(b, n_groups)
+
+
+NEG_INF = -1e30  # the masked logit of the reference (``kernels/flash_attention.py``)
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """O = softmax(QK^T / sqrt(d)) V with optional causal/sliding-window mask.
+
+    Shapes: q (B, H, S, D), k/v (B, Hkv, T, D) with ``H % Hkv == 0`` (query
+    head ``h`` reads kv head ``h // (H // Hkv)``; the reference's oracle
+    takes ``Hkv == H`` only).  q rows are end-aligned with k (position
+    ``s + T - S``).  Float32 math on float32 casts of the inputs (a bf16 q
+    is cast before it is scaled, as the reference's promotion does); the
+    output has q's dtype.
+    """
+    qf, kf, vf = q.to(torch.float32), k.to(torch.float32), v.to(torch.float32)
+    group = qf.shape[1] // kf.shape[1]
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=1)
+        vf = vf.repeat_interleave(group, dim=1)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(qf.shape[-1]), dtype=torch.float32))
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale.to(qf.device)
+    s, t = qf.shape[2], kf.shape[2]
+    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vf).to(q.dtype)

@@ -1,0 +1,197 @@
+"""Model assembly for decoder-only dense LMs (the port of
+``repro/models/lm.py``): the parameter tree, prefill and cached decode.
+
+The parameter tree keeps the reference's layout: one period of the layer
+pattern (``cfg.pattern``) stacked over ``n_periods`` (leaves carry a leading
+period axis), then the unrolled remainder blocks.  The reference scans the
+stacked periods with ``lax.scan``; here a Python loop walks them, indexing
+each leaf at its period.
+
+Entry points:
+  prefill(params, cfg, batch)                -- full-seq forward -> last logits
+  decode_step(params, cfg, cache, token, pos) -- one token against the cache
+
+This slice ports the mixers ``attn``/``swa`` and the FFN ``mlp``; the MoE
+FFN, the SSM/xLSTM mixers, the vision front end and encoder-decoder configs
+raise ``NotImplementedError`` (ROADMAP A7), as does training (``loss_fn``).
+The reference's ``parallel/context.py`` sharding constraints are identities
+on one card and are not called.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import Block, ModelConfig
+from repro_torch.models.params import P, ParamTree, init_params, stack
+
+WAITS = "waits for its slice of the LM port (ROADMAP A7)"
+
+
+def _unsupported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} {WAITS}")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice does not port: every block must be
+    ``attn``/``swa`` + ``mlp``, with no front end and no encoder."""
+    if cfg.is_encdec:
+        raise _unsupported(f"{cfg.name}: the encoder-decoder backbone")
+    if cfg.frontend:
+        raise _unsupported(f"{cfg.name}: the {cfg.frontend} front end")
+    for mixer, ffn in cfg.all_blocks:
+        if mixer not in ("attn", "swa"):
+            raise _unsupported(f"{cfg.name}: the {mixer} mixer (models/ssm.py)")
+        if ffn != "mlp":
+            raise _unsupported(f"{cfg.name}: the {ffn} FFN")
+
+
+# ---------------------------------------------------------------------------
+# Parameter tree construction
+# ---------------------------------------------------------------------------
+
+
+def _block_params(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"mixer": L.attn_params(cfg), "ffn": L.mlp_params(cfg)}
+
+
+def build_param_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    check_supported(cfg)
+    d, vp = cfg.d_model, cfg.vocab_p
+    spec: Dict[str, Any] = {
+        "embed": P((vp, d), ("vocab", "embed"), init="embed"),
+        "final_norm": L.norm_params(d),
+        "lm_head": P((d, vp), ("embed", "vocab")),
+    }
+    period = {f"b{j}": _block_params(cfg) for j in range(len(cfg.pattern))}
+    spec["periods"] = stack(period, cfg.n_periods)
+    if cfg.remainder:
+        spec["rem"] = {f"r{j}": _block_params(cfg) for j in range(len(cfg.remainder))}
+    return spec
+
+
+def concrete_params(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -> ParamTree:
+    """Random weights at the reference's scales in ``cfg.dtype`` on
+    ``device`` (CUDA unless ``"cpu"``), from a ``torch.Generator`` seeded
+    with ``seed``."""
+    return init_params(build_param_spec(cfg), L.torch_dtype(cfg.dtype), seed=seed,
+                       device=device)
+
+
+# ---------------------------------------------------------------------------
+# Block application (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _apply_block_train(cfg: ModelConfig, block: Block, p, h: torch.Tensor) -> torch.Tensor:
+    mixer, _ = block
+    if mixer == "attn":
+        h = L.attention_train(p["mixer"], cfg, h, causal=True)
+    else:  # swa
+        h = L.attention_train(p["mixer"], cfg, h, window=cfg.sliding_window)
+    return L.mlp(p["ffn"], cfg, h)
+
+
+def _period_slice(tree, i: int):
+    """Period ``i``'s parameters (or cache) out of the stacked tree: every
+    leaf indexed at ``i`` on its leading axis (views, no copies)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: _period_slice(v, i) for k, v in tree.items()}
+
+
+def _run_stack(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """Run the periods in order, then the remainder blocks."""
+    for i in range(cfg.n_periods):
+        pp = _period_slice(params["periods"], i)
+        for j, blk in enumerate(cfg.pattern):
+            h = _apply_block_train(cfg, blk, pp[f"b{j}"], h)
+    for j, blk in enumerate(cfg.remainder):
+        h = _apply_block_train(cfg, blk, params["rem"][f"r{j}"], h)
+    return h
+
+
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    emb = params["embed"][tokens.long()]
+    # A Python float keeps the residual stream in the model's dtype, as the
+    # reference's weak-typed scale does.
+    return emb * float(np.sqrt(cfg.d_model))
+
+
+# -- caches -----------------------------------------------------------------
+
+
+def _block_cache(cfg: ModelConfig, block: Block, batch: int, length: int, dtype, device):
+    mixer, _ = block
+    window = cfg.sliding_window if mixer == "swa" else 0
+    return {"kv": L.init_attn_cache(cfg, batch, length, window, dtype, device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int, device: DeviceLike = None):
+    """Decode cache tree; period leaves stacked over n_periods."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = L.torch_dtype(cfg.kv_dtype or cfg.dtype)
+    period = {f"b{j}": _block_cache(cfg, blk, batch, length, dtype, dev)
+              for j, blk in enumerate(cfg.pattern)}
+    cache: Dict[str, Any] = {"periods": _stack_leaves(period, cfg.n_periods)}
+    if cfg.remainder:
+        cache["rem"] = {f"r{j}": _block_cache(cfg, blk, batch, length, dtype, dev)
+                        for j, blk in enumerate(cfg.remainder)}
+    return cache
+
+
+def _stack_leaves(tree, n: int):
+    if isinstance(tree, torch.Tensor):
+        return tree[None].repeat((n,) + (1,) * tree.dim())
+    return {k: _stack_leaves(v, n) for k, v in tree.items()}
+
+
+# -- decode -------------------------------------------------------------------
+
+
+def _apply_block_decode(cfg: ModelConfig, block: Block, p, c, h: torch.Tensor, pos: int):
+    mixer, _ = block
+    window = cfg.sliding_window if mixer == "swa" else 0
+    h, _ = L.attention_decode(p["mixer"], cfg, h, c["kv"], pos, window=window)
+    return L.mlp(p["ffn"], cfg, h)
+
+
+def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos: int):
+    """token (B,) int, pos an int -> (logits (B, vocab_p) float32, cache).
+
+    The cache is updated in place (each period's slice is a view of the
+    stacked tensors) and returned.
+    """
+    h = _embed(cfg, params, token[:, None])
+    for i in range(cfg.n_periods):
+        pp = _period_slice(params["periods"], i)
+        pc = _period_slice(cache["periods"], i)
+        for j, blk in enumerate(cfg.pattern):
+            h = _apply_block_decode(cfg, blk, pp[f"b{j}"], pc[f"b{j}"], h, pos)
+    for j, blk in enumerate(cfg.remainder):
+        h = _apply_block_decode(cfg, blk, params["rem"][f"r{j}"], cache["rem"][f"r{j}"], h, pos)
+    h = L.rmsnorm(params["final_norm"], h)
+    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"]).to(torch.float32)[:, 0]
+    if cfg.vocab_p > cfg.vocab_size:
+        pad_v = torch.arange(cfg.vocab_p, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad_v, torch.full_like(logits, -1e30), logits)
+    return logits, cache
+
+
+# -- prefill ------------------------------------------------------------------
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence forward returning last-position logits (B, vocab_p),
+    float32.  Every attention layer runs the flash-attention kernel on the
+    card."""
+    check_supported(cfg)
+    h = _embed(cfg, params, batch["tokens"])
+    h = _run_stack(cfg, params, h)
+    h = L.rmsnorm(params["final_norm"], h)
+    return torch.einsum("bd,dv->bv", h[:, -1], params["lm_head"]).to(torch.float32)

@@ -147,6 +147,12 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").parts[0] for p in files[:-1]}
+    # Every subpackage of the port is scanned, the LM stack's included.
+    assert {"core", "aqp", "kernels", "runtime", "models", "data", "launch",
+            "configs"} <= scanned, scanned
+    for sub in ("models", "data", "launch", "configs"):
+        assert (ROOT / "src" / "repro_torch" / sub / "__init__.py") in files, sub
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -33,9 +33,11 @@ random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
 layers run the flash-attention kernel, and 16 greedy tokens; it checks the
 admitted requests against the CPU pipeline and a plain numpy evaluation of
-the curation query, the kernel path's prefill logits against the plain
-chunked attention on float32 copies of the weights, decode against prefill,
-and a 2,048-token prompt.  Any failed check raises, so the exit code is not 0.
+the curation query, each layer's attention through the kernel against the
+plain chunked loop (float32 copies of the weights, where decode is also
+held against prefill, and the bf16 weights themselves at both prompts),
+that every bf16 prefill ran the tensor-core kernel, and a 2,048-token
+prompt.  Any failed check raises, so the exit code is not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as ``nvidia-smi`` reports them, and last
@@ -344,9 +346,10 @@ def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
 # flash_attention in phase 2: (B, S, T, Hq, Hkv, D, causal, window, dtype).
 # The Pallas kernel's test grid (tests/test_kernels.py:82-97), serving
 # prefill at stablelm-1.6b's heads (the 64- and 2,048-token prompts of
-# phase 6), and gemma3's local layers (32 query heads on 16 kv heads, head
-# dim 168, window 1,024) over 4,096 tokens.  The JSON row is the 2,048-token
-# serving prefill.
+# phase 6), gemma3's local layers (32 query heads on 16 kv heads, head dim
+# 168, window 1,024) over 4,096 tokens, and internlm2-20b's prefill heads
+# (48 query heads on 8 kv heads, head dim 128).  The JSON row is the
+# 2,048-token serving prefill.
 FLASH_SHAPES = (
     [(2, s, t, 3, 3, 64, causal, window, dtype)
      for dtype in ("float32", "bfloat16")
@@ -354,6 +357,7 @@ FLASH_SHAPES = (
      for causal, window in ((True, 0), (True, 32), (False, 0))]
     + [(16, 64, 64, 32, 32, 64, True, 0, "bfloat16"),
        (1, 4096, 4096, 32, 16, 168, True, 1024, "bfloat16"),
+       (4, 2048, 2048, 48, 8, 128, True, 0, "bfloat16"),
        (16, 2048, 2048, 32, 32, 64, True, 0, "bfloat16")]
 )
 FLASH_REPORTED = FLASH_SHAPES[-1]
@@ -372,16 +376,28 @@ def live_pairs(s: int, t: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def card_state() -> str:
+    """The card's SM clock and power draw now, as ``nvidia-smi`` reads them
+    (a flash row's time is read beside it: times of one shape move up to
+    1.9x between calls)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+
+
 def _kernel_flash_attention(seed: int) -> dict:
     """flash_attention against flash_attention_ref at FLASH_SHAPES, on the
     (B, S, H, D) layout gqa_chunked hands it, timed beside the plain version
     and torch's scaled_dot_product_attention (the library yardstick, never on
-    the path)."""
+    the path), with the card's SM clock and power read after each kernel
+    timing.  bf16 rows must run the tensor-core kernel, and every row must
+    agree bit for bit on a rerun."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import TC_COUNTER, flash_attention
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -401,9 +417,14 @@ def _kernel_flash_attention(seed: int) -> dict:
         def plain():
             return ref.flash_attention_ref(qh, kh, vh, causal, window)
 
+        before_tc = LAUNCH_COUNTS[TC_COUNTER]
         got = kernel().transpose(1, 2)
+        again = kernel().transpose(1, 2)
         want = plain()
         torch.cuda.synchronize()
+        require(LAUNCH_COUNTS[TC_COUNTER] - before_tc == (2 if dtype == "bfloat16" else 0),
+                f"flash_attention {shape} did not run the {dtype} kernel")
+        require(torch.equal(got, again), f"flash_attention {shape}: a rerun gave other bits")
         err = float((got.float() - want.float()).abs().max())
         tol = FLASH_TOL[dtype]
         bad = (got.float() - want.float()).abs() > tol + tol * want.float().abs()
@@ -428,14 +449,17 @@ def _kernel_flash_attention(seed: int) -> dict:
         b_ms, b_by = bound(item * (2 * b * hq * s * d + 2 * b * hkv * t * d),
                            4 * b * hq * d * pairs,
                            BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S)
-        row = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+        ms = time_ms(kernel)
+        card = card_state()
+        row = dict(max_abs_err=err, ms=ms, plain_ms=time_ms(plain),
                    bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library))
         log(f"[kernels] flash_attention B={b} S={s} T={t} Hq={hq} Hkv={hkv} D={d} "
             f"causal={causal} window={window} {dtype}: live pairs {pairs}, within {tol} of "
-            f"plain; {row}")
+            f"plain, rerun bit-equal; kernel {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}; SDPA "
+            f"{row['library_ms']:.4f} ms; SM clock, power after it: {card}); {row}")
         if shape == FLASH_REPORTED:
             out = row
-        del q, k, v, qh, kh, vh, got, want, mask, bad
+        del q, k, v, qh, kh, vh, got, again, want, mask, bad
         torch.cuda.empty_cache()
     out["max_abs_err"] = worst
     return out
@@ -1142,6 +1166,14 @@ LONG_PROMPT = 2048
 # plain attention and decode against prefill sum in other orders (flash
 # tiles against the chunk loop; one query row against 64).
 SERVE_TOL = 1e-5
+# Bf16, per layer, relative to the layer's output scale: the kernel against
+# the plain chunked loop on the same bf16 input.  Both round the attention
+# output to bf16 (one ulp apart where they straddle a rounding boundary; P's
+# rounding to bf16 in the kernel moves each weight by at most 2^-9), and the
+# layer rounds x + attn(x) Wo to bf16 again.  One bf16 ulp is up to 2^-7 =
+# 7.8e-3 of a value, so two ulps at the top of the scale are 1.56e-2; the
+# bound is FLASH_TOL's bf16 fraction, 2e-2.
+SERVE_TOL_BF16 = 2e-2
 
 
 def _plain_admitted(meta_cols, spec) -> "np.ndarray":
@@ -1233,6 +1265,39 @@ def _layerwise_check(cfg, params, tokens) -> None:
         f"embeddings perturbed by 1e-6 relative {float((perturbed - plain).abs().max()):.3e}")
 
 
+def _layerwise_check_bf16(cfg, params, tokens) -> None:
+    """Bf16 prefill of ``tokens`` through every layer of ``cfg`` (the
+    serving weights): at each layer, on that layer's input, attention through
+    the tensor-core kernel against the plain chunked loop, within
+    SERVE_TOL_BF16 of the layer's scale."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    worst = 0.0
+    with torch.inference_mode():
+        h = lm._embed(cfg, params, tokens)
+        for i in range(cfg.n_periods):
+            period = lm._period_slice(params["periods"], i)
+            for j, (mixer, _) in enumerate(cfg.pattern):
+                p = period[f"b{j}"]
+                window = cfg.sliding_window if mixer == "swa" else 0
+                got = L.attention_train(p["mixer"], cfg, h, window=window)
+                want = _plain_attention(lambda: L.attention_train(p["mixer"], cfg, h,
+                                                                  window=window))
+                scale = float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err / scale)
+                require(bool(torch.isfinite(got).all()) and err <= SERVE_TOL_BF16 * scale,
+                        f"layer {i}.{j} bf16 kernel vs plain: max |diff| {err:.3e} at scale "
+                        f"{scale:.1f}")
+                h = L.mlp(p["ffn"], cfg, got)
+    log(f"[serve] bf16 layer by layer ({cfg.n_layers} layers, B={tokens.shape[0]}, "
+        f"S={tokens.shape[1]}): max |diff| / scale kernel vs plain attention {worst:.2e} "
+        f"(tolerance {SERVE_TOL_BF16})")
+
+
 def phase_serve(seed: int = 0) -> dict:
     """Serve stablelm-1.6b at full width and depth on the card; returns the
     main path's launches (the default serve: admission, prefill, decode)."""
@@ -1245,7 +1310,9 @@ def phase_serve(seed: int = 0) -> dict:
     from repro_torch.data import pipeline
     from repro_torch.device import to_host
     from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.kernels.flash_attention import COPY_COUNTER, TC_COUNTER
     from repro_torch.launch.serve import serve
+    from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models.params import n_params
     from repro_torch.runtime.guards import LAUNCH_COUNTS
@@ -1262,7 +1329,7 @@ def phase_serve(seed: int = 0) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
 
     # 1. The main path at serve.py's defaults, bf16.
-    for name in BUILT:
+    for name in (*BUILT, TC_COUNTER, COPY_COUNTER):
         LAUNCH_COUNTS[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1270,6 +1337,7 @@ def phase_serve(seed: int = 0) -> dict:
                 n_docs=SERVE_DOCS, params=params)
     wall = time.perf_counter() - t0
     launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    tc_launches, copies = LAUNCH_COUNTS[TC_COUNTER], LAUNCH_COUNTS[COPY_COUNTER]
     log(f"[serve] admission sketch on {res.run_info.attr}: skipping "
         f"{res.skipped_fraction:.1%} of request pool ({len(res.selected_docs)} of "
         f"{SERVE_DOCS} admitted; created={res.run_info.created}, "
@@ -1278,9 +1346,14 @@ def phase_serve(seed: int = 0) -> dict:
     _serve_line("bf16 defaults", res, SERVE_PROMPT)
     log(f"[serve] finite logits: {bool(torch.isfinite(res.last_logits).all())}; serve() wall "
         f"{wall:.2f} s; launches {launches}")
+    log(f"[serve] prefill: {tc_launches} tensor-core flash_attention launches, {copies} "
+        f"aligned copies of q/k/v (TMA took the projections' outputs as they are)")
     require(launches["flash_attention"] == cfg.n_layers,
             f"prefill launched flash_attention {launches['flash_attention']} times, "
             f"expected {cfg.n_layers}")
+    require(tc_launches == cfg.n_layers,
+            f"prefill ran the tensor-core kernel {tc_launches} times, expected {cfg.n_layers}")
+    require(copies == 0, f"prefill copied {copies} q/k/v views for TMA's alignment")
     require(launches["segment_aggregate"] > 0, "admission did not aggregate on the card")
     require(res.prefill_logits.shape == (SERVE_REQUESTS, cfg.vocab_p)
             and bool(torch.isfinite(res.prefill_logits).all())
@@ -1314,16 +1387,25 @@ def phase_serve(seed: int = 0) -> dict:
 
     # 4. A long prompt in bf16: one prefill of 2,048 tokens, 24 launches.
     before = LAUNCH_COUNTS["flash_attention"]
+    before_tc, before_copies = LAUNCH_COUNTS[TC_COUNTER], LAUNCH_COUNTS[COPY_COUNTER]
     long = serve(cfg, requests=SERVE_REQUESTS, prompt_len=LONG_PROMPT, gen=SERVE_GEN, seed=seed,
                  n_docs=SERVE_DOCS, params=params)
     long_launches = LAUNCH_COUNTS["flash_attention"] - before
+    long_tc = LAUNCH_COUNTS[TC_COUNTER] - before_tc
+    long_copies = LAUNCH_COUNTS[COPY_COUNTER] - before_copies
     _serve_line("bf16 long prompt", long, LONG_PROMPT)
     finite = all(bool(torch.isfinite(x).all())
                  for x in (long.prefill_logits, long.decode_logits, long.last_logits))
-    log(f"[serve] long prompt: flash_attention launches {long_launches}, finite logits {finite}")
+    log(f"[serve] long prompt: flash_attention launches {long_launches} ({long_tc} tensor-core, "
+        f"{long_copies} aligned copies), finite logits {finite}")
     require(finite, "long-prompt logits are not finite")
-    require(long_launches == cfg.n_layers,
-            f"a 2048-token prefill launched flash_attention {long_launches} times")
+    require(long_launches == cfg.n_layers and long_tc == cfg.n_layers and long_copies == 0,
+            f"a 2048-token prefill launched flash_attention {long_launches} times "
+            f"({long_tc} tensor-core, {long_copies} copies)")
+
+    # 5. Bf16 layer by layer on the serving weights, at both prompts.
+    for tokens in (res.prompt, long.prompt):
+        _layerwise_check_bf16(cfg, params, tokens)
 
     # Warm prefill times (CUDA events; the serve() walls above include first calls).
     with torch.inference_mode():
@@ -1331,6 +1413,15 @@ def phase_serve(seed: int = 0) -> dict:
             ms = time_ms(lambda: lm.prefill(params, cfg, {"tokens": tokens}), reps=5, warmup=1)
             log(f"[serve] warm bf16 prefill B={tokens.shape[0]} S={tokens.shape[1]}: {ms:.2f} ms "
                 f"({tokens.numel() / ms * 1e3:.0f} tok/s)")
+        # The kernel's share: one layer's attention call at this prefill's shapes.
+        p0 = lm._period_slice(params["periods"], 0)["b0"]["mixer"]
+        x = lm._embed(cfg, params, long.prompt)
+        q, k, v = L._qkv(p0, cfg, L.rmsnorm(p0["ln"], x))
+        pos = torch.arange(x.shape[1], device=x.device)
+        q, k = L.rope(q, pos, cfg.rope_theta), L.rope(k, pos, cfg.rope_theta)
+        ms = time_ms(lambda: L.gqa_chunked(q, k, v, causal=True, chunk=cfg.attn_chunk))
+        log(f"[serve] flash_attention in the 2,048-token prefill: {ms:.3f} ms a layer, "
+            f"{ms * cfg.n_layers:.1f} ms over {cfg.n_layers} layers")
     log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
         f"phase done in {time.perf_counter() - t_phase:.1f} s")
     del params, res, long

@@ -56,10 +56,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "segagg_batch_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _I]),
     },
     "flash_attention": {
-        "flash_attention_block_q": (_I, []),
+        "flash_attention_block_q": (_I, [_I]),
+        "flash_attention_block_k": (_I, [_I, _I]),
+        "flash_attention_padded_dim": (_I, [_I, _I]),
         "flash_attention_max_head_dim": (_I, []),
-        "flash_attention_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-                                   + [_LL] * 12 + [_I, _I, _F]),
+        "flash_attention_f32_launch": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+                                       + [_LL] * 12 + [_I, _I, _F]),
+        "flash_attention_bf16_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                             _I, _LL, _LL, _LL, _I, _I, _F]),
     },
 }
 

@@ -2,14 +2,20 @@
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` and
 serves ``models/layers.py::gqa_chunked``'s prefill calls; the source says
-how the kernel is built and what bounds it.  A CPU tensor goes to the plain
-version (``ref.flash_attention_ref``); a CUDA tensor goes to the kernel, or
-the call raises.
+how the kernels are built and what bounds them.  A CPU tensor goes to the
+plain version (``ref.flash_attention_ref``); a CUDA tensor goes to a kernel,
+or the call raises.  The dtype picks the kernel: bfloat16 runs the
+tensor-core kernel (wgmma, TMA loads), float32 the SIMT kernel (the f32
+parity surface).  :func:`launch_plan` decides everything about a launch
+that does not need the card, so the CPU tests can check it.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -18,11 +24,100 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "flash_attention"
+TC_COUNTER = "flash_attention.tc"  # launches of the tensor-core (bf16) kernel
+COPY_COUNTER = "flash_attention.aligned_copy"  # q, k or v copied for TMA's alignment
 MAX_HEAD_DIM = 256
-BLOCK_Q = 64
-MAX_Q_TILES = 65535  # grid axis y
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAYOUTS = ("bhsd", "bshd")
+# Per dtype: q rows a block, k rows a tile, and the padded widths compiled.
+BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}
+WIDTHS = {torch.float32: (64, 128, 256), torch.bfloat16: (64, 128, 192, 256)}
+MAX_Q_TILES = 65535  # grid axis y of the float32 kernel
+MAX_ITEMS = (1 << 31) - 1  # work items (and float32 grid axis x), int32 in the kernels
+TMA_ALIGN = 16  # bytes: a tensor map's base and strides
+
+
+def block_k(dtype: torch.dtype, width: int) -> int:
+    if dtype == torch.bfloat16:
+        return 128 if width <= 128 else 64
+    return 64
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    tensor_cores: bool
+    width: int  # padded head dim of the compiled kernel
+    block_q: int
+    block_k: int
+    q_tiles: int
+    # (b*h, q tile) pairs: float32 launches a block for each on grid
+    # (b*h, q_tiles); bfloat16 spreads them over one persistent block an SM.
+    work_items: int
+    copies: Tuple[str, ...]  # names among q, k, v that need the aligned copy
+
+
+def needs_aligned_copy(ptr: int, sizes: Sequence[int], strides: Sequence[int],
+                       item: int = 2) -> bool:
+    """A TMA tensor map needs a 16-byte-aligned base and, on every axis
+    longer than 1, a stride that is a multiple of 16 bytes."""
+    if ptr % TMA_ALIGN:
+        return True
+    return any(n > 1 and (st * item) % TMA_ALIGN for n, st in zip(sizes, strides))
+
+
+def launch_plan(dtype: torch.dtype, q_dims: Sequence[int], kv_heads: int, t: int,
+                views: Dict[str, Tuple[int, Sequence[int], Sequence[int]]]) -> LaunchPlan:
+    """How a call with q (B, H, S, D) and k/v (B, ``kv_heads``, ``t``, D)
+    launches.  ``views`` maps q, k, v to (data pointer, sizes, strides) of
+    their (B, H, S) axes (elements).  Raises when the grid is too large."""
+    b, h, s, d = q_dims
+    width = next(w for w in WIDTHS[dtype] if d <= w)
+    bq = BLOCK_Q[dtype]
+    q_tiles = -(-s // bq)
+    tc = dtype == torch.bfloat16
+    if q_tiles * b * h > MAX_ITEMS or (not tc and q_tiles > MAX_Q_TILES):
+        raise ValueError(f"grid too large for B*H={b * h}, S={s}")
+    copies = tuple(name for name, (ptr, sizes, strides) in views.items()
+                   if tc and needs_aligned_copy(ptr, sizes, strides))
+    return LaunchPlan(tc, width, bq, block_k(dtype, width), q_tiles, q_tiles * b * h, copies)
+
+
+def tma_axes(sizes: Sequence[int], strides: Sequence[int]) -> Tuple[int, ...]:
+    """The 7 values ``flash_attention_bf16_launch`` takes for one tensor:
+    the sizes and element strides of its axes in the order of the tensor
+    map, and that order (two bits an axis: 0 row, 1 head, 2 batch).  Axes
+    are sorted by stride, ties and size-1 axes last; a size-1 axis gets the
+    stride a packed layout would give it (its coordinate is always 0)."""
+    b, h, s = sizes
+    sb, sh, ss = strides
+    axes = [(s, ss, 0), (h, sh, 1), (b, sb, 2)]  # (size, stride, role)
+    long = sorted((a for a in axes if a[0] > 1), key=lambda a: a[1])
+    packed = max([n * st for n, st, _ in long], default=8)
+    ordered = long + [(1, packed, role) for n, _, role in axes if n == 1]
+    order = sum(role << (2 * i) for i, (_, _, role) in enumerate(ordered))
+    return (*(n for n, _, _ in ordered), *(st for _, st, _ in ordered), order)
+
+
+def _copy_strides(sizes: Sequence[int], d: int) -> Tuple[int, int, int]:
+    """Strides of the (B, H, S) axes of :func:`_aligned_copy`'s result."""
+    _, h, s = sizes
+    d8 = -(-d // 8) * 8
+    return (h * s * d8, s * d8, d8)
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_launch(dims: Tuple[int, ...], kv_heads: int, t: int, views: Tuple) -> Tuple:
+    """(plan, the 21 tensor-map values) of a bfloat16 call, by shapes,
+    strides and alignment (``views``: (sizes, strides, aligned) of q, k, v).
+    Cached: a serving loop repeats a handful of these, and planning costs
+    more host time than the launch."""
+    plan = launch_plan(torch.bfloat16, dims, kv_heads, t,
+                       {n: (0 if aligned else 1, sizes, strides)
+                        for n, (sizes, strides, aligned) in zip("qkv", views)})
+    axes = []
+    for n, (sizes, strides, _) in zip("qkv", views):
+        axes += tma_axes(sizes, _copy_strides(sizes, dims[3]) if n in plan.copies else strides)
+    return plan, (ctypes.c_longlong * 21)(*axes)
 
 
 def _dims(x: torch.Tensor, layout: str):
@@ -34,6 +129,17 @@ def _dims(x: torch.Tensor, layout: str):
     return (b, h, s, d), (x.stride(0), x.stride(2), x.stride(1))
 
 
+def _aligned_copy(x: torch.Tensor, layout: str) -> torch.Tensor:
+    """x as a (B, H, S, D) view into a zeroed contiguous tensor whose rows
+    are padded to a multiple of 8 elements (16 bytes)."""
+    if layout == "bshd":
+        x = x.transpose(1, 2)
+    d = x.shape[-1]
+    buf = torch.zeros((*x.shape[:-1], -(-d // 8) * 8), dtype=x.dtype, device=x.device)
+    buf[..., :d].copy_(x)
+    return buf[..., :d]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     layout: str = "bhsd") -> torch.Tensor:
@@ -43,6 +149,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, S, H, D), k/v (B, T, Hkv, D).  ``H % Hkv == 0``; query head ``h``
     reads kv head ``h // (H // Hkv)``.  Any strides with a contiguous D axis;
     the output is a new tensor in q's layout and dtype (float32 or bfloat16).
+    A bfloat16 view whose base or strides are not 16-byte aligned (TMA's
+    rule) is first copied into a zero-padded contiguous tensor; each copy
+    adds one to ``LAUNCH_COUNTS["flash_attention.aligned_copy"]``.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
@@ -76,19 +185,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q has {s} rows, more than k's {t}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
-    if -(-s // BLOCK_Q) > MAX_Q_TILES or b * h >= 1 << 31:
-        raise ValueError(f"grid too large for B*H={b * h}, S={s}")
+    tensors = {"q": q, "k": k, "v": v}
+    if q.dtype == torch.bfloat16:
+        views = tuple((size, st, x.data_ptr() % TMA_ALIGN == 0) for size, st, x in (
+            ((b, h, s), q_st, q), ((b, hkv, t), k_st, k), ((b, hkv, t), v_st, v)))
+        plan, axes = _bf16_launch((b, h, s, d), hkv, t, views)
+    else:
+        plan = launch_plan(q.dtype, (b, h, s, d), hkv, t, {})
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     _, o_st = _dims(out, layout)
     lib = build.library(NAME)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    scale = ctypes.c_float(1.0 / math.sqrt(d))
-    err = lib.flash_attention_launch(
-        index, build.stream_handle(dev), _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), b, h, h // hkv, s, t, d, *q_st, *k_st, *v_st, *o_st,
-        int(causal), int(window), scale)
-    build.check(err, NAME)
+    stream = build.stream_handle(dev)
+    if plan.tensor_cores:
+        for n in plan.copies:
+            tensors[n] = _aligned_copy(tensors[n], layout)
+            LAUNCH_COUNTS[COPY_COUNTER] += 1
+        scale_log2 = ctypes.c_float(math.log2(math.e) / math.sqrt(d))
+        err = lib.flash_attention_bf16_launch(
+            index, stream, tensors["q"].data_ptr(), tensors["k"].data_ptr(),
+            tensors["v"].data_ptr(), out.data_ptr(), axes, b, h, h // hkv, s, t, d, *o_st,
+            int(causal), int(window), scale_log2)
+        build.check(err, NAME)
+        LAUNCH_COUNTS[TC_COUNTER] += 1
+    else:
+        scale = ctypes.c_float(1.0 / math.sqrt(d))
+        err = lib.flash_attention_f32_launch(
+            index, stream, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            h // hkv, s, t, d, *q_st, *k_st, *v_st, *o_st, int(causal), int(window), scale)
+        build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
     return out

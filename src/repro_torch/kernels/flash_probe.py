@@ -1,0 +1,324 @@
+"""Where the bf16 flash-attention kernel spends its time, on the card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash_probe
+
+Three probes, each at the serving prefill shape (B=16, S=T=2,048, H=32,
+D=64, causal) and internlm2-20b's (B=4, H=48 on 8 kv heads, D=128):
+
+- **variants**: ``csrc/flash_attention.cu`` patched to drop one part at a
+  time (the softmax; then both products; then the K/V loads), or to read
+  every K/V tile from one head's rows (all L2 hits), each built with the
+  kernels' flags into ``build/repro_torch/probe/`` and timed with CUDA
+  events, two rounds;
+- **sections**: ``clock64`` sums over the consumer loop's sections (waits,
+  issue, softmax, rescale; per work item the wait for q, the first tile,
+  the last P V and the stores) in block 0, from an instrumented copy;
+- **host**: host microseconds a call (a loop of launches, one synchronise);
+- **quotient**: the kernel against a copy whose epilogue divides by IEEE
+  division instead of the reciprocal and Newton step, bit for bit, at both
+  shapes and gemma3's (D=168, window 1,024).
+
+A patch that no longer finds its text in the source raises; the CPU test
+``tests/test_torch_models.py::test_flash_probe_patches_apply`` applies every
+patch without building.  The patched kernels compute wrong results on
+purpose: nothing here is on any path.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import time
+from typing import Callable, Dict
+
+from repro_torch.kernels import build
+
+SOURCE = build.CSRC / "flash_attention.cu"
+PROBE_DIR = build.BUILD_DIR / "probe"
+SHAPES = {"serving": (16, 2048, 32, 32, 64), "internlm2": (4, 2048, 48, 8, 128)}
+GEMMA3 = (1, 4096, 32, 16, 168)  # window 1,024
+
+
+def _sub(src: str, old: str, new: str) -> str:
+    """Replace the one occurrence of ``old``; raise if there is not exactly one."""
+    if src.count(old) != 1:
+        raise ValueError(f"flash_probe: the kernel source has {src.count(old)} of {old[:60]!r}")
+    return src.replace(old, new)
+
+
+def no_softmax(src: str) -> str:
+    """P = the raw scores in bf16: no scale, mask, max, exp or sum."""
+    head = "  float mx_a = row.m_a, mx_b = row.m_b;"
+    tail = "// The masked and unmasked softmax are separate"
+    if head not in src or tail not in src:
+        raise ValueError("flash_probe: softmax_tile's body moved")
+    return (src[:src.index(head)] + """  alpha_a = 1.f;
+  alpha_b = 1.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    pa[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+""" + src[src.index(tail):])
+
+
+def _empty_body(src: str, signature: str, body: str) -> str:
+    """Replace the body of the function whose declaration has ``signature``."""
+    if src.count(signature) != 1:
+        raise ValueError(f"flash_probe: the kernel source has {src.count(signature)} of "
+                         f"{signature!r}")
+    start = src.index("{", src.index(signature)) + 1
+    depth, end = 1, start
+    while depth:
+        depth += {"{": 1, "}": -1}.get(src[end], 0)
+        end += 1
+    return src[:start] + f"\n  {body}\n" + src[end - 1:]
+
+
+def no_products(src: str) -> str:
+    """Neither S = Q K^T nor O += P V is issued."""
+    src = _empty_body(src, "void issue_qk(", "(void)s; (void)q_wg; (void)k_st;")
+    return _empty_body(src, "void issue_pv(", "(void)acc; (void)pa; (void)v_st;")
+
+
+_K_LOAD = """          mbar_expect_tx(bar_k(st), C::kKVBytes);
+          for (int c = 0; c < C::kChunks; ++c)
+            load_box(s_k + off + c * BN * 128, &tm_k, k_order, bar_k(st), 64 * c, row0, x.hk,
+                     x.b);"""
+_V_LOAD = _K_LOAD.replace("bar_k(st)", "bar_v(st)").replace("s_k", "s_v").replace(
+    "tm_k, k_order", "tm_v, v_order")
+
+
+def no_kv_loads(src: str) -> str:
+    """The producer completes each K/V barrier with no bytes."""
+    src = _sub(src, _K_LOAD, "          mbar_expect_tx(bar_k(st), 0);")
+    return _sub(src, _V_LOAD, "          mbar_expect_tx(bar_v(st), 0);")
+
+
+def one_head_kv(src: str) -> str:
+    """Every K/V tile comes from batch 0, kv head 0: L2 hits."""
+    src = _sub(src, _K_LOAD, _K_LOAD.replace("row0, x.hk,\n                     x.b);",
+                                             "row0, 0, 0);"))
+    return _sub(src, _V_LOAD, _V_LOAD.replace("row0, x.hk,\n                     x.b);",
+                                              "row0, 0, 0);"))
+
+
+def _chain(*patches: Callable[[str], str]) -> Callable[[str], str]:
+    def apply(src: str) -> str:
+        for patch in patches:
+            src = patch(src)
+        return src
+    return apply
+
+
+def ieee_division(src: str) -> str:
+    """The epilogue's quotient by IEEE division: the kernel must match it."""
+    return _sub(src, "  const float q = a * inv;\n  return fmaf(fmaf(-den, q, a), inv, q);",
+                "  return a / den;")
+
+
+VARIANTS: Dict[str, Callable[[str], str]] = {
+    "kernel": lambda src: src,
+    "kernel, one head's K/V": one_head_kv,
+    "no softmax": no_softmax,
+    "no softmax, no products": _chain(no_softmax, no_products),
+    "no softmax, no products, one head's K/V": _chain(no_softmax, no_products, one_head_kv),
+    "no softmax, no products, no K/V loads": _chain(no_softmax, no_products, no_kv_loads),
+}
+
+# clock64 sections: slot -> name.  Each mark adds the cycles since the
+# previous mark to its slot; slots 12 and 13 count loop tiles and items.
+LOOP_SECTIONS = ("wait K/V", "issue", "wait S", "softmax", "wait P V", "rescale")
+ITEM_SECTIONS = {15: "wait q", 7: "first tile", 8: "last P V", 9: "stores"}
+
+
+def _mark_after(src: str, anchor: str, mark: str) -> str:
+    return _sub(src, anchor, anchor + mark)
+
+
+def instrument(src: str) -> str:
+    """A copy of the source whose consumers sum clock64 deltas per section;
+    block 0 writes them (per warpgroup) to ``g_probe``."""
+    src = _mark_after(src, '#include "hopper.cuh"\n',
+                      "__device__ unsigned long long g_probe[2][16];\n"
+                      "#define MARK(i) { long long t_ = clock64(); probe[i] += t_ - t_prev; "
+                      "t_prev = t_; }\n")
+    src = _mark_after(src, 'setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n',
+                      "    unsigned long long probe[16] = {0};\n"
+                      "    long long t_prev = clock64();\n")
+    src = _mark_after(src, "      mbar_wait(bar_q, item & 1);\n", "      MARK(15);\n")
+    loop = "      for (int i = 1; i < x.n_tiles; ++i) {\n"
+    src = _sub(src, loop, "      MARK(7);\n" + loop + "        MARK(14);\n")
+    src = _mark_after(src, "        mbar_wait(bar_v(prev), ((cur - 1) / kStages) & 1);\n",
+                      "        MARK(0);\n")
+    src = _sub(src, "        wgmma_commit();\n        wgmma_wait<1>();",
+               "        wgmma_commit();\n        MARK(1);\n        wgmma_wait<1>();")
+    src = _sub(src, "        mbar_arrive(bar_ke(st));\n        uint32_t pn",
+               "        mbar_arrive(bar_ke(st));\n        MARK(2);\n        uint32_t pn")
+    src = _mark_after(src, "        fence_reg(alpha_b);\n", "        MARK(3);\n")
+    src = _sub(src, "        mbar_arrive(bar_ve(prev));\n",
+               "        MARK(4);\n        mbar_arrive(bar_ve(prev));\n")
+    src = _mark_after(src, "          for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];\n",
+                      "        MARK(5);\n        probe[12] += 1;\n")
+    src = _mark_after(src, "      mbar_arrive(bar_ve(last));\n      it += x.n_tiles;\n",
+                      "      MARK(8);\n")
+    src = _sub(src, """                       div_rn(acc[c][4 * j + 3], den_b, inv_b));
+        }
+    }
+  }
+}
+""", """                       div_rn(acc[c][4 * j + 3], den_b, inv_b));
+        }
+      MARK(9);
+      probe[13] += 1;
+    }
+    if (blockIdx.x == 0 && threadIdx.x % 128 == 0)
+      for (int i = 0; i < 16; ++i) g_probe[wg][i] = probe[i];
+  }
+}
+""")
+    return src + ('\nextern "C" int probe_read(void* out) {\n'
+                  "  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n")
+
+
+def all_patches() -> Dict[str, str]:
+    """Every patched source by name (no build): what the CPU test applies."""
+    src = SOURCE.read_text()
+    out = {name: patch(src) for name, patch in VARIANTS.items()}
+    out["sections"] = instrument(src)
+    out["IEEE division"] = ieee_division(src)
+    return out
+
+
+def _build(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, (name, text) in enumerate(sources.items()):
+        cu, so = PROBE_DIR / f"v{i}.cu", PROBE_DIR / f"v{i}.so"
+        cu.write_text(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)]
+        jobs.append((name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, so, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise build.KernelBuildError(f"{name}:\n{out}")
+        lib = ctypes.CDLL(str(so))
+        for fn, (restype, argtypes) in build.SIGNATURES["flash_attention"].items():
+            f = getattr(lib, fn)
+            f.restype, f.argtypes = restype, argtypes
+        libs[name] = lib
+    return libs
+
+
+def _inputs(torch, dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for label, (b, s, h, hk, d) in SHAPES.items():
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        out[label] = (q, k, v)
+    return out
+
+
+def _event_ms(torch, fn, reps: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def _restore(name: str, kept) -> None:
+    if kept is None:
+        build._LIBS.pop(name, None)
+    else:
+        build._LIBS[name] = kept
+
+
+def main() -> int:
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda")
+    sources = all_patches()
+    libs = _build(sources)
+    data = _inputs(torch, dev)
+    kept = build._LIBS.get(FA.NAME)
+    try:
+        for rnd in range(2):
+            for name in VARIANTS:
+                build._LIBS[FA.NAME] = libs[name]
+                times = []
+                for label, (q, k, v) in data.items():
+                    ms = _event_ms(torch, lambda: FA.flash_attention(q, k, v, layout="bshd"))
+                    times.append(f"{label} {ms:.4f} ms")
+                print(f"[variants] round {rnd}, {name}: " + "; ".join(times), flush=True)
+        lib = libs["sections"]
+        lib.probe_read.argtypes = [ctypes.c_void_p]
+        build._LIBS[FA.NAME] = lib
+        for label, (q, k, v) in data.items():
+            for _ in range(3):
+                FA.flash_attention(q, k, v, layout="bshd")
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 32)()
+            build.check(lib.probe_read(buf), "probe_read")
+            for wg in range(2):
+                p = list(buf)[16 * wg:16 * wg + 16]
+                tiles, items = max(p[12], 1), max(p[13], 1)
+                print(f"[sections] {label}, block 0, warpgroup {wg}: {p[13]} items, {p[12]} loop "
+                      f"tiles; cycles a loop tile: "
+                      + ", ".join(f"{n} {p[i] / tiles:.0f}" for i, n in enumerate(LOOP_SECTIONS))
+                      + "; cycles an item: "
+                      + ", ".join(f"{n} {p[i] / items:.0f}" for i, n in ITEM_SECTIONS.items()),
+                      flush=True)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        b, s, h, hk, d = GEMMA3
+        g3 = (torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16(),
+              *(torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+                for _ in range(2)))
+        for label, (q, k, v), window in (*((lb, x, 0) for lb, x in data.items()),
+                                         ("gemma3", g3, 1024)):
+            outs = []
+            for name in ("kernel", "IEEE division"):
+                build._LIBS[FA.NAME] = libs[name]
+                outs.append(FA.flash_attention(q, k, v, window=window, layout="bshd"))
+            torch.cuda.synchronize()
+            print(f"[quotient] {label}: the kernel equals IEEE division bit for bit: "
+                  f"{bool(torch.equal(*outs))} ({int((outs[0] != outs[1]).sum())} of "
+                  f"{outs[0].numel()} differ)", flush=True)
+        _restore(FA.NAME, kept)  # the host probe times the real library
+        q = data["serving"][0][:, :64].contiguous()
+        for dtype in (torch.bfloat16, torch.float32):
+            x = q.to(dtype)
+            call = lambda: FA.flash_attention(x, x, x, layout="bshd")  # noqa: E731
+            for _ in range(50):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                call()
+            torch.cuda.synchronize()
+            print(f"[host] {dtype} B=16 S=T=64 H=32 D=64: "
+                  f"{(time.perf_counter() - t0) / 2000 * 1e6:.1f} us a call", flush=True)
+    finally:
+        _restore(FA.NAME, kept)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

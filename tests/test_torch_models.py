@@ -15,6 +15,8 @@ bf16 roundings, and the random smoke weights' sharp attention amplifies
 those past the tolerance in gemma3's deeper blocks.
 """
 import dataclasses
+import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +33,8 @@ from repro.models.params import init_params as ref_init_params
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attention import BLOCK_Q, MAX_HEAD_DIM, flash_attention
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as tlm
 from repro_torch.models.params import ParamTree, leaves
@@ -137,6 +140,7 @@ KERNEL_CASES = [
     (1, 77, 77, 4, 1, 168, True, 24),
     (3, 40, 65, 6, 3, 12, False, 17),
     (1, 300, 300, 4, 4, 256, True, 70),
+    (1, 260, 260, 48, 8, 128, True, 0),  # internlm2-20b's heads: GQA 48 on 8, D=128
 ]
 
 
@@ -161,8 +165,11 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype, layout):
         qp, kp, vp = (x.transpose(1, 2) for x in (q, k, v))
     assert not q.is_contiguous() and not k.is_contiguous()
     before = LAUNCH_COUNTS["flash_attention"]
+    before_tc = LAUNCH_COUNTS[FA.TC_COUNTER]
     got = flash_attention(q, k, v, causal=causal, window=window, layout=layout)
     assert LAUNCH_COUNTS["flash_attention"] == before + 1
+    # bf16 runs the tensor-core kernel, f32 the SIMT kernel.
+    assert LAUNCH_COUNTS[FA.TC_COUNTER] == before_tc + (dtype == torch.bfloat16)
     want = ref.flash_attention_ref(qp, kp, vp, causal, window)
     if layout == "bshd":
         want = want.transpose(1, 2)
@@ -175,7 +182,12 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype, layout):
 @pytest.mark.cuda
 def test_flash_attention_kernel_constants_and_refusals(cuda):
     lib = build.library("flash_attention")
-    assert lib.flash_attention_block_q() == BLOCK_Q
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert lib.flash_attention_block_q(code) == FA.BLOCK_Q[dtype]
+        for d in (1, 12, 64, 100, 128, 168, 192, 200, 256):
+            width = lib.flash_attention_padded_dim(code, d)
+            assert width == FA.launch_plan(dtype, (1, 1, 1, d), 1, 1, {}).width
+            assert lib.flash_attention_block_k(code, d) == FA.block_k(dtype, width)
     assert lib.flash_attention_max_head_dim() == MAX_HEAD_DIM
     q = torch.randn((1, 2, 8, 16), device=cuda)
     with pytest.raises(TypeError):
@@ -186,6 +198,39 @@ def test_flash_attention_kernel_constants_and_refusals(cuda):
         flash_attention(q[..., ::2], q[..., ::2], q[..., ::2])  # D not contiguous
     with pytest.raises(NotImplementedError):
         TL.gqa_chunked(q, q, q, causal=True, q_positions=torch.arange(2, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [KERNEL_CASES[0], KERNEL_CASES[5], KERNEL_CASES[-1]])
+def test_flash_attention_bf16_reruns_give_equal_bits(cuda, case):
+    """Each row's sums run in a fixed order (no split over blocks, no
+    atomics), so two launches on the same inputs agree bit for bit."""
+    b, s, t, hq, hkv, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device=cuda).bfloat16() for _ in "kv")
+    first = flash_attention(q, k, v, causal=causal, window=window, layout="bshd")
+    second = flash_attention(q, k, v, causal=causal, window=window, layout="bshd")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_misaligned_views_are_copied(cuda):
+    """At D=12 q's rows are 40 bytes apart and v starts 24 bytes into its
+    packed tensor: TMA refuses both, so the wrapper copies them (and only
+    them), and the result still matches the plain version."""
+    b, s, t, hq, hkv, d = 3, 40, 65, 6, 3, 12
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    packed_q = torch.randn((b, hq, s, d + 8), generator=gen, device=cuda).bfloat16()
+    packed_kv = torch.randn((b, hkv, t, 2, d), generator=gen, device=cuda).bfloat16()
+    q, k, v = packed_q[..., :d], packed_kv[..., 0, :], packed_kv[..., 1, :]
+    before = LAUNCH_COUNTS[FA.COPY_COUNTER]
+    got = flash_attention(q, k, v, causal=False, window=17)
+    assert LAUNCH_COUNTS[FA.COPY_COUNTER] == before + 2
+    want = ref.flash_attention_ref(q, k, v, False, 17)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_ATTN_TOL)
 
 
 @pytest.mark.cuda
@@ -206,6 +251,178 @@ def test_prefill_on_the_card_matches_the_plain_chunked_loop(cuda, arch):
     finally:
         TL.gqa_chunked = kernel
     torch.testing.assert_close(got, want, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's launch planning and rounding, on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,bf16_width,f32_width", [
+    (1, 64, 64), (12, 64, 64), (64, 64, 64), (65, 128, 128), (128, 128, 128),
+    (168, 192, 256), (192, 192, 256), (200, 256, 256), (256, 256, 256),
+])
+def test_flash_attention_plan_pads_the_head_dim(d, bf16_width, f32_width):
+    tc = FA.launch_plan(torch.bfloat16, (2, 3, 300, d), 3, 300, {})
+    simt = FA.launch_plan(torch.float32, (2, 3, 300, d), 3, 300, {})
+    assert (tc.tensor_cores, tc.width, tc.block_q) == (True, bf16_width, 128)
+    assert tc.block_k == (128 if bf16_width <= 128 else 64)
+    assert (simt.tensor_cores, simt.width, simt.block_q, simt.block_k) == (False, f32_width, 64, 64)
+
+
+@pytest.mark.parametrize("b,h,s", [(16, 32, 2048), (2, 3, 1), (1, 48, 129), (3, 6, 40)])
+def test_flash_attention_plan_grid(b, h, s):
+    """One work item per (b*h, q tile): 128-row tiles for bf16 (spread over
+    persistent blocks), 64-row tiles for f32 (a block each)."""
+    tc = FA.launch_plan(torch.bfloat16, (b, h, s, 64), h, s, {})
+    simt = FA.launch_plan(torch.float32, (b, h, s, 64), h, s, {})
+    assert tc.q_tiles == math.ceil(s / 128) and tc.work_items == tc.q_tiles * b * h
+    assert simt.q_tiles == math.ceil(s / 64) and simt.work_items == simt.q_tiles * b * h
+    with pytest.raises(ValueError):
+        FA.launch_plan(torch.float32, (1, 1, 64 * 65536, 64), 1, 64 * 65536, {})
+    with pytest.raises(ValueError):
+        FA.launch_plan(torch.bfloat16, (1 << 16, 1 << 8, 128 * 256, 64), 1 << 8, 128 * 256, {})
+
+
+def _views(q, k, v, layout):
+    return {n: (x.data_ptr(), FA._dims(x, layout)[0][:3], FA._dims(x, layout)[1])
+            for n, x in (("q", q), ("k", k), ("v", v))}
+
+
+@pytest.mark.parametrize("layout,d,copies", [
+    ("bhsd", 12, ("q", "v")), ("bshd", 12, ("q", "k", "v")),
+    ("bhsd", 64, ()), ("bshd", 64, ()), ("bhsd", 128, ()), ("bshd", 128, ()),
+    ("bhsd", 168, ()), ("bshd", 168, ()),
+])
+def test_flash_attention_plan_aligned_copies(layout, d, copies):
+    """The cuda tests' strided views (slices of packed tensors): at D=12 q's
+    rows are 40 bytes apart and v starts 24 bytes in (and in (B, S, H, D),
+    k's heads are 24 bytes apart), so TMA needs copies; the serving widths
+    need none.  Float32 never copies."""
+    b, s, t, hq, hkv = 3, 40, 65, 6, 3
+    if layout == "bhsd":
+        packed_q = torch.zeros((b, hq, s, d + 8), dtype=torch.bfloat16)
+        packed_kv = torch.zeros((b, hkv, t, 2, d), dtype=torch.bfloat16)
+        q, k, v = packed_q[..., :d], packed_kv[..., 0, :], packed_kv[..., 1, :]
+    else:
+        packed_q = torch.zeros((b, s, hq, d + 8), dtype=torch.bfloat16)
+        packed_kv = torch.zeros((b, t, 2, hkv, d), dtype=torch.bfloat16)
+        q, k, v = packed_q[..., :d], packed_kv[:, :, 0], packed_kv[:, :, 1]
+    views = _views(q, k, v, layout)
+    assert FA.launch_plan(torch.bfloat16, (b, hq, s, d), hkv, t, views).copies == copies
+    assert FA.launch_plan(torch.float32, (b, hq, s, d), hkv, t, views).copies == ()
+    for name in copies:
+        x = {"q": q, "k": k, "v": v}[name]
+        y = FA._aligned_copy(x, layout)
+        assert y.shape == FA._dims(x, layout)[0] and torch.equal(
+            y, x.transpose(1, 2) if layout == "bshd" else x)
+        assert not FA.needs_aligned_copy(y.data_ptr(), y.shape[:3], y.stride()[:3])
+        assert y.stride()[:3] == FA._copy_strides(y.shape[:3], d)
+
+
+@pytest.mark.parametrize("sizes,strides,want", [
+    ((16, 32, 2048), (2048 * 32 * 64, 64, 32 * 64),  # (B, S, H, D) contiguous
+     (32, 2048, 16, 64, 2048, 2048 * 32 * 64, 1 | 0 << 2 | 2 << 4)),
+    ((2, 3, 96), (3 * 96 * 64, 96 * 64, 64),  # (B, H, S, D) contiguous
+     (96, 3, 2, 64, 96 * 64, 3 * 96 * 64, 0 | 1 << 2 | 2 << 4)),
+    ((1, 4, 1), (999, 24, 5),  # size-1 batch and rows: packed strides, last
+     (4, 1, 1, 24, 96, 96, 1 | 0 << 2 | 2 << 4)),
+])
+def test_flash_attention_tma_axes(sizes, strides, want):
+    assert FA.tma_axes(sizes, strides) == want
+
+
+def _tc_emulation(q, k, v, causal, window):
+    """The bf16 tensor-core kernel's arithmetic in plain torch, tile by tile:
+    bf16 operands, f32 scores scaled after the product in the log2 domain,
+    the online softmax over the kernel's k tiles (zero rows past T, masked
+    logits -1e30), P rounded to bf16 before P V, l summing the f32
+    probabilities, f32 accumulators and a bf16 output.  (B, H, S, D) q,
+    (B, Hkv, T, D) k and v.  Sums run in another order than the tensor
+    cores', and exp2 keeps results below 2^-126 that the kernel flushes."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    plan = FA.launch_plan(torch.bfloat16, (b, h, s, d), hkv, t, {})
+    bq, bn = plan.block_q, plan.block_k
+    scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(d), dtype=torch.float32)
+    n_kt = -(-t // bn)
+    pad = n_kt * bn - t
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad)).repeat_interleave(h // hkv, 1)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)).repeat_interleave(h // hkv, 1)
+    out = torch.empty_like(q)
+    for q0 in range(0, s, bq):
+        pos = torch.arange(q0, min(q0 + bq, s)) + (t - s)
+        q_lo, q_hi = int(pos[0]), int(pos[-1])
+        kt_end = min(n_kt, q_hi // bn + 1) if causal else n_kt
+        kt_begin = max(0, (q_lo - window + 1) // bn) if window > 0 else 0
+        qf = q[:, :, q0:q0 + bq].float()
+        m = torch.full(qf.shape[:3], -1e30)
+        l = torch.zeros(qf.shape[:3])
+        acc = torch.zeros(qf.shape)
+        for kt in range(kt_begin, kt_end):
+            keys = torch.arange(kt * bn, (kt + 1) * bn)
+            x = torch.einsum("bhsd,bhtd->bhst", qf, kf[:, :, kt * bn:(kt + 1) * bn]) * scale_log2
+            live = keys[None, :] < t
+            if causal:
+                live = live & (keys[None, :] <= pos[:, None])
+            if window > 0:
+                live = live & (keys[None, :] > pos[:, None] - window)
+            x = torch.where(live, x, torch.tensor(-1e30))
+            mx = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(x - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhst,bhtd->bhsd", p.to(torch.bfloat16).float(), vf[:, :, kt * bn:(kt + 1) * bn])
+            m = mx
+        out[:, :, q0:q0 + bq] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("s,t", [(64, 64), (96, 96), (1, 96)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)])
+def test_flash_attention_tc_rounding_within_bf16_tolerance(s, t, causal, window):
+    """At ``tests/test_kernels.py::test_flash_attention``'s grid, the
+    rounding the tensor-core design adds (P in bf16, the scale on the f32
+    scores) stays within BF16_ATTN_TOL of the reference's oracle and of its
+    Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(s * 1000 + t + 7 * window + causal)
+    b, h, d = 2, 3, 64
+    (jq, q), (jk, k), (jv, v) = (_pair(rng.standard_normal((b, h, n, d)), "bfloat16")
+                                 for n in (s, t, t))
+    got = _tc_emulation(q, k, v, causal, window)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    pallas = jops.flash_attention(jq, jk, jv, causal=causal, window=window, backend="interpret")
+    assert_close(got, want, "bfloat16", BF16_ATTN_TOL)
+    assert_close(got, pallas, "bfloat16", BF16_ATTN_TOL)
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_flash_attention_tc_rounding_at_the_kernel_cases(case):
+    """The same emulation at the ``cuda`` tests' shapes (widths 12-256, GQA,
+    S < T, windows, ragged tiles) against the port's plain version."""
+    b, s, t, hq, hkv, d, causal, window = case
+    gen = torch.Generator().manual_seed(s * 31 + t)
+    q = torch.randn((b, hq, s, d), generator=gen).bfloat16()
+    k, v = (torch.randn((b, hkv, t, d), generator=gen).bfloat16() for _ in "kv")
+    got = _tc_emulation(q, k, v, causal, window)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_ATTN_TOL)
+
+
+def test_flash_probe_patches_apply():
+    """``kernels/flash_probe.py`` patches the kernel source by text: every
+    patch still finds its anchor, each variant differs from the kernel, and
+    the instrumented copy marks every section once."""
+    from repro_torch.kernels import flash_probe
+
+    sources = flash_probe.all_patches()
+    kernel = sources.pop("kernel")
+    assert kernel == flash_probe.SOURCE.read_text()
+    assert all(text != kernel for text in sources.values())
+    marks = [int(m) for m in re.findall(r"MARK\((\d+)\);", sources["sections"])]
+    assert sorted(marks) == sorted([*range(len(flash_probe.LOOP_SECTIONS)),
+                                    *flash_probe.ITEM_SECTIONS, 14])
 
 
 # ---------------------------------------------------------------------------

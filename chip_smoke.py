@@ -83,6 +83,13 @@ KERNELS = (
 )
 N_SHARDS = 4
 SHARD_ATTR = "community"  # the partition phase 4's waves chose
+# segment_aggregate in phase 2: the executor's group pads (16, the cluster
+# kernel's narrowest width 2,048, the widest 16,384); the JSON row is the
+# widest.  segment_aggregate_batch's JSON row: (B, n, G) of a fused launch
+# whose group-bys pad to 128.
+SEGMENT_PADS = (16, 2048, 16384)
+SEGMENT_REPORTED = 16384
+BATCH_REPORTED = (8, 4 << 18, 128)
 
 
 class SmokeFailure(RuntimeError):
@@ -228,9 +235,10 @@ def phase_kernels(n: int, seed: int) -> dict:
             f"rows equal to fragment_bitmap; {rows['fragment_bitmap_batch']}")
         del provs, provs_i, index, got, want
 
-    # segment_aggregate: the executor's group pads, integral and normal values.
+    # segment_aggregate: the executor's group pads, integral and normal values
+    # (G = 2,048 is the narrowest width of the cluster kernel, one slice).
     seg_err = 0.0
-    for g in (16, 16384):
+    for g in SEGMENT_PADS:
         gid = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
         w = (torch.rand(n, generator=gen, device=dev) < 0.5).to(torch.float32)
         integral = torch.randint(0, 8, (n,), generator=gen, device=dev).to(torch.float32)
@@ -267,17 +275,20 @@ def phase_kernels(n: int, seed: int) -> dict:
         out2 = torch.zeros(g, 2, dtype=torch.float32, device=dev)
         nnz_w = int((w != 0).sum())
         b_ms, b_by = bound(n * 8 + nnz_w * 4 + g * 8, 3 * nnz_w)
+        ms = time_ms(lambda: ops.segment_aggregate(integral, gid, g, w))
+        card = card_state()
         row = dict(
-            max_abs_err=diff,
-            ms=time_ms(lambda: ops.segment_aggregate(integral, gid, g, w)),
+            max_abs_err=diff, ms=ms,
             plain_ms=time_ms(lambda: ref.segment_aggregate_ref(integral, gid, g, w)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: out2.index_add_(0, gl, vw2)),
         )
         log(f"[kernels] segment_aggregate n={n} G={g} integral bit-exact; normal "
             f"rel err kernel {err_k:.2e} plain {err_p:.2e}, max |kernel-plain| {diff:.3e}, "
-            f"3 reruns bit-equal; {row}")
-        rows["segment_aggregate"] = row  # the widest pad is the one reported
+            f"3 reruns bit-equal; kernel {ms:.4f} ms, index_add_ {row['library_ms']:.4f} ms "
+            f"(SM clock, power after the kernel: {card}); {row}")
+        if g == SEGMENT_REPORTED:
+            rows["segment_aggregate"] = row
     rows["segment_aggregate"]["max_abs_err"] = seg_err
     rows["segment_aggregate_batch"] = _kernel_segment_aggregate_batch(n, gen, rows)
     rows["flash_attention"] = _kernel_flash_attention(seed)
@@ -286,16 +297,18 @@ def phase_kernels(n: int, seed: int) -> dict:
 
 def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
     """segment_aggregate_batch at the fused launch's shapes (B sketches of
-    S_pad * R_pad = 4 * 2^18 rows, at a narrow and a wide group pad), and at
-    B = 1 over ``n`` rows to compare with the unbatched kernel's row.  The
-    reported row is B = 8, G = 128 (phase 5's group-bys pad to 128-512)."""
+    S_pad * R_pad = 4 * 2^18 rows, at a narrow, a middle and the widest
+    group pad), and at B = 1 over ``n`` rows to compare with the unbatched
+    kernel's row.  The reported row is BATCH_REPORTED, picked by its shape
+    (phase 5's group-bys pad to 128-512)."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
-    out = {}
-    for b, n_b, g in ((8, 4 << 18, 16384), (1, n, 16384), (8, 4 << 18, 128)):
+    out = None
+    for b, n_b, g in ((8, 4 << 18, 16384), (1, n, 16384), (8, 4 << 18, 4096),
+                      BATCH_REPORTED):
         gid = torch.randint(0, g, (b, n_b), generator=gen, device=dev, dtype=torch.int32)
         w = (torch.rand((b, n_b), generator=gen, device=dev) < 0.5).to(torch.float32)
         integral = torch.randint(0, 8, (b, n_b), generator=gen, device=dev).to(torch.float32)
@@ -318,6 +331,8 @@ def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
                     f"segment_aggregate_batch (B={b}, G={g}) gave other bits on a rerun")
         rows_equal = all(torch.equal(s1[i], ops.segment_aggregate(normal[i], gid[i], g, w[i])[0])
                          for i in range(b))
+        require(rows_equal, f"segment_aggregate_batch (B={b}, G={g}): a row of normal values "
+                            f"differs from the unbatched kernel")
         s2, _ = ref.segment_aggregate_batch_ref(normal, gid, g, w)
         diff = float((s1 - s2).abs().max())
         flat = (gid.long() + g * torch.arange(b, device=dev)[:, None]).reshape(-1)
@@ -325,20 +340,24 @@ def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
         out2 = torch.zeros(b * g, 2, dtype=torch.float32, device=dev)
         nnz_w = int((w != 0).sum())
         b_ms, b_by = bound(b * n_b * 8 + nnz_w * 4 + b * g * 8, 3 * nnz_w)
+        ms = time_ms(lambda: ops.segment_aggregate_batch(integral, gid, g, w))
+        card = card_state()
         row = dict(
-            max_abs_err=diff,
-            ms=time_ms(lambda: ops.segment_aggregate_batch(integral, gid, g, w)),
+            max_abs_err=diff, ms=ms,
             plain_ms=time_ms(lambda: ref.segment_aggregate_batch_ref(integral, gid, g, w)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: out2.index_add_(0, flat, vw2)),
         )
         log(f"[kernels] segment_aggregate_batch B={b} n={n_b} G={g} integral bit-exact and "
             f"equal to segment_aggregate row by row; normal: 3 reruns bit-equal, rows equal "
-            f"to the unbatched kernel {rows_equal}, max |kernel-plain| {diff:.3e}; {row}")
+            f"to the unbatched kernel, max |kernel-plain| {diff:.3e}; kernel {ms:.4f} ms, "
+            f"index_add_ {row['library_ms']:.4f} ms (SM clock, power after the kernel: "
+            f"{card}); {row}")
         if b == 1:
             log(f"[kernels] segment_aggregate_batch B=1 vs segment_aggregate at n={n} G={g}: "
                 f"{row['ms']:.4f} ms vs {rows['segment_aggregate']['ms']:.4f} ms")
-        out = row
+        if (b, n_b, g) == BATCH_REPORTED:
+            out = row
         del gid, w, integral, normal, flat, vw2, out2
     return out
 
@@ -1129,11 +1148,18 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
     kernel_ms = time_ms(lambda: ops.segment_aggregate_batch(*flat[:2], g_pad, flat[2]))
     nnz_w = int((flat[2] != 0).sum())
     b_ms, b_by = bound(k * s_pad * r_pad * 8 + nnz_w * 4 + k * g_pad * 8, 3 * nnz_w)
+    # index_add_ over gid + b * g_pad: the library yardstick, its index and
+    # products made before the timed region.
+    index = (flat[1].long() + g_pad * torch.arange(k, device=flat[1].device)[:, None]).reshape(-1)
+    vw2 = torch.stack([(flat[0] * flat[2]).reshape(-1), flat[2].reshape(-1)], dim=1)
+    out2 = torch.zeros(k * g_pad, 2, dtype=torch.float32, device=vw2.device)
+    library_ms = time_ms(lambda: out2.index_add_(0, index, vw2), reps=5, warmup=1)
     log(f"[shard] fused launch (K, S_pad, R_pad, g_pad) = {(k, s_pad, r_pad, g_pad)}, "
         f"{nnz_w} weighted rows of {k * s_pad * r_pad}: bit-exact against the plain "
         f"version; kernel {kernel_ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms ({b_by}), "
-        f"the route's launch + copy to host {t_route_ms:.3f} ms")
-    del got, want, flat
+        f"index_add_ {library_ms:.4f} ms, the route's launch + copy to host "
+        f"{t_route_ms:.3f} ms (SM clock, power: {card_state()})")
+    del got, want, flat, index, vw2, out2
 
     # Checks, after the counts were read: every result against a plain
     # group-by of its version's full table (and version 0 also against the

@@ -37,7 +37,8 @@ NVCC_FLAGS: Tuple[str, ...] = (
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "segment_aggregate": {
-        "segagg_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _I]),
+        "segagg_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _LL, _I, _LL]),
+        "segagg_max_clusters": (_I, [_I, _I, _I, _LL]),
     },
     "fragment_bitmap": {
         "bitmap_threads": (_I, []),
@@ -53,7 +54,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "bitmap_batch_launch": (_I, [_I, _P, _P, _P, _LL, _I, _I, _P, _P, _I]),
     },
     "segment_aggregate_batch": {
-        "segagg_batch_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _I]),
+        "segagg_batch_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _LL, _I,
+                                     _LL]),
+        "segagg_max_clusters": (_I, [_I, _I, _I, _LL]),
     },
     "flash_attention": {
         "flash_attention_block_q": (_I, [_I]),
@@ -83,10 +86,14 @@ def _nvcc() -> str:
 
 
 def _sources(name: str) -> List[Path]:
-    """``csrc/<name>.cu`` and the local files it includes (``#include "x"``)."""
-    src = CSRC / f"{name}.cu"
-    deps = re.findall(r'^#include "([^"]+)"', src.read_text(), flags=re.M)
-    return [src] + [CSRC / d for d in deps]
+    """``csrc/<name>.cu`` and the local files it includes (``#include "x"``),
+    and theirs, each once, in the order first included."""
+    out = [CSRC / f"{name}.cu"]
+    for src in out:  # grows as it goes
+        for dep in re.findall(r'^#include "([^"]+)"', src.read_text(), flags=re.M):
+            if CSRC / dep not in out:
+                out.append(CSRC / dep)
+    return out
 
 
 def library_path(name: str) -> Path:
@@ -160,9 +167,13 @@ def launch_config(n: int, threads: int, device) -> Tuple[int, int]:
 
 
 def stream_handle(device) -> int:
+    """The current CUDA stream of ``device``, as a pointer (the raw query
+    PyTorch's own kernel launchers use, which builds no ``torch.cuda.Stream``
+    object: a launch's host time is on every call's path)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_tensor(t, name: str, dtype, device, shape: Sequence[int] = None) -> None:

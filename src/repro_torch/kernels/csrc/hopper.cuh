@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tile
-// loads, wgmma descriptors and the three wgmma shapes the flash-attention
-// kernel issues.  Every function is a thin wrapper over one or two PTX
-// instructions (PTX ISA 8.0, "Asynchronous warpgroup level matrix multiply"
-// and "Tensor copy" sections); nothing here is a finished kernel.
+// Hopper (sm_90a) building blocks written out in PTX: mbarriers (also across
+// a thread-block cluster), cluster ids and barriers, 1-D bulk copies (also
+// multicast to a cluster), TMA tile loads, wgmma descriptors and the three
+// wgmma shapes the flash-attention kernel issues.  Every function is a thin
+// wrapper over one or two PTX instructions (PTX ISA 8.0, "Asynchronous
+// warpgroup level matrix multiply", "Data movement and conversion" and
+// "Parallel synchronization" sections); nothing here is a finished kernel.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only: nothing from libcuda is linked)
@@ -30,6 +32,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// Order this thread's generic-proxy accesses of shared memory before later
+// async-proxy ones (a bulk copy into the same bytes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
@@ -47,7 +55,79 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// Arrive on the barrier at `bar`'s offset in CTA `rank` of this cluster, with
+// the default semantics (release at CTA scope), as CUTLASS's ClusterBarrier
+// does: a consumer's arrival tells the producer its reads of a stage are
+// done, and those reads have returned their values before it.  (Release at
+// cluster scope compiles to MEMBAR.ALL.GPU, about 1,000 cycles a call.)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// ---- clusters ---------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster's index along x in the grid.
+__device__ __forceinline__ uint32_t cluster_id_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA in the cluster (all threads of each warp together).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+
 // ---- TMA ------------------------------------------------------------------
+
+// 1-D bulk copy of `bytes` from global memory to this CTA's shared memory at
+// `dst`; both addresses 16-byte aligned, bytes a multiple of 16.  Completion
+// adds the bytes to `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Ask L2 to hold `bytes` of global memory at `src` (16-byte aligned, a
+// multiple of 16), with no completion to wait for.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
+// The same copy into every CTA of the cluster whose rank is set in `mask`, at
+// `dst`'s offset in each; each completes on its own barrier at `bar`'s offset.
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
 
 // Copy the box at coordinates (c0, c1, c2, c3) of a 4-D tensor map into
 // shared memory at `dst`; completion adds the box's bytes to `bar`.

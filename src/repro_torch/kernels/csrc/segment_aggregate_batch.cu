@@ -18,21 +18,24 @@
 // Design: the TPU kernel contracts a (rows x groups) one-hot tile with the
 // values on the MXU, B times.  Here the fixed-order kernels of
 // segment_aggregate.cu run with the batch row as the grid's y axis: each
-// row's blocks sum its rows into shared-memory partials (per-warp copies up
-// to 1,024 groups, owner-split tiles above), and the merge adds each row's
-// block partials in block order.  No float atomics, so reruns give equal
-// bits on any input, and with the block count of an unbatched launch over
-// one row (the wrapper's default) each row equals that launch bit for bit.
+// row's blocks (per-warp copies up to 1,024 groups) or clusters (group
+// slices, rows streamed by multicast bulk copies, above) sum its rows into
+// partials, and the merge adds each row's partials in part order.  The
+// plan gives every row the chunks of an unbatched launch over it, whatever
+// B is, so each row equals that launch bit for bit; no float atomics, so
+// reruns give equal bits on any input.
 
 #include "segment_aggregate.cu"
 
 // batch rows of n rows each, row b at values + b * n (likewise gid and
 // weights); sums and counts are (batch, n_groups); scratch holds
-// batch * n_blocks * 2 * n_groups floats.  mode as in segagg_launch.
+// batch * parts * 2 * n_groups floats.  The plan's arguments as in
+// segagg_launch.
 extern "C" int segagg_batch_launch(int device, void* stream, const float* values,
                                    const int32_t* gid, const float* weights, long long n,
                                    int batch, int n_groups, float* sums, float* counts,
-                                   float* scratch, int n_blocks, int mode) {
+                                   float* scratch, int parts, long long part_rows, int cluster,
+                                   long long smem) {
   return segagg_run(device, stream, values, gid, weights, n, batch, n_groups, sums, counts,
-                    scratch, n_blocks, mode);
+                    scratch, parts, part_rows, cluster, smem);
 }

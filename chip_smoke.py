@@ -6,7 +6,10 @@
 Phase 1 builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once).  Phase 2 holds each kernel against
 its plain PyTorch version on the card at the main path's shapes and times
-both, the bandwidth bound and one PyTorch library call as a yardstick.
+both, the bandwidth bound and one PyTorch library call as a yardstick
+(sketch_filter also as the mask and kept rows of one launch at 5% and 40%
+kept, fragment_bitmap also at 32,768 ranges and as one kernel a call, each
+beside its device time from ``torch.profiler``).
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
@@ -16,7 +19,9 @@ with a fresh engine: bursts of queries that differ only in their HAVING
 thresholds, a replay, an append of 1% of the rows, a burst that repairs
 every sketch, a delete of one year and another burst; it checks every
 result against full-table execution of the current version and every
-maintained sketch against a fresh capture.  Phase 5 drives the sharded path
+maintained sketch against a fresh capture; phases 3-5 require every
+sketch_filter launch to compact its kept rows on the card, and phases 4
+and 5 log the instance build's mask branch step by step.  Phase 5 drives the sharded path
 on the same table: a ``ShardedEngine`` over 4 fragment shards placed on the
 ``community`` partition, a ``run_batch`` burst of three signature groups
 (two grouping by ``community``, whose bits the shards maintain, one not,
@@ -89,6 +94,7 @@ SHARD_ATTR = "community"  # the partition phase 4's waves chose
 # whose group-bys pad to 128.
 SEGMENT_PADS = (16, 2048, 16384)
 SEGMENT_REPORTED = 16384
+ROWS_COUNTER = "sketch_filter.rows"  # launches that also compact the kept rows
 BATCH_REPORTED = (8, 4 << 18, 128)
 
 
@@ -99,6 +105,14 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def require_compacted(label: str, launches: int, rows_launches: int) -> None:
+    """Every sketch_filter launch of an engine path compacted its kept rows
+    on the card (the instance build's mask branch), none built a bare mask."""
+    log(f"[{label}] sketch_filter launches {launches}, of them mask and rows {rows_launches}")
+    require(launches == rows_launches,
+            f"{label}: {launches - rows_launches} sketch_filter launches did not compact the rows")
 
 
 def log(*parts) -> None:
@@ -159,51 +173,102 @@ def phase_build() -> None:
 def phase_kernels(n: int, seed: int) -> dict:
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import measure, ops, ref
+
+    def device_ms(fn):
+        return {k: round(v, 5) for k, v in measure.device_ms(torch, fn).items()}
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rows = {}
 
-    # fragment_bitmap: capture at n_ranges = 100, a third of the rows in the provenance.
+    # fragment_bitmap: capture at n_ranges = 100, a quarter of the rows in the
+    # provenance; logged also at 32,768 ranges (its widest).  One launch a call.
     n_ranges = 100
     bucket = torch.randint(0, n_ranges, (n,), generator=gen, device=dev, dtype=torch.int32)
-    prov = torch.rand(n, generator=gen, device=dev) < 0.3
-    # Leave some fragments empty so the bitmap is not all ones.
-    prov &= bucket % 7 != 3
-    got = ops.fragment_bitmap(prov, bucket, n_ranges)
-    want = ref.fragment_bitmap_ref(prov, bucket, n_ranges)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "fragment_bitmap disagrees with its plain version")
-    bucket_l, prov_i = bucket.long(), prov.to(torch.int32)
-    nnz = int(prov.sum())
-    b_ms, b_by = bound(n * 1 + nnz * 4 + n_ranges, n)
-    rows["fragment_bitmap"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: ops.fragment_bitmap(prov, bucket, n_ranges)),
-        plain_ms=time_ms(lambda: ref.fragment_bitmap_ref(prov, bucket, n_ranges)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.zeros(n_ranges, dtype=torch.int32, device=dev)
-                           .scatter_reduce_(0, bucket_l, prov_i, reduce="amax")),
-    )
-    log(f"[kernels] fragment_bitmap n={n} n_ranges={n_ranges} bit-exact; {rows['fragment_bitmap']}")
+    drawn = torch.rand(n, generator=gen, device=dev) < 0.3
+    for width in (32768, n_ranges):
+        b = bucket if width == n_ranges else torch.randint(
+            0, width, (n,), generator=gen, device=dev, dtype=torch.int32)
+        b_l = b.long()
+        # Leave some fragments empty so the bitmap is not all ones.
+        prov = drawn & (b % 7 != 3)
+        nnz = int(prov.sum())
+        sectors = measure.bitmap_sectors(prov)
+        prov_i = prov.to(torch.int32)
+        got = ops.fragment_bitmap(prov, b, width)
+        want = ref.fragment_bitmap_ref(prov, b, width)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"fragment_bitmap ({width} ranges) disagrees with its "
+                                        f"plain version")
+        require(bool(got.any()) and not bool(got.all()), "bitmap test is degenerate")
+        per = device_ms(lambda: ops.fragment_bitmap(prov, b, width))
+        require(len(per) == 1, f"fragment_bitmap is not one kernel a call: {per}")
+        # Buckets are read by 32-byte sectors: those holding a provenance row.
+        b_ms, b_by = bound(n + 32 * sectors + width, n)
+        row = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: ops.fragment_bitmap(prov, b, width)),
+            plain_ms=time_ms(lambda: ref.fragment_bitmap_ref(prov, b, width)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.zeros(width, dtype=torch.int32, device=dev)
+                               .scatter_reduce_(0, b_l, prov_i, reduce="amax")),
+        )
+        log(f"[kernels] fragment_bitmap n={n} n_ranges={width} bit-exact, {nnz} provenance rows "
+            f"in {sectors} of {n // 8} bucket sectors; device {sum(per.values()):.4f} ms {per}; "
+            f"{row}")
+        del b, b_l, prov_i
+    # The bound counted 4 bytes a provenance row before; sectors move 32.
+    log(f"[kernels] fragment_bitmap bound by 4 bytes a provenance row (not sectors): "
+        f"{bound(n + 4 * nnz + n_ranges, n)[0]:.5f} ms")
+    rows["fragment_bitmap"] = row
 
-    # sketch_filter: the instance build's keep-mask over 100 ranges.
-    bits = torch.rand(n_ranges, generator=gen, device=dev) < 0.4
+    # sketch_filter: the keep-mask at 100 ranges, 40 of them set; then the
+    # mask and its kept rows (the instance build's one launch) at 5% and 40%
+    # kept, against torch.nonzero of the indexing; the JSON row is 5%.
+    bucket_l = bucket.long()  # the yardsticks' index, made outside their timing
+    bits = torch.zeros(n_ranges, dtype=torch.bool, device=dev)
+    bits[torch.randperm(n_ranges, generator=gen, device=dev)[:40]] = True
     got = ops.sketch_filter(bucket, bits)
     want = ref.sketch_filter_ref(bucket, bits)
     torch.cuda.synchronize()
     require(torch.equal(got, want), "sketch_filter disagrees with its plain version")
-    b_ms, b_by = bound(n * 4 + n_ranges + n * 1, 0)
-    rows["sketch_filter"] = dict(
-        max_abs_err=0.0,
+    per = device_ms(lambda: ops.sketch_filter(bucket, bits))
+    mask_row = dict(
         ms=time_ms(lambda: ops.sketch_filter(bucket, bits)),
-        plain_ms=time_ms(lambda: ref.sketch_filter_ref(bucket, bits)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=bound(n * 4 + n_ranges + n * 1, 0)[0],
         library_ms=time_ms(lambda: bits[bucket_l]),
-    )
-    log(f"[kernels] sketch_filter n={n} n_ranges={n_ranges} bit-exact; {rows['sketch_filter']}")
+        library_device=sum(device_ms(lambda: bits[bucket_l]).values()))
+    log(f"[kernels] sketch_filter mask n={n} n_ranges={n_ranges} bit-exact; device "
+        f"{sum(per.values()):.4f} ms {per}; {mask_row}")
+    for share in (40, 5):
+        bits = torch.zeros(n_ranges, dtype=torch.bool, device=dev)
+        bits[torch.randperm(n_ranges, generator=gen, device=dev)[:share]] = True
+        keep, kept = ops.sketch_filter_rows(bucket, bits)
+        want, want_rows = ref.sketch_filter_rows_ref(bucket, bits)
+        torch.cuda.synchronize()
+        require(torch.equal(keep, want) and torch.equal(kept, want_rows),
+                f"sketch_filter_rows ({share}% kept) disagrees with its plain version")
+        again = ops.sketch_filter_rows(bucket, bits)
+        require(torch.equal(again[0], keep) and torch.equal(again[1], kept),
+                f"sketch_filter_rows ({share}% kept) gave other rows on a rerun")
+        k = int(kept.numel())
+        per = device_ms(lambda: ops.sketch_filter_rows(bucket, bits))
+        yard = device_ms(lambda: torch.nonzero(bits[bucket_l]))
+        b_ms, b_by = bound(n * 4 + n_ranges + n * 1 + k * 8, 0)
+        row = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: ops.sketch_filter_rows(bucket, bits)),
+            plain_ms=time_ms(lambda: ref.sketch_filter_rows_ref(bucket, bits)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.nonzero(bits[bucket_l])),
+        )
+        log(f"[kernels] sketch_filter_rows n={n} n_ranges={n_ranges} {share}% kept (k={k}) "
+            f"bit-exact, rerun equal; device {sum(per.values()):.4f} ms {per}, torch.nonzero "
+            f"device {sum(yard.values()):.4f} ms; {row}")
+    rows["sketch_filter"] = row
+    del keep, kept, want, want_rows, again
 
     # fragment_bitmap_batch: a wave's capture, B masks over one bucketization.
     # The row is B = 8 (a pow2-padded burst of 5-8 thresholds); B = 32 is logged.
@@ -569,7 +634,7 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int):
 
     eng = PBDSEngine(db, strategy="CB-OPT-GB", n_ranges=100, theta=0.05, seed=seed)
     stream = [q for _ in range(replays) for q in workload]
-    for name in BUILT:  # every count, so a stray launch of another kernel shows
+    for name in (*BUILT, ROWS_COUNTER):  # every count, so a stray launch of another kernel shows
         LAUNCH_COUNTS[name] = 0
     torch.cuda.synchronize()
     t_run = time.perf_counter()
@@ -588,6 +653,7 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int):
             f"groups_out={len(res.values)}")
     launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
     require(launches["fragment_bitmap_batch"] == 0, "run launched the batched bitmap")
+    require_compacted("engine", launches["sketch_filter"], LAUNCH_COUNTS[ROWS_COUNTER])
     launches = {name: launches[name] for name in RUN_KERNELS}
     t_run = time.perf_counter() - t_run
     created = sum(info.created for _, _, info in results)
@@ -654,6 +720,40 @@ def phase_engine(n_rows: int, n_unique: int, replays: int, seed: int):
 # ---------------------------------------------------------------------------
 # Phase 4: run_batch and maintenance at real scale
 # ---------------------------------------------------------------------------
+
+
+def mask_branch_split(label: str, table, ranges, bits_np, catalog, whole, reps: int = 5):
+    """The mask branch of an instance build on the card, step by step: the
+    kernel (mask and kept rows, its count copied back), the copy of the k
+    rows to the host, the gather of the instance's columns; and ``whole()``,
+    the branch as the engine runs it.  Logs the medians of ``reps`` (ms)."""
+    import torch
+
+    from repro_torch.device import to_host
+    from repro_torch.kernels import ops
+
+    bits = torch.from_numpy(bits_np).to(table.device)
+    bucket = catalog.bucketize(table, ranges)
+
+    def step(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    times = []
+    for _ in range(reps + 1):  # the first warms
+        (_, rows), t_kernel = step(lambda: ops.sketch_filter_rows(bucket, bits))
+        _, t_copy = step(lambda: to_host(rows))
+        _, t_gather = step(lambda: table.gather(rows))
+        _, t_whole = step(whole)
+        times.append((t_kernel, t_copy, t_gather, t_whole))
+    med = [sorted(col)[reps // 2] for col in zip(*times[1:])]
+    log(f"[{label}] mask branch of an instance build on {ranges.attr}, {int(rows.numel())} of "
+        f"{table.num_rows} rows kept: kernel {med[0]:.3f} ms, rows to host {med[1]:.3f} ms, "
+        f"gather of {len(table.schema)} columns {med[2]:.3f} ms; the branch whole "
+        f"{med[3]:.3f} ms (medians of {reps})")
 
 
 def _bursts(workload, full_values, n_groups: int = 2, per_group: int = 6):
@@ -803,7 +903,7 @@ def phase_batch(n_rows: int, seed: int, db=None, workload=None, full_values=None
 
     admission.admit_misses = counted_admit
     try:
-        for name in BUILT:
+        for name in (*BUILT, ROWS_COUNTER):
             LAUNCH_COUNTS[name] = 0
         out = run_burst("burst")
         created = sum(info.created for _, info in out)
@@ -831,6 +931,7 @@ def phase_batch(n_rows: int, seed: int, db=None, workload=None, full_values=None
         require(all(info.reused and info.repaired for _, info in out),
                 "the burst after the delete did not repair every sketch")
         launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+        rows_launches = LAUNCH_COUNTS[ROWS_COUNTER]
     finally:
         admission.admit_misses = admit
     t_run = time.perf_counter() - t_phase
@@ -839,6 +940,7 @@ def phase_batch(n_rows: int, seed: int, db=None, workload=None, full_values=None
 
     for name in BATCH_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the run_batch path")
+    require_compacted("batch", launches["sketch_filter"], rows_launches)
     require(launches["fragment_bitmap_batch"] < created,
             "fragment_bitmap_batch launched once per sketch, not once per partition")
     before, after_append, after_delete = stats["replay"], stats["after append"], stats["after delete"]
@@ -854,6 +956,14 @@ def phase_batch(n_rows: int, seed: int, db=None, workload=None, full_values=None
             and after_delete.get("sketch_recaptured", 0) == 0,
             f"repairs: {after_delete.get('sketch_maintained', 0)} maintained, "
             f"{after_delete.get('sketch_recaptured', 0)} re-captured of {2 * created}")
+
+    # The mask branch's split, on the widest sketch's instance of the final version.
+    from repro_torch.core import sketch as sketch_mod
+
+    entry = max(eng.index.entries(), key=lambda e: e.sketch.size_rows)
+    table = eng.db["crimes"]
+    mask_branch_split("batch", table, entry.sketch.ranges, entry.sketch.bits, eng.catalog,
+                      lambda: sketch_mod._build_instance(entry.sketch, table, eng.catalog))
 
     # Checks, after the counts were read: version 0 through phase 3's check
     # catalog, each mutated version as a fresh table with a fresh catalog.
@@ -970,7 +1080,7 @@ def _plain_result(q, groups):
                        values=agg[keep])
 
 
-SHARD_KERNELS = ("segment_aggregate_batch",)
+SHARD_KERNELS = ("segment_aggregate_batch", "sketch_filter")
 
 
 def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None) -> dict:
@@ -1060,7 +1170,7 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
         steps.append((label, se.db["crimes"], host_cols(), queries, out))
         return out, wall
 
-    for name in (*BUILT, "fused_partials"):
+    for name in (*BUILT, "fused_partials", ROWS_COUNTER):
         LAUNCH_COUNTS[name] = 0
     out, t_burst = run_burst("burst", expect_hits=False)
     created = sum(info.created for _, info in out)
@@ -1123,6 +1233,7 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
     require(2 * n_full >= len(fresh),
             f"only {n_full} of {len(fresh)} results after the delete hold a group")
     launches = {name: LAUNCH_COUNTS[name] for name in (*BUILT, "fused_partials")}
+    require_compacted("shard", launches["sketch_filter"], LAUNCH_COUNTS[ROWS_COUNTER])
     t_run = time.perf_counter() - t_phase
     require(se.min_watermark() == se.version, "a shard lags the watermark after a read")
     log(f"[shard] driven in {t_run:.1f} s; launches {launches}; stacked cache "
@@ -1160,6 +1271,20 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
         f"index_add_ {library_ms:.4f} ms, the route's launch + copy to host "
         f"{t_route_ms:.3f} ms (SM clock, power: {card_state()})")
     del got, want, flat, index, vw2, out2
+
+    # The mask branch's split on the largest shard, for a sketch not on the
+    # serving partition (its instance is the kernel's kept rows).
+    shard = max(se.shards, key=lambda sh: sh.table.num_rows)
+    key, reg = max(((k, r) for k, r in se._registered.items()
+                    if r.ranges.key() != se.ranges.key() and se.engine.index.contains(r.entry)),
+                   key=lambda kr: kr[1].entry.sketch.size_rows)
+    bits_np = reg.entry.sketch.bits
+
+    def rebuild():
+        shard._inst.pop(key, None)
+        return shard._instance(key, reg.ranges, bits_np)
+
+    mask_branch_split("shard", shard.table, reg.ranges, bits_np, shard.catalog, rebuild)
 
     # Checks, after the counts were read: every result against a plain
     # group-by of its version's full table (and version 0 also against the

@@ -286,7 +286,7 @@ class FragmentShard:
     def _instance(self, key: int, ranges: RangeSet, bits: np.ndarray) -> ColumnTable:
         """The local sketch instance: owned and sketched fragments, sliced
         when the sketch is on the serving partition (tail rows filtered by
-        their global fragment), the per-row keep-mask otherwise.  The
+        their global fragment), the keep-mask kernel's kept rows otherwise.  The
         instance's source rows are recorded in the catalog, so its group
         encodings and WHERE masks are gathers of the local table's."""
         token = (id(self.table), bits.tobytes())
@@ -311,9 +311,12 @@ class FragmentShard:
                                                    return_rows=True)
             self.catalog.stats["instance_slices"] += 1
         else:
+            from repro_torch.kernels import ops as kops
+
             bucket = self.catalog.bucketize(self.table, ranges)
-            rows = np.nonzero(to_host(torch.from_numpy(bits).to(bucket.device)[bucket.long()]))[0]
-            inst = self.table.gather(rows)
+            _, rows_dev = kops.sketch_filter_rows(bucket, torch.from_numpy(bits).to(bucket.device))
+            inst = self.table.gather(rows_dev)
+            rows = to_host(rows_dev)
             self.catalog.stats["instance_mask"] += 1
         self.catalog.note_subset(inst, self.table, rows)
         self._inst[key] = (token, inst)

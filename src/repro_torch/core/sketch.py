@@ -7,7 +7,8 @@ OR of the provenance mask by fragment id (the ``fragment_bitmap`` kernel);
 the instance of a sketch is the rows whose fragment bit is set, pow2-padded
 and cached per sketch in the catalog: on a table clustered on the sketch's
 own partition the concatenated fragment slices (``take_fragments``), else
-the ``sketch_filter`` kernel's keep-mask, compacted.  Batched admission
+the ``sketch_filter`` kernel's kept rows (mask and compaction in one
+launch, on the device).  Batched admission
 captures B sketches of one partition from one scan
 (``capture_sketches_batch``, the ``fragment_bitmap_batch`` kernel).
 """
@@ -184,7 +185,8 @@ def _build_instance(
 ) -> Tuple[ColumnTable, np.ndarray]:
     """Materialize the sketch instance R_P of one table (+ its source rows),
     pow2-padded: fragment slices on a table clustered on the sketch's
-    partition, the per-row keep-mask kernel otherwise."""
+    partition, the kept rows of the keep-mask kernel otherwise (compacted on
+    the device; the host gets a copy of the k rows, not the n-row mask)."""
     lay = table.layout
     if lay is not None and lay.matches(sketch.ranges):
         catalog.stats["instance_slices"] += 1
@@ -197,10 +199,12 @@ def _build_instance(
         inst, rows = table.take_fragments(np.nonzero(sketch.bits)[0],
                                           tail_bucket=tail_bucket, return_rows=True)
         return _pad_instance_pow2(inst, rows, catalog)
+    from repro_torch.kernels import ops as kops
+
     catalog.stats["instance_mask"] += 1
-    mask = sketch_keep_mask(sketch, table, catalog=catalog)
-    rows = np.nonzero(to_host(mask))[0]
-    return _pad_instance_pow2(table.gather(torch.from_numpy(rows)), rows, catalog)
+    bucket = catalog.bucketize(table, sketch.ranges)
+    _, rows = kops.sketch_filter_rows(bucket, torch.from_numpy(sketch.bits).to(table.device))
+    return _pad_instance_pow2(table.gather(rows), to_host(rows), catalog)
 
 
 def apply_sketch(

@@ -41,12 +41,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "segagg_max_clusters": (_I, [_I, _I, _I, _LL]),
     },
     "fragment_bitmap": {
-        "bitmap_threads": (_I, []),
-        "bitmap_launch": (_I, [_I, _P, _P, _P, _LL, _I, _P, _I]),
+        "bitmap_clusters": (_I, [_I]),
+        "bitmap_launch": (_I, [_I, _P, _P, _P, _LL, _I, _P, _P]),
     },
     "sketch_filter": {
-        "filter_threads": (_I, []),
-        "filter_launch": (_I, [_I, _P, _P, _P, _LL, _I, _P, _I]),
+        "filter_launch": (_I, [_I, _P, _P, _P, _LL, _I, _P]),
+        "filter_rows_launch": (_I, [_I, _P, _P, _P, _LL, _I, _P, _P, _P, _LL, _I, _LL]),
     },
     "fragment_bitmap_batch": {
         "bitmap_batch_threads": (_I, []),

@@ -6,8 +6,17 @@ and ``fragment_bitmap_batch_pallas``; the sources say how the kernels are
 built and what bounds them.  A CPU tensor goes to the plain version
 (``ref.fragment_bitmap_ref``, ``ref.fragment_bitmap_batch_ref``); a CUDA
 tensor goes to the kernel, or the call raises.
+
+``fragment_bitmap`` is one launch a call: the kernel writes the bool
+output itself, through a word array and a count that it leaves zeroed for
+the next call (one workspace per device and stream, zeroed when made).
+It loads 16 flags and 4 buckets at a time: a view whose data does not
+start on a 16-byte boundary is first copied (counted in
+``LAUNCH_COUNTS["fragment_bitmap.aligned_copy"]``).
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -17,8 +26,14 @@ from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "fragment_bitmap"
 BATCH_NAME = "fragment_bitmap_batch"
-# The per-block bitmap (one 32-bit word per range) lives in shared memory.
+COPY_COUNTER = "fragment_bitmap.aligned_copy"  # prov or bucket copied to a 16-byte boundary
+# fragment_bitmap keeps one bit per range in shared memory (4 KB); the batched
+# kernel keeps one 32-bit word per range.
 MAX_RANGES = 32768
+# The workspace: MAX_RANGES / 32 bit words and the count of finished clusters.
+WORKSPACE_WORDS = MAX_RANGES // 32 + 1
+
+_WORKSPACES: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def fragment_bitmap(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int) -> torch.Tensor:
@@ -31,14 +46,21 @@ def fragment_bitmap(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int) -> 
     build.check_tensor(prov, "prov", torch.bool, dev, (n,))
     if not 1 <= n_ranges <= MAX_RANGES:
         raise ValueError(f"n_ranges must lie in [1, {MAX_RANGES}], got {n_ranges}")
-    lib = build.library(NAME)
-    index, blocks = build.launch_config(n, lib.bitmap_threads(), dev)
-    bits = torch.zeros(n_ranges, dtype=torch.int32, device=dev)
-    err = lib.bitmap_launch(index, build.stream_handle(dev), bucket.data_ptr(),
-                            prov.data_ptr(), n, n_ranges, bits.data_ptr(), blocks)
+    if bucket.data_ptr() % 16 or prov.data_ptr() % 16:
+        bucket, prov = bucket.clone(), prov.clone()
+        LAUNCH_COUNTS[COPY_COUNTER] += 1
+    stream = build.stream_handle(dev)
+    ws = _WORKSPACES.get((dev.index, stream))
+    if ws is None:
+        ws = _WORKSPACES[(dev.index, stream)] = torch.zeros(WORKSPACE_WORDS, dtype=torch.int32,
+                                                            device=dev)
+    bits = torch.empty(n_ranges, dtype=torch.bool, device=dev)
+    err = build.library(NAME).bitmap_launch(dev.index, stream, bucket.data_ptr(),
+                                            prov.data_ptr(), n, n_ranges, ws.data_ptr(),
+                                            bits.data_ptr())
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
-    return bits > 0
+    return bits
 
 
 def fragment_bitmap_batch(provs: torch.Tensor, bucket: torch.Tensor,

@@ -21,6 +21,7 @@ from repro_torch.kernels.segment_aggregate import (
     segment_aggregate_batch as _segment_aggregate_batch,
 )
 from repro_torch.kernels.sketch_filter import sketch_filter as _sketch_filter
+from repro_torch.kernels.sketch_filter import sketch_filter_rows as _sketch_filter_rows
 
 
 def fragment_bitmap(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int) -> torch.Tensor:
@@ -37,6 +38,14 @@ def fragment_bitmap_batch(provs: torch.Tensor, bucket: torch.Tensor,
 
 def sketch_filter(bucket: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return _sketch_filter(bucket.to(torch.int32).contiguous(), bits.to(torch.bool).contiguous())
+
+
+def sketch_filter_rows(bucket: torch.Tensor, bits: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keep, rows): the keep-mask and its kept rows' indices, ascending, in
+    one launch (the instance build's compaction on the card)."""
+    return _sketch_filter_rows(bucket.to(torch.int32).contiguous(),
+                               bits.to(torch.bool).contiguous())
 
 
 def segment_aggregate(

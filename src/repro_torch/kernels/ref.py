@@ -13,9 +13,16 @@ import torch
 
 
 def fragment_bitmap_ref(prov: torch.Tensor, bucket: torch.Tensor, n_ranges: int) -> torch.Tensor:
-    """bits[r] = OR over rows in fragment r of the provenance mask."""
+    """bits[r] = OR over rows in fragment r of the provenance mask.  Rows
+    whose bucket lies outside ``[0, n_ranges)`` set nothing, as
+    ``segment_max`` drops them."""
+    idx = bucket.long()
+    flags = prov.to(torch.int32)
+    ok = (idx >= 0) & (idx < n_ranges)
+    if not bool(ok.all()):
+        idx, flags = idx[ok], flags[ok]
     hits = torch.zeros(n_ranges, dtype=torch.int32, device=bucket.device)
-    hits.scatter_reduce_(0, bucket.long(), prov.to(torch.int32), reduce="amax")
+    hits.scatter_reduce_(0, idx, flags, reduce="amax")
     return hits > 0
 
 
@@ -36,8 +43,21 @@ def fragment_bitmap_batch_ref(provs: torch.Tensor, bucket: torch.Tensor,
 
 
 def sketch_filter_ref(bucket: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """keep[i] = bits[bucket[i]] — the sketch's disjunction of ranges."""
-    return bits.to(torch.bool)[bucket.long()]
+    """keep[i] = bits[bucket[i]] — the sketch's disjunction of ranges.  Rows
+    whose bucket lies outside ``[0, n_ranges)`` are not kept, as no range of
+    the reference's one-hot compare matches them."""
+    idx = bucket.long()
+    n_ranges = int(bits.shape[0])
+    ok = (idx >= 0) & (idx < n_ranges)
+    return bits.to(torch.bool)[idx.clamp(0, n_ranges - 1)] & ok
+
+
+def sketch_filter_rows_ref(bucket: torch.Tensor, bits: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keep, rows): the keep-mask and its kept rows in ascending order
+    (int64, ``np.nonzero(keep)[0]``)."""
+    keep = sketch_filter_ref(bucket, bits)
+    return keep, torch.nonzero(keep).flatten()
 
 
 def segment_aggregate_ref(

@@ -15,6 +15,7 @@ from repro.core.workload import CRIMES_SPEC as R_SPEC, generate_workload as r_ge
 import repro_torch.core as T
 from repro_torch.convert import sketch_from_numpy
 from repro_torch.core import datasets as tdata
+from repro_torch.core.table import PAD_VALID
 from repro_torch.core.workload import CRIMES_SPEC as T_SPEC, generate_workload as t_generate
 
 torch.set_num_threads(1)  # small tensors; leave the cores to the other xdist workers
@@ -131,6 +132,67 @@ def test_reference_sketch_applies_in_the_port(dbs, workloads):
     with pytest.raises(ValueError):
         sketch_from_numpy(tdb["crimes"], rsk.attr, rsk.ranges.bounds, rsk.bits[:-1],
                           rsk.size_rows, rsk.total_rows)
+
+
+
+@pytest.mark.parametrize("attr", ["district", "year", "beat"])
+def test_unclustered_instance_matches_reference(dbs, attr):
+    """The mask branch's instance (kept rows compacted on the device in the
+    port): sketches captured by each package on the same data have equal
+    bits, and their instances equal source rows, pow2 padding and columns."""
+    from repro.core import sketch as rsketch
+    from repro_torch.core import sketch as tsketch
+
+    rdb, tdb = dbs
+    # The top tenth of the attribute's groups: a selective sketch on it.
+    tau = float(np.quantile(R.execute(R.Query("crimes", (attr,), R.Aggregate("sum", "records")),
+                                      rdb).values, 0.9))
+    rq, tq = (mod.Query("crimes", (attr,), mod.Aggregate("sum", "records"),
+                        having=mod.Having(">", tau)) for mod in (R, T))
+    rsk = R.capture_sketch(rq, rdb, R.equi_depth_ranges(rdb["crimes"], attr, 100),
+                           catalog=R.Catalog())
+    tsk = T.capture_sketch(tq, tdb, T.equi_depth_ranges(tdb["crimes"], attr, 100),
+                           catalog=T.Catalog())
+    np.testing.assert_array_equal(tsk.bits, rsk.bits)
+    assert 0 < tsk.size_rows < N_ROWS
+    tcat = T.Catalog()
+    rinst, rrows = rsketch._build_instance(rsk, rdb["crimes"], R.Catalog())
+    tinst, trows = tsketch._build_instance(tsk, tdb["crimes"], tcat)
+    assert tcat.stats["instance_mask"] == 1
+    np.testing.assert_array_equal(trows, rrows)
+    assert trows.dtype == np.int64
+    assert set(tinst.schema) == set(rinst.schema)
+    for a in rinst.schema:
+        np.testing.assert_array_equal(tinst[a].numpy(), np.asarray(rinst[a]))
+    rapplied = R.apply_sketch(rsk, rdb, catalog=R.Catalog())["crimes"]
+    tapplied = T.apply_sketch(tsk, tdb, catalog=T.Catalog())["crimes"]
+    for a in rapplied.schema:
+        np.testing.assert_array_equal(tapplied[a].numpy(), np.asarray(rapplied[a]))
+
+
+def test_mask_branch_does_not_compact_on_the_host(dbs, workloads, monkeypatch):
+    """``_build_instance``'s mask branch takes its rows from the kernel's
+    compaction: no ``np.nonzero`` runs over an n-row mask on the host."""
+    _, tdb = dbs
+    _, tq = workloads
+    table = tdb["crimes"]
+    tsk = T.capture_sketch(tq[0], tdb, T.equi_depth_ranges(table, "year", 100),
+                           catalog=T.Catalog())
+    real = np.nonzero
+
+    def guarded(a):
+        if np.size(a) == table.num_rows:
+            raise AssertionError("np.nonzero over an n-row mask")
+        return real(a)
+
+    monkeypatch.setattr(np, "nonzero", guarded)
+    cat = T.Catalog()
+    inst = T.apply_sketch(tsk, tdb, catalog=cat)["crimes"]
+    assert cat.stats["instance_mask"] == 1
+    monkeypatch.setattr(np, "nonzero", real)
+    keep = T.sketch_keep_mask(tsk, table, catalog=cat)
+    assert inst.num_rows == 1 << (int(keep.sum()) - 1).bit_length()
+    assert int(inst[PAD_VALID].sum()) == int(keep.sum())
 
 
 def test_deferred_paths_name_their_slice(dbs, workloads):

@@ -440,3 +440,263 @@ def test_segment_aggregate_clustered_groups(cuda, g):
                                          torch.stack([w, w]))
     assert torch.equal(sb[0], first[0]) and torch.equal(cb[0], first[1])
     assert torch.equal(sb[1], s) and torch.equal(cb[1], c)
+
+
+# ---- sketch_filter's compaction and the one-launch fragment_bitmap ---------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097, (1 << 16) + 3])
+@pytest.mark.parametrize("n_ranges", [1, 100, 4096])
+def test_sketch_filter_rows_plain_matches_reference(n, n_ranges):
+    """The plain mask and its kept rows against ``np.nonzero`` of the
+    reference's Pallas kernel in interpret mode, whose one-hot compare keeps
+    no row with a bucket outside [0, n_ranges) (-1 and >= n_ranges are
+    drawn); at n = 0, where the Pallas grid is empty, against the jnp
+    oracle."""
+    rng = np.random.default_rng(7 * n + n_ranges)
+    bucket = rng.integers(-1, n_ranges + 2, n).astype(np.int32)
+    bits = rng.random(n_ranges) < 0.4
+    if n:
+        want = np.asarray(jops.sketch_filter(jnp.asarray(bucket), jnp.asarray(bits),
+                                             backend="interpret"))
+    else:
+        want = np.asarray(jref.sketch_filter_ref(jnp.asarray(bucket), jnp.asarray(bits)))
+    keep, rows = ops.sketch_filter_rows(torch.from_numpy(bucket), torch.from_numpy(bits))
+    assert rows.dtype == torch.int64
+    np.testing.assert_array_equal(keep.numpy(), want)
+    np.testing.assert_array_equal(rows.numpy(), np.nonzero(want)[0])
+    np.testing.assert_array_equal(
+        ops.sketch_filter(torch.from_numpy(bucket), torch.from_numpy(bits)).numpy(), want)
+
+
+def test_plain_versions_drop_out_of_range_buckets():
+    """Rows whose bucket lies outside [0, n_ranges) are not kept by the
+    plain mask and set no bit of the plain bitmap, as in the kernels."""
+    bucket = torch.tensor([-1, 0, 3, 2, 7, -5], dtype=torch.int32)
+    bits = torch.tensor([True, False, True])
+    keep, rows = ref.sketch_filter_rows_ref(bucket, bits)
+    assert keep.tolist() == [False, True, False, True, False, False]
+    assert rows.tolist() == [1, 3]
+    prov = torch.tensor([True, False, True, False, True, True])
+    assert ref.fragment_bitmap_ref(prov, bucket, 3).tolist() == [False, False, False]
+    prov[3] = True
+    assert ref.fragment_bitmap_ref(prov, bucket, 3).tolist() == [False, False, True]
+
+
+@pytest.mark.parametrize("n", [17, 5000])
+@pytest.mark.parametrize("n_ranges", [3, 100, 1000])
+def test_fragment_bitmap_plain_drops_out_of_range_as_reference(n, n_ranges):
+    """The plain bitmap against the reference's Pallas kernel in interpret
+    mode where provenance rows have buckets outside [0, n_ranges): -1,
+    n_ranges, values below the kernel's lane-padded width (whose bits it
+    computes and slices off) and at or beyond it.  In-range provenance
+    only reaches the lower half of the ranges, so a row wrapped or clamped
+    into the top range would show."""
+    padded = n_ranges + (-n_ranges % 128)
+    rng = np.random.default_rng(11 * n + n_ranges)
+    bucket = rng.integers(0, n_ranges, n).astype(np.int32)
+    spill = rng.random(n) < 0.4
+    spill[:2] = True
+    outside = np.array([-1, -7, n_ranges, n_ranges + 1, padded - 1, padded, padded + 5],
+                       dtype=np.int32)
+    bucket[spill] = rng.choice(outside, int(spill.sum()))
+    prov = spill | ((rng.random(n) < 0.3) & (bucket >= 0) & (bucket < max(1, n_ranges // 2)))
+    pallas = np.asarray(jops.fragment_bitmap(jnp.asarray(prov), jnp.asarray(bucket), n_ranges,
+                                             backend="interpret"))
+    got = ops.fragment_bitmap(torch.from_numpy(prov), torch.from_numpy(bucket), n_ranges).numpy()
+    np.testing.assert_array_equal(got, pallas)
+    assert not got[max(1, n_ranges // 2):].any()
+
+
+def test_bitmap_sectors_counts_sectors_holding_provenance():
+    """The bitmap's bound reads the 32-byte sectors (8 int32 buckets) that
+    hold a provenance row, the tail's partial sector included."""
+    from repro_torch.kernels.measure import bitmap_sectors
+
+    prov = torch.zeros(8 * 5 + 3, dtype=torch.bool)
+    assert bitmap_sectors(prov) == 0
+    prov[[0, 7, 9, 30, 31]] = True  # sectors 0, 1 and 3
+    assert bitmap_sectors(prov) == 3
+    prov[41] = True  # the partial tail
+    assert bitmap_sectors(prov) == 4
+
+
+def test_cpu_compaction_launches_nothing():
+    before = dict(LAUNCH_COUNTS)
+    keep, rows = ops.sketch_filter_rows(torch.tensor([0, 1, 1, 0], dtype=torch.int32),
+                                        torch.tensor([False, True]))
+    assert keep.tolist() == [False, True, True, False] and rows.tolist() == [1, 2]
+    assert dict(LAUNCH_COUNTS) == before
+
+
+def _constant(src: str, name: str) -> int:
+    m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+    assert m, name
+    return int(eval(m.group(1), {}, {"kThreads": 256}))  # noqa: S307 (the source's own literals)
+
+
+def test_filter_and_bitmap_constants_match_source():
+    """The wrappers size workspaces and check ranges with the sources'
+    constants."""
+    from repro_torch.kernels import fragment_bitmap as kfb
+    from repro_torch.kernels import sketch_filter as ksf
+
+    src = (build.CSRC / "sketch_filter.cu").read_text()
+    assert _constant(src, "kThreads") * _constant(src, "kRowsPerThread") == ksf.TILE_ROWS
+    assert _constant(src, "kHeadWords") == ksf.HEAD_WORDS
+    assert _constant(src, "kMaxRanges") == ksf.MAX_RANGES
+    src = (build.CSRC / "fragment_bitmap.cu").read_text()
+    assert _constant(src, "kMaxRanges") == kfb.MAX_RANGES
+    assert _constant(src, "kMaxRanges") // 32 + 1 == kfb.WORKSPACE_WORDS
+    assert set(build.SIGNATURES["sketch_filter"]) == {"filter_launch", "filter_rows_launch"}
+    for name in ("sketch_filter", "fragment_bitmap"):
+        text = (build.CSRC / f"{name}.cu").read_text()
+        exported = set(re.findall(r'extern "C" int (\w+)\(', text))
+        assert exported == set(build.SIGNATURES[name]), name
+
+
+CARD_SIZES = [1, 15, 4097, (1 << 20) + 3, 1 << 23]
+
+
+def _filter_cases(cuda, n: int, n_ranges: int, seed: int):
+    """(label, bucket, bits): none kept, about 5% kept, all kept (buckets in
+    range), and buckets outside [0, n_ranges) with half the ranges set."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    bucket = torch.randint(0, n_ranges, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    wild = torch.randint(-3, n_ranges + 3, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    some = torch.rand(n_ranges, generator=gen, device=cuda) < 0.05
+    some[0] = True
+    half = torch.rand(n_ranges, generator=gen, device=cuda) < 0.5
+    return [("none", bucket, torch.zeros(n_ranges, dtype=torch.bool, device=cuda)),
+            ("5%", bucket, some), ("all", bucket, torch.ones(n_ranges, dtype=torch.bool,
+                                                             device=cuda)),
+            ("out of range", wild, half)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CARD_SIZES)
+@pytest.mark.parametrize("n_ranges", [1, 100, 4096, 1 << 17])
+def test_sketch_filter_kernels_match_plain(cuda, n, n_ranges):
+    """Mask and kept rows equal the plain versions bit for bit, and a rerun
+    gives the same bits."""
+    for label, bucket, bits in _filter_cases(cuda, n, n_ranges, n + n_ranges):
+        keep, rows = ops.sketch_filter_rows(bucket, bits)
+        want, want_rows = ref.sketch_filter_rows_ref(bucket, bits)
+        assert torch.equal(keep, want), label
+        assert torch.equal(rows, want_rows), label
+        assert torch.equal(ops.sketch_filter(bucket, bits), want), label
+        again = ops.sketch_filter_rows(bucket, bits)
+        assert torch.equal(again[0], keep) and torch.equal(again[1], rows), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CARD_SIZES)
+@pytest.mark.parametrize("n_ranges", [1, 100, 4096, 32768])
+def test_fragment_bitmap_kernel_matches_plain(cuda, n, n_ranges):
+    """No provenance, about 5%, all rows, and buckets out of range: the bits
+    equal the plain version's, and a rerun gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n * 3 + n_ranges)
+    bucket = torch.randint(0, n_ranges, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    wild = torch.randint(-3, n_ranges + 3, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    for label, b, prov in (
+            ("none", bucket, torch.zeros(n, dtype=torch.bool, device=cuda)),
+            ("5%", bucket, torch.rand(n, generator=gen, device=cuda) < 0.05),
+            ("all", bucket, torch.ones(n, dtype=torch.bool, device=cuda)),
+            ("out of range", wild, torch.rand(n, generator=gen, device=cuda) < 0.5)):
+        got = ops.fragment_bitmap(prov, b, n_ranges)
+        assert torch.equal(got, ref.fragment_bitmap_ref(prov, b, n_ranges)), label
+        assert torch.equal(ops.fragment_bitmap(prov, b, n_ranges), got), label
+
+
+@pytest.mark.cuda
+def test_filter_and_bitmap_take_views_at_a_4_byte_offset(cuda):
+    """A view that does not start on a 16-byte boundary is copied once
+    (counted) and gives the plain version's result."""
+    from repro_torch.kernels import fragment_bitmap as kfb
+    from repro_torch.kernels import sketch_filter as ksf
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = 100_003
+    base = torch.randint(-1, 101, (n + 4,), generator=gen, device=cuda, dtype=torch.int32)
+    bits = torch.rand(100, generator=gen, device=cuda) < 0.3
+    provs = torch.rand(n + 4, generator=gen, device=cuda) < 0.2
+    for off in (1, 2, 3):
+        bucket, prov = base[off:off + n], provs[off:off + n]
+        assert bucket.data_ptr() % 16 == 4 * off
+        copies = LAUNCH_COUNTS[ksf.COPY_COUNTER]
+        keep, rows = ops.sketch_filter_rows(bucket, bits)
+        want, want_rows = ref.sketch_filter_rows_ref(bucket, bits)
+        assert torch.equal(keep, want) and torch.equal(rows, want_rows)
+        assert LAUNCH_COUNTS[ksf.COPY_COUNTER] == copies + 1
+        copies = LAUNCH_COUNTS[kfb.COPY_COUNTER]
+        assert torch.equal(ops.fragment_bitmap(prov, bucket, 100),
+                           ref.fragment_bitmap_ref(prov, bucket, 100))
+        assert LAUNCH_COUNTS[kfb.COPY_COUNTER] == copies + 1
+
+
+@pytest.mark.cuda
+def test_back_to_back_calls_see_no_stale_workspace(cuda):
+    """Calls on one stream with no wait between them, of other sizes and
+    inputs: each result equals its plain version (a workspace not reset,
+    or reset late, would carry tickets, status words or bits over)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    inputs = []
+    for n, n_ranges in ((1 << 22, 100), (5000, 7), (1 << 20, 4096), (1 << 22, 100), (1, 1),
+                        (3 << 20, 32768)):
+        bucket = torch.randint(-1, n_ranges + 1, (n,), generator=gen, device=cuda,
+                               dtype=torch.int32)
+        bits = torch.rand(n_ranges, generator=gen, device=cuda) < 0.3
+        prov = torch.rand(n, generator=gen, device=cuda) < 0.1
+        inputs.append((bucket, bits, prov, n_ranges))
+    out = [(ops.sketch_filter_rows(b, bits), ops.fragment_bitmap(prov, b, r))
+           for b, bits, prov, r in inputs]
+    torch.cuda.synchronize()
+    for ((keep, rows), got), (b, bits, prov, r) in zip(out, inputs):
+        want, want_rows = ref.sketch_filter_rows_ref(b, bits)
+        assert torch.equal(keep, want) and torch.equal(rows, want_rows)
+        assert torch.equal(got, ref.fragment_bitmap_ref(prov, b, r))
+
+
+@pytest.mark.cuda
+def test_each_call_is_one_kernel_launch(cuda):
+    """``fragment_bitmap`` is one launch a call (no memset, no compare);
+    ``sketch_filter_rows`` one launch and the 8-byte copy of its count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import sketch_filter as ksf
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n = 1 << 20
+    bucket = torch.randint(0, 100, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    prov = torch.rand(n, generator=gen, device=cuda) < 0.25
+    bits = torch.rand(100, generator=gen, device=cuda) < 0.4
+    ops.fragment_bitmap(prov, bucket, 100)  # workspaces made outside the profile
+    ops.sketch_filter_rows(bucket, bits)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCH_COUNTS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.fragment_bitmap(prov, bucket, 100)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "bitmap_kernel" in names[0], names
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.sketch_filter_rows(bucket, bits)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [x for x in names if not x.startswith("Memcpy")]
+    assert len(kernels) == 1 and "filter_rows_kernel" in kernels[0], names
+    assert LAUNCH_COUNTS["fragment_bitmap"] == counts.get("fragment_bitmap", 0) + 1
+    assert LAUNCH_COUNTS["sketch_filter"] == counts.get("sketch_filter", 0) + 1
+    assert LAUNCH_COUNTS[ksf.ROWS_COUNTER] == counts.get(ksf.ROWS_COUNTER, 0) + 1
+
+
+def test_filter_probe_patches_apply():
+    """``kernels/filter_probe.py`` patches the two sources by text: every
+    patch still finds its anchor and each variant differs from the kernel."""
+    from repro_torch.kernels import filter_probe
+
+    for sources, name in ((filter_probe.all_patches(), "sketch_filter"),
+                          (filter_probe.all_bitmap_patches(), "fragment_bitmap")):
+        kernel = sources.pop("kernel")
+        assert kernel == (build.CSRC / f"{name}.cu").read_text()
+        assert sources and all(text != kernel for text in sources.values())

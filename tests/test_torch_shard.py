@@ -187,6 +187,38 @@ def test_non_matching_partition_routes_all_shards_exactly():
     assert sum(s.catalog.stats["instance_mask"] for s in tse.shards) == 3
 
 
+
+def test_shard_mask_branch_does_not_compact_on_the_host(monkeypatch):
+    """A shard's instance on another partition than the serving one takes
+    its rows from the kernel's compaction: no ``np.nonzero`` runs over the
+    shard's rows, and the result is the reference's."""
+    rdb, tdb = _crimes(N_ROWS, 5)
+    rq, tq = _having(R, rdb, ("year",), [0.8])[0], _having(T, tdb, ("year",), [0.8])[0]
+    rse, tse = _engines(rdb, tdb, n_shards=3)
+    real, instance = np.nonzero, tshard.FragmentShard._instance
+    inside = []
+
+    def guarded(a):
+        if inside and np.size(a) == inside[-1]:
+            raise AssertionError("np.nonzero over a shard's n-row mask")
+        return real(a)
+
+    def guarded_instance(self, key, ranges, bits):
+        inside.append(self.table.num_rows)
+        try:
+            return instance(self, key, ranges, bits)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(np, "nonzero", guarded)
+    monkeypatch.setattr(tshard.FragmentShard, "_instance", guarded_instance)
+    _run_both(rse, tse, rq, tq)
+    res, info = _run_both(rse, tse, rq, tq)
+    assert info.reused and sum(s.catalog.stats["instance_mask"] for s in tse.shards) == 3
+    assert res.canonical() == T.execute(tq, tse.db).canonical()
+    assert _snapshot(tse) == _snapshot(rse)
+
+
 def _crimes_rows(rng):
     batch = rdata.make_crimes(int(rng.integers(200, 800)), seed=int(rng.integers(1 << 30)))
     return {a: np.array(batch[a]) for a in batch.schema}

@@ -8,8 +8,11 @@ Phase 1 builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc
 its plain PyTorch version on the card at the main path's shapes and times
 both, the bandwidth bound and one PyTorch library call as a yardstick
 (sketch_filter also as the mask and kept rows of one launch at 5% and 40%
-kept, fragment_bitmap also at 32,768 ranges and as one kernel a call, each
-beside its device time from ``torch.profiler``).
+kept, fragment_bitmap also at 32,768 ranges and as one kernel a call,
+fragment_bitmap_batch as one kernel a call, segment_aggregate at the group
+pads 16 to 16,384, with sorted gids beside random ones up to 1,024 groups,
+each beside its device time from ``torch.profiler`` by kernel; and the f32
+flash-attention kernel and SDPA in turns on the same shapes).
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
@@ -88,12 +91,16 @@ KERNELS = (
 )
 N_SHARDS = 4
 SHARD_ATTR = "community"  # the partition phase 4's waves chose
-# segment_aggregate in phase 2: the executor's group pads (16, the cluster
-# kernel's narrowest width 2,048, the widest 16,384); the JSON row is the
-# widest.  segment_aggregate_batch's JSON row: (B, n, G) of a fused launch
-# whose group-bys pad to 128.
-SEGMENT_PADS = (16, 2048, 16384)
-SEGMENT_REPORTED = 16384
+# segment_aggregate in phase 2: the executor's group pads, (G, gid order):
+# the few-group kernel's at 16 and at the pads the engine's group-bys take
+# (128, 512, 1,024), each also with sorted gids (a table clustered on the
+# group-by), and the cluster kernel's narrowest width 2,048 and widest
+# 16,384; the JSON row is the widest.  segment_aggregate_batch's JSON row:
+# (B, n, G) of a fused launch whose group-bys pad to 128.
+SEGMENT_CASES = ((16, "random"), (128, "random"), (128, "sorted"), (512, "random"),
+                 (512, "sorted"), (1024, "random"), (1024, "sorted"), (2048, "random"),
+                 (16384, "random"))
+SEGMENT_REPORTED = (16384, "random")
 ROWS_COUNTER = "sketch_filter.rows"  # launches that also compact the kept rows
 BATCH_REPORTED = (8, 4 << 18, 128)
 
@@ -270,8 +277,9 @@ def phase_kernels(n: int, seed: int) -> dict:
     rows["sketch_filter"] = row
     del keep, kept, want, want_rows, again
 
-    # fragment_bitmap_batch: a wave's capture, B masks over one bucketization.
-    # The row is B = 8 (a pow2-padded burst of 5-8 thresholds); B = 32 is logged.
+    # fragment_bitmap_batch: a wave's capture, B masks over one bucketization,
+    # one kernel a call.  The row is B = 8 (a pow2-padded burst of 5-8
+    # thresholds); B = 32 is logged.
     for b in (32, 8):
         provs = torch.rand((b, n), generator=gen, device=dev) < 0.3
         # Each mask leaves its own fragments empty, so no two rows are alike.
@@ -285,6 +293,10 @@ def phase_kernels(n: int, seed: int) -> dict:
             require(torch.equal(got[i], ops.fragment_bitmap(provs[i], bucket, n_ranges)),
                     f"fragment_bitmap_batch (B={b}) row {i} disagrees with fragment_bitmap")
         require(bool(got.any()) and not bool(got.all()), "batch bitmap test is degenerate")
+        events = measure.device_events(torch, lambda: ops.fragment_bitmap_batch(
+            provs, bucket, n_ranges))
+        require(events == 1, f"fragment_bitmap_batch (B={b}) is {events} device events a call")
+        per = device_ms(lambda: ops.fragment_bitmap_batch(provs, bucket, n_ranges))
         provs_i = provs.to(torch.int32)
         index = bucket_l.expand(b, n)
         b_ms, b_by = bound(n * 4 + b * n + b * n_ranges, 0)
@@ -297,14 +309,18 @@ def phase_kernels(n: int, seed: int) -> dict:
                                .scatter_reduce_(1, index, provs_i, reduce="amax")),
         )
         log(f"[kernels] fragment_bitmap_batch n={n} n_ranges={n_ranges} B={b} bit-exact, "
-            f"rows equal to fragment_bitmap; {rows['fragment_bitmap_batch']}")
+            f"rows equal to fragment_bitmap; {events} kernel a call, device "
+            f"{sum(per.values()):.4f} ms {per}; {rows['fragment_bitmap_batch']}")
         del provs, provs_i, index, got, want
 
     # segment_aggregate: the executor's group pads, integral and normal values
-    # (G = 2,048 is the narrowest width of the cluster kernel, one slice).
+    # (G = 2,048 is the narrowest width of the cluster kernel, one slice),
+    # with device time by kernel beside index_add_'s.
     seg_err = 0.0
-    for g in SEGMENT_PADS:
+    for g, order in SEGMENT_CASES:
         gid = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+        if order == "sorted":
+            gid = gid.sort().values
         w = (torch.rand(n, generator=gen, device=dev) < 0.5).to(torch.float32)
         integral = torch.randint(0, 8, (n,), generator=gen, device=dev).to(torch.float32)
         s1, c1 = ops.segment_aggregate(integral, gid, g, w)
@@ -312,7 +328,7 @@ def phase_kernels(n: int, seed: int) -> dict:
         torch.cuda.synchronize()
         require(float(s2.max()) < ENVELOPE, "integral test sums left the 2^24 envelope")
         require(torch.equal(s1, s2) and torch.equal(c1, c2),
-                f"segment_aggregate (G={g}) is not bit-exact on integral inputs")
+                f"segment_aggregate (G={g}, {order}) is not bit-exact on integral inputs")
         # Normal values: rounding depends on the order of additions, so both
         # are held against a float64 sum, within 1e-5 of the group's sum of
         # |v * w| (the scale of float32 summation error).
@@ -327,13 +343,15 @@ def phase_kernels(n: int, seed: int) -> dict:
         err_k = float(((s1.double() - truth).abs() / scale.clamp_min(1e-30)).max())
         err_p = float(((s2.double() - truth).abs() / scale.clamp_min(1e-30)).max())
         require(err_k <= 1e-5 and err_p <= 1e-5,
-                f"segment_aggregate (G={g}) normal sums off: kernel {err_k:.2e}, plain {err_p:.2e}")
-        require(torch.equal(c1, c2), f"segment_aggregate (G={g}) counts differ")
+                f"segment_aggregate (G={g}, {order}) normal sums off: kernel {err_k:.2e}, plain "
+                f"{err_p:.2e}")
+        require(torch.equal(c1, c2), f"segment_aggregate (G={g}, {order}) counts differ")
         # The kernel adds in a fixed order: reruns give the same bits.
         for _ in range(3):
             s3, c3 = ops.segment_aggregate(normal, gid, g, w)
             require(torch.equal(s1, s3) and torch.equal(c1, c3),
-                    f"segment_aggregate (G={g}) gave other bits on a rerun of normal inputs")
+                    f"segment_aggregate (G={g}, {order}) gave other bits on a rerun of normal "
+                    f"inputs")
         diff = float((s1 - s2).abs().max())
         seg_err = max(seg_err, diff)
         vw2 = torch.stack([integral * w, w], dim=1)
@@ -342,21 +360,25 @@ def phase_kernels(n: int, seed: int) -> dict:
         b_ms, b_by = bound(n * 8 + nnz_w * 4 + g * 8, 3 * nnz_w)
         ms = time_ms(lambda: ops.segment_aggregate(integral, gid, g, w))
         card = card_state()
+        per = device_ms(lambda: ops.segment_aggregate(integral, gid, g, w))
+        yard = device_ms(lambda: out2.index_add_(0, gl, vw2))
         row = dict(
             max_abs_err=diff, ms=ms,
             plain_ms=time_ms(lambda: ref.segment_aggregate_ref(integral, gid, g, w)),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: out2.index_add_(0, gl, vw2)),
         )
-        log(f"[kernels] segment_aggregate n={n} G={g} integral bit-exact; normal "
+        log(f"[kernels] segment_aggregate n={n} G={g} {order} gids integral bit-exact; normal "
             f"rel err kernel {err_k:.2e} plain {err_p:.2e}, max |kernel-plain| {diff:.3e}, "
-            f"3 reruns bit-equal; kernel {ms:.4f} ms, index_add_ {row['library_ms']:.4f} ms "
+            f"3 reruns bit-equal; kernel {ms:.4f} ms, device {sum(per.values()):.4f} ms {per}; "
+            f"index_add_ {row['library_ms']:.4f} ms, device {sum(yard.values()):.4f} ms "
             f"(SM clock, power after the kernel: {card}); {row}")
-        if g == SEGMENT_REPORTED:
+        if (g, order) == SEGMENT_REPORTED:
             rows["segment_aggregate"] = row
     rows["segment_aggregate"]["max_abs_err"] = seg_err
     rows["segment_aggregate_batch"] = _kernel_segment_aggregate_batch(n, gen, rows)
     rows["flash_attention"] = _kernel_flash_attention(seed)
+    _flash_f32_pairs(seed)
     return rows
 
 
@@ -368,7 +390,7 @@ def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
     (phase 5's group-bys pad to 128-512)."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import measure, ops, ref
 
     dev = torch.device("cuda")
     out = None
@@ -407,6 +429,8 @@ def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
         b_ms, b_by = bound(b * n_b * 8 + nnz_w * 4 + b * g * 8, 3 * nnz_w)
         ms = time_ms(lambda: ops.segment_aggregate_batch(integral, gid, g, w))
         card = card_state()
+        per = {k: round(v, 5) for k, v in measure.device_ms(
+            torch, lambda: ops.segment_aggregate_batch(integral, gid, g, w)).items()}
         row = dict(
             max_abs_err=diff, ms=ms,
             plain_ms=time_ms(lambda: ref.segment_aggregate_batch_ref(integral, gid, g, w)),
@@ -416,8 +440,8 @@ def _kernel_segment_aggregate_batch(n: int, gen, rows: dict) -> dict:
         log(f"[kernels] segment_aggregate_batch B={b} n={n_b} G={g} integral bit-exact and "
             f"equal to segment_aggregate row by row; normal: 3 reruns bit-equal, rows equal "
             f"to the unbatched kernel, max |kernel-plain| {diff:.3e}; kernel {ms:.4f} ms, "
-            f"index_add_ {row['library_ms']:.4f} ms (SM clock, power after the kernel: "
-            f"{card}); {row}")
+            f"device {sum(per.values()):.4f} ms {per}; index_add_ {row['library_ms']:.4f} ms "
+            f"(SM clock, power after the kernel: {card}); {row}")
         if b == 1:
             log(f"[kernels] segment_aggregate_batch B=1 vs segment_aggregate at n={n} G={g}: "
                 f"{row['ms']:.4f} ms vs {rows['segment_aggregate']['ms']:.4f} ms")
@@ -547,6 +571,47 @@ def _kernel_flash_attention(seed: int) -> dict:
         torch.cuda.empty_cache()
     out["max_abs_err"] = worst
     return out
+
+
+# The f32 flash kernel (flash_fwd_kernel; the per-layer f32 check's) and
+# SDPA on the same shapes, in turns: (B, S, T, H, D), causal.  The Pallas
+# kernel's test grid's widest, the default serve's prefill and its
+# 2,048-token prompt, at stablelm-1.6b's heads.
+FLASH_F32_PAIRS = ((2, 96, 96, 3, 64), (16, 64, 64, 32, 64), (1, 2048, 2048, 32, 64))
+
+
+def _flash_f32_pairs(seed: int) -> None:
+    """Each FLASH_F32_PAIRS shape: the kernel within FLASH_TOL of the plain
+    version, then kernel, SDPA, kernel, SDPA: CUDA-event ms of a call and
+    device ms (``torch.profiler``) each time."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import measure, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    for b, s, t, h, d in FLASH_F32_PAIRS:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device=dev) for n in (s, t, t))
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        fns = {"kernel": lambda: flash_attention(q, k, v, causal=True, layout="bshd"),
+               "SDPA": lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)}
+        got = fns["kernel"]().transpose(1, 2)
+        want = ref.flash_attention_ref(qh, kh, vh, True, 0)
+        tol = FLASH_TOL["float32"]
+        require(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+                f"flash_attention f32 {(b, s, t, h, d)} disagrees with its plain version")
+        times = {who: [] for who in fns}
+        for who in ("kernel", "SDPA", "kernel", "SDPA"):
+            per = measure.device_ms(torch, fns[who])
+            times[who].append((time_ms(fns[who]), sum(per.values())))
+        log(f"[kernels] flash_attention f32 B={b} S={s} T={t} H={h} D={d} causal, in turns "
+            f"(event ms, device ms): " + "; ".join(
+                f"{who} " + ", ".join(f"({e:.4f}, {d_:.4f})" for e, d_ in vals)
+                for who, vals in times.items()) + f"; SM clock, power: {card_state()}")
+        del q, k, v, qh, kh, vh, got, want
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "segment_aggregate": {
-        "segagg_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _LL, _I, _LL]),
+        "segagg_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _I, _LL, _I, _LL]),
         "segagg_max_clusters": (_I, [_I, _I, _I, _LL]),
     },
     "fragment_bitmap": {
@@ -49,13 +49,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "filter_rows_launch": (_I, [_I, _P, _P, _P, _LL, _I, _P, _P, _P, _LL, _I, _LL]),
     },
     "fragment_bitmap_batch": {
-        "bitmap_batch_threads": (_I, []),
-        "bitmap_batch_masks_per_chunk": (_I, []),
-        "bitmap_batch_launch": (_I, [_I, _P, _P, _P, _LL, _I, _I, _P, _P, _I]),
+        "bitmap_batch_clusters": (_I, [_I, _I, _I]),
+        "bitmap_batch_launch": (_I, [_I, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _I]),
     },
     "segment_aggregate_batch": {
-        "segagg_batch_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _I, _LL, _I,
-                                     _LL]),
+        "segagg_batch_launch": (_I, [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _I, _LL,
+                                     _I, _LL]),
         "segagg_max_clusters": (_I, [_I, _I, _I, _LL]),
     },
     "flash_attention": {
@@ -153,17 +152,6 @@ def check(err: int, what: str) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
-
-
-def launch_config(n: int, threads: int, device) -> Tuple[int, int]:
-    """(device index, blocks) for a grid-stride kernel over ``n`` rows:
-    enough blocks to fill every SM (8 blocks of ``threads`` each), no more
-    than the rows need."""
-    import torch
-
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return index, max(1, min(8 * sms, -(-n // threads)))
 
 
 def stream_handle(device) -> int:

@@ -46,7 +46,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 16;  // four runs of 4
@@ -55,38 +59,6 @@ constexpr int kTile = kThreads * kRowsPerThread;
 constexpr int kCluster = 8;  // the portable maximum
 constexpr int kMaxRanges = 32768;
 constexpr int kMaxWords = kMaxRanges / 32;
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
-               ::: "memory");
-}
-
-// The word at `p`'s offset in the shared memory of CTA `rank` of the cluster.
-__device__ __forceinline__ uint32_t ld_cluster(const uint32_t* p, uint32_t rank) {
-  uint32_t v;
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %1, %2;\n"
-      "ld.shared::cluster.u32 %0, [remote];\n"
-      "}\n"
-      : "=r"(v)
-      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank)
-      : "memory");
-  return v;
-}
 
 // Four bits (bits 0-3 of m) as four bytes of 0 or 1.
 __device__ __forceinline__ uint32_t bytes_of(uint32_t m) {
@@ -158,7 +130,7 @@ bitmap_kernel(const int32_t* __restrict__ bucket, const uint8_t* __restrict__ pr
   const uint32_t rank = cluster_rank(), size = cluster_size();
   for (int w = rank * kThreads + threadIdx.x; w < n_words; w += size * kThreads) {
     uint32_t v = 0;
-    for (uint32_t r = 0; r < size; ++r) v |= ld_cluster(s_words + w, r);
+    for (uint32_t r = 0; r < size; ++r) v |= ld_shared_cluster(s_words + w, r);
     if (v) {
       atomicOr(&words[w], v);
       __threadfence();  // before the cluster's count below

@@ -98,6 +98,34 @@ __device__ __forceinline__ void cluster_sync() {
                ::: "memory");
 }
 
+// The 32-bit word at `p`'s offset in the shared memory of CTA `rank` of this
+// cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t ld_shared_cluster(const void* p, uint32_t rank) {
+  uint32_t v;
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.u32 %0, [remote];\n"
+      "}\n"
+      : "=r"(v)
+      : "r"(smem_u32(p)), "r"(rank)
+      : "memory");
+  return v;
+}
+
+// Store `v` at `p`'s offset in the shared memory of CTA `rank` of this cluster.
+__device__ __forceinline__ void st_shared_cluster(const void* p, uint32_t rank, uint32_t v) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "st.shared::cluster.u32 [remote], %2;\n"
+      "}\n" ::"r"(smem_u32(p)),
+      "r"(rank), "r"(v)
+      : "memory");
+}
+
 // ---- TMA ------------------------------------------------------------------
 
 // 1-D bulk copy of `bytes` from global memory to this CTA's shared memory at

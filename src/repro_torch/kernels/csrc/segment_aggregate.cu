@@ -17,12 +17,28 @@
 // added once, with no float atomics: the order of the additions depends only
 // on (n, n_groups, the plan), so reruns give equal bits on any input.
 //
-// Few groups (segagg_private, 2 * n_groups floats at most 8 KB): every warp
-// keeps its own sums and counts in shared memory and adds its own runs of 32
-// rows, several runs' loads in flight at once.  The lanes holding rows of one
-// group find each other with __match_any_sync; the lowest adds their rows in
-// lane order (fetched by shuffles), so a warp sums a group's rows in row
-// order.  The block adds its warps' copies in warp order into its partials.
+// Few groups (segagg_private, up to kPrivateGroups = 1,024): one launch a
+// call.  Every warp keeps copies of the sums and counts in shared memory
+// (copies_of: one a lane up to 16 groups, at most 512 groups' worth
+// together above: 4 at 128 groups, 1 from 512) and takes steps of 128
+// consecutive rows, 4 a lane as one 16-byte load of each array (4-byte
+// loads where a row of the input does not start on a 16-byte boundary: the
+// same rows a lane, so the same order of additions), the next kAhead
+// steps' loads in flight while a warp adds one.  A lane first sums its
+// consecutive rows of one group in row order; a segmented scan over the
+// lanes joins runs that cross lanes, so a step of one group (a table
+// clustered on the group-by) costs one add, and rows that add nothing do
+// not break a run (warp_step).  The runs left
+// are added into the lane's copy: directly where a lane has its own, else
+// through a byte tag a slot (in place when no two lanes of a copy hold one
+// group, else add_run, as segagg_sliced's adders do).  The block adds its
+// warps' copies in a fixed order; clusters of kPrivCluster blocks add
+// their blocks' sums through distributed shared memory into one partial
+// set a cluster; the cluster that finishes a row last (an atomic ticket in
+// a workspace the kernel leaves zero) adds the row's partial sets, each
+// output by up to a warp of threads in a fixed tree.  The grid is at most
+// the clusters that fit on the card at once, and gives each warp at least
+// kMinSteps steps of a row.
 //
 // Many groups (segagg_sliced): a thread-block cluster of C blocks sums one
 // chunk of rows, and block c owns the groups [c * slice, (c + 1) * slice)
@@ -65,13 +81,27 @@
 // segment that holds one of the array's elements lies inside its
 // allocation, so nothing outside it is read.
 //
-// Partials scale with the rows: a batch row gets `parts` chunks (the plan's,
-// a function of n, n_groups and the card, never of the batch), the clusters
-// of a chunk write its 2 * n_groups floats, and segagg_merge adds each
-// output's partials in part order with kMergeUnroll loads in flight.
+// Partials of segagg_sliced scale with the rows: a batch row gets `parts`
+// chunks (the plan's, a function of n, n_groups and the card, never of the
+// batch), the clusters of a chunk write its 2 * n_groups floats, and
+// segagg_merge adds each output's partials in part order with kMergeUnroll
+// loads in flight.
 //
-// What it reaches and what holds it back (PERF.md has the times, measured
-// by kernels/segagg_probe.py and chip_smoke.py): every block of a cluster
+// segagg_private on an H100 80GB HBM3 at 700 W (PERF.md,
+// kernels/segagg_probe.py --few; n = 2^23, half the weights zero, device
+// time, L2 warm): 0.048 ms at G = 16 and 0.057-0.066 at G = 128-1,024 on
+// random gids, 0.045-0.051 on sorted ones (the kernel it replaced:
+// 0.071-0.088 and 0.126-0.138), against a 0.025 bound.  The loads alone
+// take 0.034-0.040 (all 12 bytes a row, where the bound counts the values
+// of weighted rows only); the adds of random rows are issue-bound, about
+// 250 warp instructions a step, and do not hide under the loads (loading
+// one to three steps ahead did not change it); the two merges 0.004-0.007.
+// A copy a lane takes a third to a half less time than one copy a warp at
+// G = 16; byte tags 10-18% less than add_run's match from G = 128.
+// Registers (-Xptxas -v): 48-56 a thread, no spills.
+//
+// segagg_sliced: what it reaches and what holds it back (PERF.md has the
+// times, measured by kernels/segagg_probe.py and chip_smoke.py): every block of a cluster
 // still examines every row of the chunk, so the filter warps do C times the
 // rows' work (slices of 4,096 groups halve it against 2,048), and a stage
 // is refilled only after the slowest adder warp of the cluster is done with
@@ -79,7 +109,7 @@
 // of filter, adds, release and copy.  The copies and barriers alone take
 // about 60% of the kernel's time at n = 2^23, G = 16,384; a deeper ring
 // needs the shared memory the adders' copies use.
-// Registers (-Xptxas -v): about 50 a thread, no spills.
+// Registers (-Xptxas -v): 40 a thread, no spills.
 //
 // Shared memory of segagg_sliced (kStages = 3, kTileRows = 1,024): the ring
 // 37,008 bytes, 128 of barriers, 96 of the filter warps' counts, and per
@@ -101,11 +131,23 @@ using namespace hopper;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMergeThreads = 256;
 constexpr int kMergeUnroll = 8;
+constexpr int kFinalUnroll = 16;  // segagg_private's last cluster: partial sets loaded at once
 
-// segagg_private: 8 warps a block, each with kSteps runs of loads in flight.
+// segagg_private: clusters of kPrivCluster blocks of 8 warps, each warp
+// taking steps of kStepRows rows (4 a lane), the next kAhead steps' loads in
+// flight while it adds one, into copies_of(n_groups) copies of the sums a
+// warp.
 constexpr int kPrivThreads = 256;
 constexpr int kPrivWarps = kPrivThreads / 32;
-constexpr int kSteps = 2;
+constexpr int kPrivMinBlocks = 4;  // blocks an SM the registers must allow
+constexpr int kAhead = 1;  // steps a warp has loaded ahead of the one it adds
+constexpr int kStepRows = 128;
+constexpr int kPrivCluster = 8;
+constexpr int kClusterThreads = kPrivCluster * kPrivThreads;
+constexpr int kCopyGroups = 512;  // a warp's copies hold at most this many groups together
+constexpr int kPrivateGroups = 1024;  // the most groups segagg_private takes
+constexpr int kOutSlots = 2 * kPrivateGroups / kPrivThreads;  // outputs a thread sums, at most
+constexpr int kMinSteps = 8;  // steps of a row each warp takes, at least, where rows allow
 
 // segagg_sliced.
 constexpr int kTileRows = 1024;              // rows a ring stage holds
@@ -140,20 +182,66 @@ int slice_of(int n_groups, int cluster) {
   return even < kSliceMax ? (int)even : kSliceMax;
 }
 
-// Row i as (group or -1 when it adds nothing, value * weight, weight).
-__device__ __forceinline__ void load_row(const float* __restrict__ values,
-                                         const int32_t* __restrict__ gid,
-                                         const float* __restrict__ weights, int64_t i,
-                                         int64_t n, int n_groups, int32_t& k, float& p,
-                                         float& w) {
-  k = -1;
-  p = w = 0.f;
-  if (i < n) {
-    const int g = gid[i];
-    w = weights[i];
-    p = values[i] * w;
-    if ((unsigned)g < (unsigned)n_groups && !(w == 0.f && p == 0.f)) k = g;
+// Copies of the sums and counts a warp of segagg_private keeps: 32 (one a
+// lane, up to 16 groups), else the most (a power of two) that hold at most
+// kCopyGroups groups together; the 32 / copies lanes of a copy are
+// consecutive.  Copies cut the lanes that add to one group at once.
+__host__ __device__ constexpr int copies_of(int n_groups) {
+  int c = 1;
+  while (c < 32 && 2 * c * n_groups <= kCopyGroups) c *= 2;
+  return c;
+}
+
+// Dynamic shared bytes of segagg_private: each warp's copies, and unless a
+// lane has a copy of its own a byte tag a group and copy.
+constexpr size_t private_smem(int n_groups) {
+  const int gc = n_groups * copies_of(n_groups);
+  return (size_t)kPrivWarps * ((size_t)8 * gc + (copies_of(n_groups) < 32 ? ((gc + 15) & ~15) : 0));
+}
+
+// Rows 4q .. 4q + 3 of a row of the input, as loaded.
+struct Quad {
+  int4 g;
+  float4 v, w;
+};
+
+// kAligned: the row starts on a 16-byte boundary, so each array's four rows
+// are one 16-byte load (the last quad's segment may pass the row's end; a
+// 16-byte segment holding one of the array's elements lies inside its
+// allocation, and the gids read past the end are set to -1).  Else four
+// 4-byte loads each.  Quads at or past the row's end load nothing (gids -1).
+template <bool kAligned>
+__device__ __forceinline__ Quad load_quad(const float* __restrict__ values,
+                                          const int32_t* __restrict__ gid,
+                                          const float* __restrict__ weights, int64_t q,
+                                          int64_t n) {
+  Quad r;
+  r.g = make_int4(-1, -1, -1, -1);
+  r.v = r.w = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t i = 4 * q;
+  if (i >= n) return r;
+  if (kAligned) {
+    r.g = __ldg(reinterpret_cast<const int4*>(gid + i));
+    r.v = __ldg(reinterpret_cast<const float4*>(values + i));
+    r.w = __ldg(reinterpret_cast<const float4*>(weights + i));
+    if (i + 4 > n) {
+      if (i + 1 >= n) r.g.y = -1;
+      if (i + 2 >= n) r.g.z = -1;
+      r.g.w = -1;
+    }
+  } else {
+    int* g = &r.g.x;
+    float* v = &r.v.x;
+    float* w = &r.w.x;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i + j < n) {
+        g[j] = __ldg(gid + i + j);
+        v[j] = __ldg(values + i + j);
+        w[j] = __ldg(weights + i + j);
+      }
   }
+  return r;
 }
 
 // Three st.shared.b32 (a at pa, b at pb, c at pc) where p holds, with no
@@ -211,42 +299,6 @@ __device__ __forceinline__ void add_run(float* acc, int n_groups, int lane, int3
   __syncwarp();  // the next run's leader may be another lane of this warp
 }
 
-__global__ void __launch_bounds__(kPrivThreads)
-segagg_private(const float* __restrict__ values, const int32_t* __restrict__ gid,
-               const float* __restrict__ weights, int64_t n, int n_groups,
-               float* __restrict__ partials) {
-  extern __shared__ float smem[];  // kPrivWarps copies of (sums, counts)
-  values += (int64_t)blockIdx.y * n;
-  gid += (int64_t)blockIdx.y * n;
-  weights += (int64_t)blockIdx.y * n;
-  partials += (int64_t)blockIdx.y * gridDim.x * 2 * n_groups;
-  for (int j = threadIdx.x; j < kPrivWarps * 2 * n_groups; j += kPrivThreads) smem[j] = 0.f;
-  __syncthreads();
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* acc = smem + warp * 2 * n_groups;
-  const int64_t n_runs = (n + 31) / 32;
-  const int64_t stride = (int64_t)gridDim.x * kPrivWarps;  // this warp's runs: run0 + t * stride
-  int32_t rk[kSteps];
-  float rp[kSteps], rw[kSteps];
-  for (int64_t run0 = (int64_t)blockIdx.x * kPrivWarps + warp; run0 < n_runs;
-       run0 += kSteps * stride) {
-#pragma unroll
-    for (int u = 0; u < kSteps; ++u)
-      load_row(values, gid, weights, (run0 + u * stride) * 32 + lane, n, n_groups, rk[u],
-               rp[u], rw[u]);
-#pragma unroll
-    for (int u = 0; u < kSteps; ++u) add_run(acc, n_groups, lane, rk[u], rp[u], rw[u]);
-  }
-  __syncthreads();
-  float* out = partials + (int64_t)blockIdx.x * 2 * n_groups;
-  for (int j = threadIdx.x; j < 2 * n_groups; j += kPrivThreads) {
-    float t = 0.f;
-    for (int w = 0; w < kPrivWarps; ++w) t += smem[w * 2 * n_groups + j];
-    out[j] = t;
-  }
-}
-
 // add_run for a warp whose copy has a byte tag per group: when no two lanes
 // hold the same group (each reads back its own lane from its group's tag),
 // each adds its row in place, which is what add_run computes then; else
@@ -270,6 +322,258 @@ __device__ __forceinline__ void add_run_tagged(float* acc, uint8_t* tags, int n_
     acc[n_groups + k] = count + w;
   }
   __syncwarp();
+}
+
+// One round of adds: each lane's run (at slot k of its copy, or -1 for
+// none) into the warp's copies, whose sums are gc floats and counts gc
+// more; a slot's runs in lane order.  lanes: a copy a lane, no two lanes
+// share a slot.
+__device__ __forceinline__ void add_round(float* acc, uint8_t* tags, int gc, int lane, bool lanes,
+                                          int32_t k, float p, float w) {
+  if (lanes) {
+    if (k >= 0) {
+      acc[k] += p;
+      acc[gc + k] += w;
+    }
+    return;
+  }
+  if (!__any_sync(kFull, k >= 0)) return;
+  add_run_tagged(acc, tags, gc, lane, k, p, w);
+}
+
+// One warp adds a step of 128 consecutive rows, lane l holding rows 4l ..
+// 4l + 3 (k = -1 where a row adds nothing), into its copy.  Rows that add
+// nothing are passed over, so they do not break a run.
+//  - Each lane sums its rows in row order into runs of one group: its head
+//    run, its tail run (the same when the lane holds one group: "single"),
+//    and any between.
+//  - A segmented scan over the lanes (in a fixed tree order) joins each
+//    lane's tail run with the single lanes after it that continue its
+//    group, and lanes with no row pass it on: lane l's sp, sx is the open
+//    run of the step's rows up to its own, whose group is its last live
+//    row's.  Where no lane with rows continues a run (random gids, mostly)
+//    that is each live lane's own tail run, and the scan is skipped: adding
+//    +0.0 for the lanes without rows changes no bit of the sums.
+//  - Lane l takes the open run of the lanes before it (lane l - 1's scan)
+//    and walks its rows: a run closes where a row of another group
+//    follows, and is added then, in one of four rounds (a round for each
+//    row a lane holds; add_run orders each group's runs by lane).  Lane 31
+//    adds the step's last open run.
+// A run of one group over the whole step (a table clustered on the
+// group-by) is one add.  Group g of the lane's copy is slot g * copies +
+// copy (the copies interleaved, so a copy a lane has no bank conflicts).
+__device__ __forceinline__ void warp_step(float* acc, uint8_t* tags, int gc, int copies,
+                                          int copy, int lane, const int32_t (&k)[4],
+                                          const float (&p)[4], const float (&x)[4]) {
+  int32_t hk = -1, tk = -1;
+  bool single = true;
+  float tp = 0.f, tx = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (k[j] < 0) continue;
+    if (hk < 0) hk = k[j];
+    if (tk >= 0 && k[j] != tk) {
+      single = false;
+      tp = tx = 0.f;
+    }
+    tp += p[j];
+    tx += x[j];
+    tk = k[j];
+  }
+  const unsigned live = __ballot_sync(kFull, hk >= 0);
+  if (live == 0) return;
+  const unsigned before = live & ((1u << lane) - 1);
+  const int last_live = before ? 31 - __clz(before) : 0;  // the last lane before with rows
+  const int32_t prev = __shfl_sync(kFull, tk, last_live);
+  const int32_t in_key = before ? prev : -1;  // the open run's group as the lane begins
+  const bool joins = lane > 0 && (hk < 0 || (single && hk == in_key));
+  float cp, cx;  // the open run as the lane begins
+  if (__ballot_sync(kFull, hk >= 0 && joins) == 0) {
+    // No lane with rows continues a run from the lanes before it (the norm
+    // on random gids): each open run is the last live lane's tail run.
+    cp = __shfl_sync(kFull, tp, last_live);
+    cx = __shfl_sync(kFull, tx, last_live);
+  } else {
+    const unsigned heads = __ballot_sync(kFull, !joins);
+    const int head = 31 - __clz(heads & (kFull >> (31 - lane)));
+    float sp = tp, sx = tx;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float pu = __shfl_up_sync(kFull, sp, d), xu = __shfl_up_sync(kFull, sx, d);
+      if (lane - d >= head) {
+        sp += pu;
+        sx += xu;
+      }
+    }
+    cp = __shfl_up_sync(kFull, sp, 1);
+    cx = __shfl_up_sync(kFull, sx, 1);
+  }
+  int32_t ck = in_key;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool closes = k[j] >= 0 && ck >= 0 && ck != k[j];
+    const int32_t ek = closes ? ck : -1;
+    const float ep = cp, ex = cx;
+    if (k[j] >= 0) {
+      if (ck == k[j]) {
+        cp += p[j];
+        cx += x[j];
+      } else {
+        ck = k[j];
+        cp = p[j];
+        cx = x[j];
+      }
+    }
+    add_round(acc, tags, gc, lane, copies == 32, ek >= 0 ? ek * copies + copy : -1, ep, ex);
+  }
+  if (lane == 31 && ck >= 0) {
+    acc[ck * copies + copy] += cp;
+    acc[gc + ck * copies + copy] += cx;
+  }
+  __syncwarp();
+}
+
+// Gridded as (parts, batch) in clusters of kPrivCluster along x: block x of
+// batch row y takes the row's steps x * kPrivWarps + warp + t * (parts *
+// kPrivWarps) in order, each warp into its own copies of the
+// sums and counts in shared memory.  Then the block adds its warps' copies,
+// each output's in (warp, copy) order by a group of threads (a fixed
+// tree, as below); the cluster adds its blocks' in rank order through
+// distributed shared memory, block r the outputs r * kPrivThreads + t
+// (stepping by the cluster's threads), into the cluster's partials of the
+// row; and the cluster that finishes a row last (a ticket per row) adds the
+// row's parts / kPrivCluster partials into sums and counts: each output by
+// a group of tpo threads (as many as the cluster's threads allow, up to a
+// warp), thread i adding the partials i, i + tpo, ... in order, then a
+// butterfly over the group.  It sets the row's ticket back to 0.
+// kCopies: copies_of(n_groups), fixed at compile time (0: read at run time).
+template <bool kAligned, int kCopies>
+__global__ void __launch_bounds__(kPrivThreads, kPrivMinBlocks)
+segagg_private(const float* __restrict__ values, const int32_t* __restrict__ gid,
+               const float* __restrict__ weights, int64_t n, int n_groups,
+               float* __restrict__ partials, unsigned* __restrict__ tickets,
+               float* __restrict__ sums, float* __restrict__ counts) {
+  extern __shared__ __align__(16) float smem[];  // each warp's copies, then the tags
+  __shared__ uint32_t s_last;
+  const int row = blockIdx.y;
+  values += (int64_t)row * n;
+  gid += (int64_t)row * n;
+  weights += (int64_t)row * n;
+  const int copy = 2 * n_groups;  // outputs
+  const int copies = kCopies ? kCopies : copies_of(n_groups);
+  const int gc = n_groups * copies;
+  for (int j = threadIdx.x; j < kPrivWarps * 2 * gc; j += kPrivThreads) smem[j] = 0.f;
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* acc = smem + warp * 2 * gc;
+  uint8_t* tags = reinterpret_cast<uint8_t*>(smem + kPrivWarps * 2 * gc) + warp * ((gc + 15) & ~15);
+  const int my_copy = lane / (32 / copies);
+  const int64_t n_steps = (n + kStepRows - 1) / kStepRows;
+  const int64_t stride = (int64_t)gridDim.x * kPrivWarps;
+  // The warp's steps s0, s0 + stride, ... in order; kAhead steps' loads in
+  // flight while a step is added.
+  const int64_t s0 = (int64_t)blockIdx.x * kPrivWarps + warp;
+  Quad ahead[kAhead];
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u)
+    ahead[u] = load_quad<kAligned>(values, gid, weights, (s0 + u * stride) * 32 + lane, n);
+  for (int64_t s = s0; s < n_steps; s += stride) {
+    const Quad in = ahead[0];
+#pragma unroll
+    for (int u = 0; u + 1 < kAhead; ++u) ahead[u] = ahead[u + 1];
+    ahead[kAhead - 1] =
+        load_quad<kAligned>(values, gid, weights, (s + kAhead * stride) * 32 + lane, n);
+    const int g[4] = {in.g.x, in.g.y, in.g.z, in.g.w};
+    const float v[4] = {in.v.x, in.v.y, in.v.z, in.v.w};
+    const float w[4] = {in.w.x, in.w.y, in.w.z, in.w.w};
+    int32_t k[4];
+    float p[4], x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      p[j] = v[j] * w[j];
+      x[j] = w[j];
+      k[j] = (unsigned)g[j] < (unsigned)n_groups && !(x[j] == 0.f && p[j] == 0.f) ? g[j] : -1;
+    }
+    warp_step(acc, tags, gc, copies, my_copy, lane, k, p, x);
+  }
+  __syncthreads();
+  // The block's sums: output j of copy c of warp w is smem[w * 2 * gc + j *
+  // copies + c]; a group of tb threads (a power of two, at most a warp) adds
+  // each output's, thread i the values i, i + tb, ... in (warp, copy) order,
+  // then a butterfly.  They go to smem[j] once every thread has read.
+  int tb = 1;
+  while (tb < 32 && tb * 2 * copy <= kPrivThreads) tb *= 2;
+  const int values_a_output = kPrivWarps * copies;
+  float res[kOutSlots];
+#pragma unroll
+  for (int i = 0; i < kOutSlots; ++i) {
+    const int j = warp * (32 / tb) + i * (kPrivThreads / tb) + lane / tb;
+    float t = 0.f;
+    if (j - lane / tb < copy) {  // the warp's first output: uniform across the warp
+      if (j < copy)
+        for (int v = lane % tb; v < values_a_output; v += tb)
+          t += smem[(v / copies) * 2 * gc + j * copies + v % copies];
+      for (int d = tb / 2; d > 0; d >>= 1) t += __shfl_xor_sync(kFull, t, d);
+    }
+    res[i] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kOutSlots; ++i) {
+    const int j = warp * (32 / tb) + i * (kPrivThreads / tb) + lane / tb;
+    if (j < copy && lane % tb == 0) smem[j] = res[i];
+  }
+  cluster_sync();  // every block's smem[0, copy) holds its sums
+  const uint32_t rank = cluster_rank();
+  const int n_parts = gridDim.x / kPrivCluster;
+  const int64_t rows_parts = (int64_t)row * n_parts;
+  float* mine = partials + (rows_parts + cluster_id_x()) * copy;
+  for (int j = rank * kPrivThreads + threadIdx.x; j < copy; j += kClusterThreads) {
+    float t = __uint_as_float(ld_shared_cluster(smem + j, 0));
+#pragma unroll
+    for (uint32_t r = 1; r < kPrivCluster; ++r)
+      t += __uint_as_float(ld_shared_cluster(smem + j, r));
+    mine[j] = t;
+  }
+  __threadfence();  // the partials before the ticket
+  cluster_sync();   // every block's partials written; no remote reads of copy 0 after this
+  if (rank == 0 && threadIdx.x == 0) {
+    const uint32_t last = atomicAdd(&tickets[row], 1u) == (unsigned)n_parts - 1;
+    for (uint32_t r = 0; r < kPrivCluster; ++r) st_shared_cluster(&s_last, r, last);
+  }
+  cluster_sync();
+  if (!s_last) return;
+  __threadfence();
+  int tpo = 1;  // threads an output
+  while (tpo < 32 && tpo * 2 * copy <= kClusterThreads) tpo *= 2;
+  const int u = rank * kPrivThreads + threadIdx.x;
+  const int sub = lane % tpo;
+  const float* src = partials + rows_parts * copy;
+  for (int base = u / 32 * (32 / tpo); base < copy; base += kClusterThreads / tpo) {
+    const int j = base + lane / tpo;
+    float t = 0.f;
+    if (j < copy) {
+      int c = sub;
+      for (; c + (kFinalUnroll - 1) * tpo < n_parts; c += kFinalUnroll * tpo) {
+        float x[kFinalUnroll];
+#pragma unroll
+        for (int e = 0; e < kFinalUnroll; ++e) x[e] = __ldcg(src + (int64_t)(c + e * tpo) * copy + j);
+#pragma unroll
+        for (int e = 0; e < kFinalUnroll; ++e) t += x[e];
+      }
+      for (; c < n_parts; c += tpo) t += __ldcg(src + (int64_t)c * copy + j);
+    }
+    for (int d = tpo / 2; d > 0; d >>= 1) t += __shfl_xor_sync(kFull, t, d);
+    if (j < copy && sub == 0) {
+      if (j < n_groups) {
+        sums[(int64_t)row * n_groups + j] = t;
+      } else {
+        counts[(int64_t)row * n_groups + j - n_groups] = t;
+      }
+    }
+  }
+  if (rank == 0 && threadIdx.x == 0) tickets[row] = 0;
 }
 
 // Gridded as (parts * C, batch, windows) in clusters of C along x: cluster
@@ -541,34 +845,95 @@ cudaError_t sliced_config(int n_groups, int cluster, size_t smem, int parts, int
   return cudaSuccess;
 }
 
-// batch rows of n rows each; scratch holds batch * parts * 2 * n_groups
-// floats.  cluster == 0: segagg_private with `parts` blocks a row; else
-// segagg_sliced in clusters of `cluster` blocks with `smem` dynamic shared
-// bytes (the wrapper's plan; a mismatch with sliced_smem is refused), one
-// cluster per chunk of part_rows rows and window of groups.  Returns
-// cudaGetLastError() after both launches (0 on success).
+using PrivateKernel = void (*)(const float*, const int32_t*, const float*, int64_t, int, float*,
+                              unsigned*, float*, float*);
+
+// The instance for n_groups: rows 16-byte aligned with its copies fixed at
+// compile time (index 0-5), else 4-byte loads and copies read at run time
+// (index 6); the same order of additions either way.
+PrivateKernel private_kernel(bool aligned, int n_groups, int& index) {
+  if (!aligned) {
+    index = 6;
+    return segagg_private<false, 0>;
+  }
+  switch (copies_of(n_groups)) {
+    case 32: index = 5; return segagg_private<true, 32>;
+    case 16: index = 4; return segagg_private<true, 16>;
+    case 8: index = 3; return segagg_private<true, 8>;
+    case 4: index = 2; return segagg_private<true, 4>;
+    case 2: index = 1; return segagg_private<true, 2>;
+    default: index = 0; return segagg_private<true, 1>;
+  }
+}
+
+// The launch of segagg_private: `parts` blocks a row (whole clusters) and
+// the plan's shared bytes (refused unless private_smem).  The kernel's
+// shared-memory allowance is set once per device and instance.
+cudaError_t private_config(int n_groups, bool aligned, size_t smem, int parts, int batch,
+                           cudaStream_t s, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                           PrivateKernel& fn) {
+  if (n_groups < 1 || n_groups > kPrivateGroups || smem != private_smem(n_groups) ||
+      parts < kPrivCluster || parts % kPrivCluster != 0)
+    return cudaErrorInvalidValue;
+  int which = 0;
+  fn = private_kernel(aligned, n_groups, which);
+  static size_t set_smem[64][7] = {};  // per device and instance: the bytes already allowed
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64 || set_smem[device][which] < smem) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (device < 64) set_smem[device][which] = smem;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(parts, batch);
+  cfg.blockDim = dim3(kPrivThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kPrivCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// batch rows of n rows each.  cluster == 0: segagg_private, `parts` blocks
+// a row in clusters of kPrivCluster, scratch holding batch * parts /
+// kPrivCluster * 2 * n_groups floats and tickets `batch` zeros (left zero),
+// one launch.  Else segagg_sliced in clusters of `cluster` blocks with
+// `smem` dynamic shared bytes (the wrapper's plan; a mismatch with
+// sliced_smem is refused), one cluster per chunk of part_rows rows and
+// window of groups, scratch holding batch * parts * 2 * n_groups floats,
+// then segagg_merge.  Returns cudaGetLastError() after the launches (0 on
+// success).
 int segagg_run(int device, void* stream, const float* values, const int32_t* gid,
                const float* weights, long long n, int batch, int n_groups, float* sums,
-               float* counts, float* scratch, int parts, long long part_rows, int cluster,
-               long long smem) {
+               float* counts, float* scratch, unsigned* tickets, int parts, long long part_rows,
+               int cluster, long long smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
   if (cluster == 0) {
-    const size_t bytes = (size_t)kPrivWarps * 2 * n_groups * sizeof(float);
-    err = cudaFuncSetAttribute(segagg_private, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    segagg_private<<<dim3(parts, batch), kPrivThreads, bytes, s>>>(values, gid, weights, n,
-                                                                   n_groups, scratch);
-  } else {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    err = sliced_config(n_groups, cluster, (size_t)smem, parts, batch, s, cfg, attr);
+    const bool aligned = ((reinterpret_cast<uintptr_t>(values) | reinterpret_cast<uintptr_t>(gid) |
+                           reinterpret_cast<uintptr_t>(weights)) & 15) == 0 &&
+                         (batch == 1 || n % 4 == 0);
+    PrivateKernel fn;
+    err = private_config(n_groups, aligned, (size_t)smem, parts, batch, s, cfg, attr, fn);
     if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, segagg_sliced, values, gid, weights, (int64_t)n, n_groups,
-                               slice_of(n_groups, cluster), (int64_t)part_rows, scratch);
+      err = cudaLaunchKernelEx(&cfg, fn, values, gid, weights, (int64_t)n, n_groups, scratch,
+                               tickets, sums, counts);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
   }
+  err = sliced_config(n_groups, cluster, (size_t)smem, parts, batch, s, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, segagg_sliced, values, gid, weights, (int64_t)n, n_groups,
+                             slice_of(n_groups, cluster), (int64_t)part_rows, scratch);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -584,21 +949,30 @@ int segagg_run(int device, void* stream, const float* values, const int32_t* gid
 extern "C" int segagg_launch(int device, void* stream, const float* values,
                              const int32_t* gid, const float* weights, long long n,
                              int n_groups, float* sums, float* counts, float* scratch,
-                             int parts, long long part_rows, int cluster, long long smem) {
+                             unsigned* tickets, int parts, long long part_rows, int cluster,
+                             long long smem) {
   return segagg_run(device, stream, values, gid, weights, n, 1, n_groups, sums, counts,
-                    scratch, parts, part_rows, cluster, smem);
+                    scratch, tickets, parts, part_rows, cluster, smem);
 }
 
-// How many clusters of segagg_sliced's shape can be resident on the device
-// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+// How many clusters can be resident on the device at once
+// (cudaOccupancyMaxActiveClusters): of segagg_private for n_groups when
+// cluster == 0 (smem its private_smem), else of segagg_sliced's shape; or
+// minus a CUDA error code.
 extern "C" int segagg_max_clusters(int device, int n_groups, int cluster, long long smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  err = sliced_config(n_groups, cluster, (size_t)smem, 1, 1, 0, cfg, attr);
-  cfg.gridDim.z = 1;  // one window: the clusters of one shape, whatever the width
   int count = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&count, segagg_sliced, &cfg);
+  if (cluster == 0) {
+    PrivateKernel fn;
+    err = private_config(n_groups, true, (size_t)smem, kPrivCluster, 1, 0, cfg, attr, fn);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&count, fn, &cfg);
+  } else {
+    err = sliced_config(n_groups, cluster, (size_t)smem, 1, 1, 0, cfg, attr);
+    cfg.gridDim.z = 1;  // one window: the clusters of one shape, whatever the width
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&count, segagg_sliced, &cfg);
+  }
   return err == cudaSuccess ? count : -(int)err;
 }

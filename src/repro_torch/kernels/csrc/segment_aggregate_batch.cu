@@ -28,14 +28,13 @@
 #include "segment_aggregate.cu"
 
 // batch rows of n rows each, row b at values + b * n (likewise gid and
-// weights); sums and counts are (batch, n_groups); scratch holds
-// batch * parts * 2 * n_groups floats.  The plan's arguments as in
-// segagg_launch.
+// weights); sums and counts are (batch, n_groups); scratch and tickets as
+// segagg_run sizes them.  The plan's arguments as in segagg_launch.
 extern "C" int segagg_batch_launch(int device, void* stream, const float* values,
                                    const int32_t* gid, const float* weights, long long n,
                                    int batch, int n_groups, float* sums, float* counts,
-                                   float* scratch, int parts, long long part_rows, int cluster,
-                                   long long smem) {
+                                   float* scratch, unsigned* tickets, int parts,
+                                   long long part_rows, int cluster, long long smem) {
   return segagg_run(device, stream, values, gid, weights, n, batch, n_groups, sums, counts,
-                    scratch, parts, part_rows, cluster, smem);
+                    scratch, tickets, parts, part_rows, cluster, smem);
 }

@@ -116,6 +116,8 @@ def build_variants(name: str, sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]
     for i, (label, text) in enumerate(sources.items()):
         vdir = build.BUILD_DIR / "probe" / f"{name}_{i}"
         vdir.mkdir(parents=True, exist_ok=True)
+        for header in build.CSRC.glob("*.cuh"):
+            (vdir / header.name).write_text(header.read_text())
         (vdir / f"{name}.cu").write_text(text)
         so = vdir / f"{name}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(vdir / f"{name}.cu")]

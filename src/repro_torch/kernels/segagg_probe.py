@@ -97,9 +97,9 @@ def no_merge(src: str) -> str:
 
 def merge_only(src: str) -> str:
     """The merge alone, over whatever the scratch holds."""
-    return _cut(src, "  if (cluster == 0) {\n    const size_t bytes",
+    return _cut(src, "  err = sliced_config(n_groups, cluster, (size_t)smem, parts, batch, s, cfg, attr);",
                 "  if (err != cudaSuccess) return (int)err;\n  err = cudaGetLastError();",
-                "  err = cudaSuccess;\n  (void)smem;\n  (void)part_rows;\n")
+                "  err = cudaSuccess;\n  (void)part_rows;\n")
 
 
 _ADD = "        add_run_tagged(acc, tags, slice, lane, in ? sg[at] : -1, sv[at], sx[at]);\n"
@@ -249,6 +249,80 @@ VARIANTS: Dict[str, Callable[[str], str]] = {
     "ballots only": ballots_only,
 }
 
+# ---- the few-group path (segagg_private, up to 1,024 groups), --few ---------
+
+
+def few_no_final(src: str) -> str:
+    """No last-cluster merge: each cluster writes its partial set and takes
+    its ticket; the last resets the ticket and stops."""
+    return _sub(src, "  if (!s_last) return;\n",
+                "  if (!s_last) return;\n  if (rank == 0 && threadIdx.x == 0) tickets[row] = 0;\n"
+                "  if (n_groups > 0) return;\n")
+
+
+def few_main_only(src: str) -> str:
+    """The main pass and the block's sum of its warps' copies alone: no
+    cluster merge, no ticket, no final merge."""
+    return _sub(src, "  cluster_sync();  // every block's smem[0, copy) holds its sums\n",
+                "  if (n_groups > 0) {\n    if (threadIdx.x == 0) partials[blockIdx.x] = smem[0];\n"
+                "    return;\n  }\n  cluster_sync();  // every block's smem[0, copy) holds its sums\n")
+
+
+def few_no_adds(src: str) -> str:
+    """Runs found and joined, never added (a test the compiler cannot fold
+    keeps them)."""
+    src = _sub(src, "    add_round(acc, tags, gc, lane, copies == 32, ek >= 0 ? ek * copies + copy : -1, ep, ex);\n",
+               "    if (ek == -7) acc[lane] += ep + ex;\n")
+    return _sub(src, "  if (lane == 31 && ck >= 0) {", "  if (lane == 31 && ck == -7) {")
+
+
+def few_loads_only(src: str) -> str:
+    """Rows loaded and filtered, nothing else (the main pass alone)."""
+    src = _sub(src, "    warp_step(acc, tags, gc, copies, my_copy, lane, k, p, x);\n",
+               "    if ((k[0] & k[1] & k[2] & k[3]) == -7)\n"
+               "      acc[lane] += p[0] + p[1] + p[2] + p[3] + x[0] + x[1] + x[2] + x[3];\n")
+    return few_main_only(src)
+
+
+def _own_smem(src: str) -> str:
+    """The launch takes the patched source's shared bytes, not the plan's."""
+    return _sub(src, "n_groups > kPrivateGroups || smem != private_smem(n_groups) ||",
+                "n_groups > kPrivateGroups || (smem = private_smem(n_groups), false) ||")
+
+
+def few_one_copy(src: str) -> str:
+    """One copy of the sums a warp at every width."""
+    return _own_smem(_sub(src, "  while (c < 32 && 2 * c * n_groups <= kCopyGroups) c *= 2;\n",
+                          "  while (false) c *= 2;\n"))
+
+
+def few_copies_1024(src: str) -> str:
+    """Copies a warp up to 1,024 groups' worth together (twice as many)."""
+    return _own_smem(_sub(src, "constexpr int kCopyGroups = 512;",
+                          "constexpr int kCopyGroups = 1024;"))
+
+
+def _unroll(steps: int) -> Callable[[str], str]:
+    return lambda src: _sub(src, "constexpr int kAhead = 1;", f"constexpr int kAhead = {steps};")
+
+
+FEW_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "kernel": lambda src: src,
+    "no final merge": few_no_final,
+    "main pass alone": few_main_only,
+    "no adds": lambda src: few_main_only(few_no_adds(src)),
+    "loads only": few_loads_only,
+    "no tags": lambda src: _sub(src, "  add_run_tagged(acc, tags, gc, lane, k, p, w);\n",
+                                "  add_run(acc, gc, lane, k, p, w);\n"),
+    "one copy a warp": few_one_copy,
+    "scan every step": lambda src: _sub(
+        src, "  if (__ballot_sync(kFull, hk >= 0 && joins) == 0) {", "  if (false) {"),
+    "copies to 1,024 groups": few_copies_1024,
+    "2 steps ahead": _unroll(2),
+    "3 steps ahead": _unroll(3),
+}
+TIMING_ONLY = {"no final merge", "main pass alone", "no adds", "loads only"}
+
 
 def all_patches() -> Dict[str, str]:
     """Every patched source of this tree by name (no build): what the CPU
@@ -259,12 +333,18 @@ def all_patches() -> Dict[str, str]:
     return out
 
 
-def _build() -> Dict[str, Dict[str, ctypes.CDLL]]:
+def all_few_patches() -> Dict[str, str]:
+    """Every patched source of the few-group variants by name (no build)."""
+    src = SOURCE.read_text()
+    return {name: patch(src) for name, patch in FEW_VARIANTS.items()}
+
+
+def _build(sources: Dict[str, str], tag: str = "segagg") -> Dict[str, Dict[str, ctypes.CDLL]]:
     """Every patched source, built twice, as the unbatched and the batched
     library (the batched source includes the unbatched one), all at once."""
     jobs = []
-    for i, (name, text) in enumerate(all_patches().items()):
-        vdir = PROBE_DIR / f"segagg_{i}"
+    for i, (name, text) in enumerate(sources.items()):
+        vdir = PROBE_DIR / f"{tag}_{i}"
         vdir.mkdir(parents=True, exist_ok=True)
         for dep in build.CSRC.iterdir():
             if dep.suffix in (".cu", ".cuh"):
@@ -345,7 +425,7 @@ def _call(b, vals, gid, w, g):
     return ksa.segment_aggregate_batch(vals, gid, g, w)
 
 
-def _device_ms(torch, fn, calls: int) -> Dict[str, float]:
+def _device_ms(torch, fn, calls: int, before: Callable = None) -> Dict[str, float]:
     """Device milliseconds a call of ``fn`` by kernel, from ``torch.profiler``
     over ``calls`` calls after warm-ups: each kernel's duration summed over
     its launches.  Empty if the profiler saw no device activity."""
@@ -356,6 +436,8 @@ def _device_ms(torch, fn, calls: int) -> Dict[str, float]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     per: Dict[str, float] = {}
@@ -377,12 +459,163 @@ def _device_line(torch, label: str, fn, calls: int) -> str:
             f" event - device {event - total:.4f} ms")
 
 
+# label -> (B or 0, n, G, gid order)
+FEW_SHAPES = {
+    **{f"k1 n=2^23 G={g} {order}": (0, 1 << 23, g, order)
+       for g in (16, 128, 512, 1024) for order in ("random", "sorted")},
+    "k5 B=8 n=2^20 G=128 random": (8, 1 << 20, 128, "random"),
+}
+FEW_HOST = ((0, 4096, 16), (8, 4096, 128))
+
+
+def _few_inputs(torch, dev):
+    """Half the weights zero, integral values; sorted gids stand for a table
+    clustered on the group-by."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for label, (b, n, g, order) in FEW_SHAPES.items():
+        rows = max(b, 1)
+        gid = torch.randint(0, g, (rows, n), generator=gen, device=dev, dtype=torch.int32)
+        if order == "sorted":
+            gid = gid.sort(dim=1).values
+        vals = torch.randint(0, 8, (rows, n), generator=gen, device=dev).float()
+        w = (torch.rand((rows, n), generator=gen, device=dev) < 0.5).float()
+        if b == 0:
+            gid, vals, w = gid[0], vals[0], w[0]
+        out[label] = (b, vals, gid, w, g)
+    return out
+
+
+_FLUSH = []
+
+
+def _evict(torch):
+    """A 64 MB device-to-device copy, which evicts the 50 MB L2."""
+    if not _FLUSH:
+        src = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+        _FLUSH.append((src, torch.empty_like(src)))
+    src, dst = _FLUSH[0]
+    dst.copy_(src)
+
+
+def _split(per: Dict[str, float]) -> str:
+    return ", ".join(f"{name} {ms:.4f}" for name, ms in sorted(per.items())) or "no events"
+
+
+def _timed(torch, fn, cold: bool, calls: int = 20):
+    """(event ms, {kernel: device ms}) of a call, L2 warm or evicted."""
+    before = (lambda: _evict(torch)) if cold else None
+    per = _device_ms(torch, fn, calls, before=before)
+    per.pop("Memcpy DtoD (Device -> Device)", None)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        if before:
+            before()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[calls // 2], per
+
+
+def few(torch) -> None:
+    """The few-group path: variants, device time split by kernel (warm and
+    evicted) beside index_add_'s, host µs a call."""
+    dev = torch.device("cuda")
+    libs = _build(all_few_patches(), "few")
+    data = _few_inputs(torch, dev)
+    names = ("segment_aggregate", "segment_aggregate_batch")
+    kept_libs = {k: build._LIBS.get(k) for k in names}
+    try:
+        for rnd in range(2):
+            for name in (list(FEW_VARIANTS) if rnd == 0 else list(FEW_VARIANTS)[::-1]):
+                build._LIBS.update(libs[name])
+                for cold in (False, True):
+                    times = []
+                    for label, x in data.items():
+                        _, per = _timed(torch, lambda: _call(*x), cold)
+                        times.append(f"{label} {sum(per.values()):.4f}")
+                    print(f"[few variants] round {rnd}, {name}, {'evicted' if cold else 'warm'}"
+                          f" L2, device ms: " + "; ".join(times), flush=True)
+        build._LIBS.update(libs["kernel"])
+        for label, (b, vals, gid, w, g) in data.items():
+            rows = max(b, 1)
+            flat = (gid.reshape(rows, -1).long()
+                    + g * torch.arange(rows, device=dev)[:, None]).reshape(-1)
+            vw = torch.stack([(vals * w).reshape(-1), w.reshape(-1)], 1)
+            out2 = torch.zeros(rows * g, 2, device=dev)
+            for cold in (False, True):
+                for who, fn in (("kernel", lambda: _call(b, vals, gid, w, g)),
+                                ("index_add_", lambda: out2.index_add_(0, flat, vw))):
+                    event, per = _timed(torch, fn, cold, calls=20 if who == "kernel" else 5)
+                    print(f"[few device] {label}, {'evicted' if cold else 'warm'} L2, {who}: "
+                          f"event {event:.4f} ms, device {sum(per.values()):.4f} ms "
+                          f"({_split(per)})", flush=True)
+            del flat, vw, out2
+    finally:
+        for k, v in kept_libs.items():
+            if v is None:
+                build._LIBS.pop(k, None)
+            else:
+                build._LIBS[k] = v
+    _host(torch, FEW_HOST)
+
+
+def paired_main(torch, parent: str) -> None:
+    """The parent tree at ``parent`` (a checkout's root) and this one in
+    turns, each in processes of its own: device ms of the few-group shapes
+    and of segagg_sliced's rows (G = 2,048 and 16,384 at n = 2^23, phase
+    5's fused launch)."""
+    from pathlib import Path
+
+    from repro_torch.kernels import measure
+
+    cases = [dict(kind="segment", label=label, b=b, n=n, g=g, order=order)
+             for label, (b, n, g, order) in FEW_SHAPES.items()]
+    cases += [dict(kind="segment", label=f"k1 n=2^23 G={g} random", b=0, n=1 << 23, g=g,
+                   order="random") for g in (2048, 16384)]
+    cases.append(dict(kind="segment", label="phase-5 launch B=16 n=4x2^21 G=4096", b=16,
+                      n=4 << 21, g=4096, order="phase5"))
+    here = Path(__file__).resolve().parents[3]
+    runs = measure.paired([Path(parent).resolve(), here], cases)
+    for tree, per in runs.items():
+        for label, ms in per.items():
+            print(f"[paired] {'this tree' if Path(tree) == here else 'parent'}, {label}: "
+                  f"device ms warm {', '.join(f'{m[0]:.4f}' for m in ms)}; evicted "
+                  f"{', '.join(f'{m[1]:.4f}' for m in ms)}", flush=True)
+
+
 def main() -> int:
     import torch
 
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--few", action="store_true",
+                        help="the few-group path (up to 1,024 groups) instead of the sliced one")
+    parser.add_argument("--paired", metavar="TREE",
+                        help="time this tree against the checkout at TREE, in turns")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("segagg_probe: no CUDA device")
+    if args.paired:
+        paired_main(torch, args.paired)
+    elif args.few:
+        few(torch)
+    else:
+        sliced(torch)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    return 0
+
+
+def sliced(torch) -> None:
     dev = torch.device("cuda")
-    libs = _build()
+    libs = _build(all_patches())
     data = _inputs(torch, dev)
     names = ("segment_aggregate", "segment_aggregate_batch")
     kept_libs = {k: build._LIBS.get(k) for k in names}
@@ -428,61 +661,63 @@ def main() -> int:
             print(f"[device] {label}, " + _device_line(
                 torch, "index_add_", lambda: out2.index_add_(0, flat, vw), calls), flush=True)
             del flat, vw, out2
-        # Host time of a launch: small launches in a loop, one synchronise;
-        # the wrapper whole, then its parts (the argument checks, the three
-        # allocations, the C call with its two launches), and index_add_.
-        from repro_torch.kernels import segment_aggregate as ksa
-
-        gen = torch.Generator(device=dev).manual_seed(4)
-        for b, n, g in ((0, 4096, 4096), (16, 4096, 4096)):
-            rows = max(b, 1)
-            gid = torch.randint(0, g, (rows, n), generator=gen, device=dev, dtype=torch.int32)
-            w = torch.ones((rows, n), device=dev)
-            x = (b, w, gid, w, g) if b else (0, w[0], gid[0], w[0], g)
-            out2 = torch.zeros(rows * g, 2, device=dev)
-            flat = (gid.long() + g * torch.arange(rows, device=dev)[:, None]).reshape(-1)
-            vw = torch.stack([w.reshape(-1), w.reshape(-1)], 1)
-            name = ksa.BATCH_NAME if b else ksa.NAME
-            index, plan = ksa._plan_on(dev, name, n, g)
-            shape = (b, g) if b else (g,)
-            bufs = ksa._buffers(dev, shape, plan)
-            ptrs = [t.data_ptr() for t in (x[1], x[2], x[3], *bufs)]
-            tail = (plan.parts, plan.part_rows, plan.cluster, plan.smem)
-            stream = build.stream_handle(dev)
-            sizes = (n, b, g) if b else (n, g)
-            launch = getattr(build.library(name),
-                             "segagg_batch_launch" if b else "segagg_launch")
-
-            def c_call():
-                return launch(index, stream, *ptrs[:3], *sizes, *ptrs[3:], *tail)
-
-            def checks():
-                for t in x[1:4]:
-                    build.check_tensor(t, "t", t.dtype, t.device, t.shape)
-
-            for label, fn in (("kernel", lambda: _call(*x)), ("of it the checks", checks),
-                              ("of it the allocations", lambda: ksa._buffers(dev, shape, plan)),
-                              ("of it the C call and launches", c_call),
-                              ("index_add_", lambda: out2.index_add_(0, flat, vw))):
-                for _ in range(50):
-                    fn()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(2000):
-                    fn()
-                torch.cuda.synchronize()
-                print(f"[host] {label}, B={b or 'unbatched'} n={n} G={g}: "
-                      f"{(time.perf_counter() - t0) / 2000 * 1e6:.1f} us a call", flush=True)
     finally:
         for k, v in kept_libs.items():
             if v is None:
                 build._LIBS.pop(k, None)
             else:
                 build._LIBS[k] = v
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip())
-    return 0
+    _host(torch, ((0, 4096, 4096), (16, 4096, 4096)))
+
+
+def _host(torch, shapes) -> None:
+    """Host time of a launch: small launches in a loop, one synchronise;
+    the wrapper whole, then its parts (the argument checks; the sums and
+    counts, one allocation split in two, beside two allocations; the C call
+    with its launches), and index_add_."""
+    from repro_torch.kernels import segment_aggregate as ksa
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for b, n, g in shapes:
+        rows = max(b, 1)
+        gid = torch.randint(0, g, (rows, n), generator=gen, device=dev, dtype=torch.int32)
+        w = torch.ones((rows, n), device=dev)
+        x = (b, w, gid, w, g) if b else (0, w[0], gid[0], w[0], g)
+        out2 = torch.zeros(rows * g, 2, device=dev)
+        flat = (gid.long() + g * torch.arange(rows, device=dev)[:, None]).reshape(-1)
+        vw = torch.stack([w.reshape(-1), w.reshape(-1)], 1)
+        name = ksa.BATCH_NAME if b else ksa.NAME
+        index, plan = ksa._plan_on(dev, name, n, g)
+        shape = (b, g) if b else (g,)
+        sums, counts = ksa._buffers(dev, shape)
+        lib = build.library(name)
+        fn = lib.segagg_batch_launch if b else lib.segagg_launch
+        sizes = (n, b, g) if b else (n, g)
+        ptrs = [t.data_ptr() for t in x[1:4]]
+
+        def c_call():
+            return ksa._launch(fn, dev, index, plan, rows, g, sums, counts, *ptrs, *sizes)
+
+        def checks():
+            for t in x[1:4]:
+                build.check_tensor(t, "t", t.dtype, t.device, t.shape)
+
+        for label, call in (("kernel", lambda: _call(*x)), ("of it the checks", checks),
+                            ("of it the allocation", lambda: ksa._buffers(dev, shape)),
+                            ("two allocations", lambda: (torch.empty(shape, device=dev),
+                                                         torch.empty(shape, device=dev))),
+                            ("of it the C call and launches", c_call),
+                            ("index_add_", lambda: out2.index_add_(0, flat, vw))):
+            for _ in range(50):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                call()
+            torch.cuda.synchronize()
+            print(f"[host] {label}, B={b or 'unbatched'} n={n} G={g}: "
+                  f"{(time.perf_counter() - t0) / 2000 * 1e6:.1f} us a call", flush=True)
 
 
 if __name__ == "__main__":

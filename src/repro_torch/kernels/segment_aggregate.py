@@ -8,16 +8,21 @@ built and what bounds them.  A CPU tensor goes to the plain version
 CUDA tensor goes to the kernel, or the call raises.
 
 :func:`plan` fixes the launch, and with it the order of the float
-additions: per-warp copies of the partials in 256-thread blocks up to
-``PRIVATE_GROUPS`` groups; above, clusters of blocks that each own a slice
-of the groups, one cluster per chunk of rows and window of at most
-``WINDOW_GROUPS`` groups.  It mirrors the source's constants
-(``tests/test_torch_kernels.py`` reads them from the source).
+additions: up to ``PRIVATE_GROUPS`` groups, one launch of clusters of
+``PRIV_CLUSTER`` 256-thread blocks with per-warp copies of the sums, as
+many clusters as the card holds at once (fewer when the rows are few), the
+last cluster of a row adding the clusters' partial sets; above, clusters of
+blocks that each own a slice of the groups, one cluster per chunk of rows
+and window of at most ``WINDOW_GROUPS`` groups, then a merge launch.  It
+mirrors the source's constants (``tests/test_torch_kernels.py`` reads them
+from the source).  The partial sets and the private kernel's tickets live
+in a workspace per device and stream (:class:`_Workspace`), grown to the
+largest call seen, so a call allocates only its sums and counts.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,11 +32,20 @@ from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "segment_aggregate"
 BATCH_NAME = "segment_aggregate_batch"
-# Few groups (segagg_private): 256-thread blocks, every warp with its own
-# copy of the partials (8 copies of 2 * n_groups floats, at most 64 KB),
-# loading 2 runs of 32 rows at a time.
+# Few groups (segagg_private): clusters of PRIV_CLUSTER blocks of 256
+# threads, every warp with copies_of(n_groups) copies of the sums (2 *
+# n_groups floats each, together at most COPY_GROUPS groups' worth or one
+# copy, so at most 64 KB a block, and a byte tag a slot unless a lane has a
+# copy of its own), taking steps of STEP_ROWS rows, 4 a lane, at least
+# MIN_STEPS a warp where the rows allow; the registers allow
+# PRIV_MIN_BLOCKS blocks an SM.
 PRIV_THREADS = 256
-PRIV_ROWS = PRIV_THREADS * 2
+PRIV_WARPS = PRIV_THREADS // 32
+STEP_ROWS = 128
+PRIV_CLUSTER = 8
+PRIV_MIN_BLOCKS = 4
+COPY_GROUPS = 512
+MIN_STEPS = 8
 PRIVATE_GROUPS = 1024
 # Many groups (segagg_sliced): tiles of TILE_ROWS rows stream into a ring of
 # STAGES stages (each array of a stage has TILE_ROWS + 4 words: the 16-byte
@@ -61,12 +75,14 @@ PARTIALS_SHARE = 4
 
 class Plan(NamedTuple):
     """How a launch sums each batch row (the same for every row and every
-    batch size): ``parts`` partial sets the merge adds in order, each from
-    a block (``cluster == 0``, segagg_private) or from ``windows`` clusters
-    of ``cluster`` blocks over ``part_rows`` rows, block c of window z
-    owning the groups [(z * cluster + c) * slice, ... + slice) with ADDERS
+    batch size).  ``cluster == 0`` (segagg_private): ``parts`` blocks a row
+    in clusters of PRIV_CLUSTER, each cluster one partial set, the last
+    cluster adding the ``parts // PRIV_CLUSTER`` sets in a fixed tree.  Else
+    ``parts`` partial sets the merge adds in order, each from ``windows``
+    clusters of ``cluster`` blocks over ``part_rows`` rows, block c of window
+    z owning the groups [(z * cluster + c) * slice, ... + slice) with ADDERS
     adder warps (beside FILTERS filter warps and a producer) and a ring of
-    ``stages`` stages, in ``smem`` dynamic shared bytes a block."""
+    ``stages`` stages.  ``smem``: dynamic shared bytes a block."""
     parts: int
     part_rows: int
     cluster: int
@@ -74,6 +90,38 @@ class Plan(NamedTuple):
     windows: int
     stages: int
     smem: int
+
+
+def copies_of(n_groups: int) -> int:
+    """Copies of the sums a warp of segagg_private keeps (the source's
+    ``copies_of``): one a lane up to 16 groups, else the most (a power of
+    two) that hold at most COPY_GROUPS groups together."""
+    c = 1
+    while c < 32 and 2 * c * n_groups <= COPY_GROUPS:
+        c *= 2
+    return c
+
+
+def private_smem(n_groups: int) -> int:
+    """Dynamic shared bytes of segagg_private (the source's ``private_smem``)."""
+    gc = n_groups * copies_of(n_groups)
+    tags = -(-gc // 16) * 16 if copies_of(n_groups) < 32 else 0
+    return PRIV_WARPS * (8 * gc + tags)
+
+
+def merge_threads(n_groups: int) -> int:
+    """Threads that add each of segagg_private's 2 * n_groups outputs in the
+    last cluster (a power of two, at most a warp, all within the cluster's
+    threads; the source's ``tpo``)."""
+    tpo = 1
+    while tpo < 32 and tpo * 2 * 2 * n_groups <= PRIV_CLUSTER * PRIV_THREADS:
+        tpo *= 2
+    return tpo
+
+
+def partial_sets(p: Plan) -> int:
+    """Partial sets of 2 * n_groups floats a batch row writes."""
+    return p.parts // PRIV_CLUSTER if p.cluster == 0 else p.parts
 
 
 def sliced_smem(slice_: int) -> int:
@@ -93,21 +141,26 @@ def slice_shape(n_groups: int) -> Tuple[int, int, int, int]:
 
 def plan(n: int, n_groups: int, n_sms: int, max_clusters: Optional[int] = None) -> Plan:
     """The launch for ``n`` rows and ``n_groups`` on a card of ``n_sms``
-    SMs, on which ``max_clusters`` clusters of the sliced shape can be
-    resident at once (``segagg_max_clusters``; estimated from the shared
-    memory when None).
+    SMs, on which ``max_clusters`` clusters of the launch's shape can be
+    resident at once (``segagg_max_clusters``; estimated from the threads,
+    the shared memory and PRIV_MIN_BLOCKS when None).
 
-    Sliced: enough chunks that a row's windows give every resident cluster
-    one, no more than the tiles, and few enough that a row's partials stay
-    within 1/PARTIALS_SHARE of its input bytes.  The plan depends on (n,
+    Private: as many clusters as are resident at once, no more than give
+    every warp MIN_STEPS steps of rows (a cluster's merge is the same work
+    whatever its rows).  Sliced: enough chunks that a row's windows give
+    every resident cluster one, no more than the tiles, and few enough that
+    a row's partials stay within 1/PARTIALS_SHARE of its input bytes.  The plan depends on (n,
     n_groups, the card) only, never on a batch size, so each batch row adds
     in an unbatched launch's order and equal inputs give equal bits.
     """
     if n_groups <= PRIVATE_GROUPS:
-        smem = (PRIV_THREADS // 32) * 8 * n_groups
-        per_sm = max(1, min(THREADS_PER_SM // PRIV_THREADS, SHARED_PER_SM // (smem + 1024)))
-        blocks = max(1, min(n_sms * per_sm, -(-n // PRIV_ROWS)))
-        return Plan(blocks, 0, 0, n_groups, 1, 0, smem)
+        smem = private_smem(n_groups)
+        if max_clusters is None:
+            per_sm = min(PRIV_MIN_BLOCKS, THREADS_PER_SM // PRIV_THREADS,
+                         SHARED_PER_SM // (smem + 1024))
+            max_clusters = max(1, n_sms * per_sm // PRIV_CLUSTER)
+        want = -(-max(n, 1) // (STEP_ROWS * PRIV_WARPS * PRIV_CLUSTER * MIN_STEPS))
+        return Plan(max(1, min(max_clusters, want)) * PRIV_CLUSTER, 0, 0, n_groups, 1, 0, smem)
     cluster, slice_, windows, smem = slice_shape(n_groups)
     if max_clusters is None:
         per_sm = min(THREADS_PER_SM // ((FILTERS + ADDERS + 1) * 32),
@@ -129,12 +182,13 @@ def _device_plan(index: int, name: str, n: int, n_groups: int) -> Plan:
     allocations."""
     n_sms = torch.cuda.get_device_properties(index).multi_processor_count
     if n_groups <= PRIVATE_GROUPS:
-        return plan(n, n_groups, n_sms)
-    cluster, _, _, smem = slice_shape(n_groups)
+        cluster, smem = 0, private_smem(n_groups)
+    else:
+        cluster, _, _, smem = slice_shape(n_groups)
     count = build.library(name).segagg_max_clusters(index, n_groups, cluster, smem)
     if count <= 0:
-        raise RuntimeError(f"{NAME}: no cluster of {cluster} blocks with {smem} bytes of "
-                           f"shared memory can be resident (CUDA error {-count})")
+        raise RuntimeError(f"{NAME}: no cluster of {cluster or PRIV_CLUSTER} blocks with {smem} "
+                           f"bytes of shared memory can be resident (CUDA error {-count})")
     return plan(n, n_groups, n_sms, count)
 
 
@@ -144,15 +198,47 @@ def _plan_on(dev: torch.device, name: str, n: int, n_groups: int) -> Tuple[int, 
     return index, _device_plan(index, name, n, n_groups)
 
 
-def _buffers(dev: torch.device, shape: Tuple[int, ...], p: Plan):
-    """(sums, counts, scratch) of a launch whose results have ``shape``
-    ((n_groups,) or (b, n_groups)); three allocations cost less host time
-    than views of one."""
-    rows = shape[0] if len(shape) == 2 else 1
-    sums = torch.empty(shape, dtype=torch.float32, device=dev)
-    counts = torch.empty(shape, dtype=torch.float32, device=dev)
-    return sums, counts, torch.empty(rows * p.parts * 2 * shape[-1], dtype=torch.float32,
-                                     device=dev)
+class _Workspace:
+    """A stream's partial sets (float32) and the private kernel's tickets,
+    one a batch row (int32, zero: each launch leaves its own zero).  The
+    launches of one stream run in order, so each finds them free."""
+
+    def __init__(self, dev: torch.device, floats: int, rows: int):
+        self.scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+        self.tickets = torch.zeros(rows, dtype=torch.int32, device=dev)
+
+
+_WORKSPACES: Dict[Tuple[int, int], _Workspace] = {}
+
+
+def _workspace(dev: torch.device, stream: int, floats: int, rows: int) -> _Workspace:
+    """The stream's workspace, grown (to twice what was there, at least) when
+    a call needs more; a grown one replaces the old, whose last launch is
+    ordered before any reuse of its memory on this stream."""
+    ws = _WORKSPACES.get((dev.index, stream))
+    if ws is None or ws.scratch.numel() < floats or ws.tickets.numel() < rows:
+        have = (ws.scratch.numel(), ws.tickets.numel()) if ws else (0, 0)
+        ws = _WORKSPACES[(dev.index, stream)] = _Workspace(
+            dev, max(floats, 2 * have[0]), max(rows, 2 * have[1], 64))
+    return ws
+
+
+def _buffers(dev: torch.device, shape: Tuple[int, ...]):
+    """(sums, counts) of a launch whose results have ``shape`` ((n_groups,)
+    or (b, n_groups)): one allocation split in two.  Two allocations cost
+    the same host time within the spread (8.5-12.7 against 9.2-14.7 µs in
+    four runs of ``segagg_probe.py --few`` on an H100 80GB HBM3 at 700 W)."""
+    return torch.empty((2, *shape), dtype=torch.float32, device=dev).unbind(0)
+
+
+def _launch(fn, dev: torch.device, index: int, p: Plan, rows: int, n_groups: int, sums,
+            counts, *args) -> int:
+    """The C call ``fn(index, stream, *args, sums, counts, scratch, tickets,
+    plan...)`` with the stream's workspace."""
+    stream = build.stream_handle(dev)
+    ws = _workspace(dev, stream, rows * partial_sets(p) * 2 * n_groups, rows)
+    return fn(index, stream, *args, sums.data_ptr(), counts.data_ptr(), ws.scratch.data_ptr(),
+              ws.tickets.data_ptr(), p.parts, p.part_rows, p.cluster, p.smem)
 
 
 def segment_aggregate(
@@ -172,11 +258,9 @@ def segment_aggregate(
         raise ValueError(f"n_groups must be >= 1, got {n_groups}")
     lib = build.library(NAME)
     index, p = _plan_on(dev, NAME, n, n_groups)
-    sums, counts, scratch = _buffers(dev, (n_groups,), p)
-    err = lib.segagg_launch(
-        index, build.stream_handle(dev), values.data_ptr(), gid.data_ptr(),
-        weights.data_ptr(), n, n_groups, sums.data_ptr(), counts.data_ptr(),
-        scratch.data_ptr(), p.parts, p.part_rows, p.cluster, p.smem)
+    sums, counts = _buffers(dev, (n_groups,))
+    err = _launch(lib.segagg_launch, dev, index, p, 1, n_groups, sums, counts, values.data_ptr(),
+                  gid.data_ptr(), weights.data_ptr(), n, n_groups)
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
     return sums, counts
@@ -199,13 +283,11 @@ def segment_aggregate_batch(
         raise ValueError(f"n_groups must be >= 1, got {n_groups}")
     lib = build.library(BATCH_NAME)
     index, p = _plan_on(dev, BATCH_NAME, n, n_groups)
-    sums, counts, scratch = _buffers(dev, (b, n_groups), p)
+    sums, counts = _buffers(dev, (b, n_groups))
     if b == 0:
         return sums, counts
-    err = lib.segagg_batch_launch(
-        index, build.stream_handle(dev), values.data_ptr(), gid.data_ptr(),
-        weights.data_ptr(), n, b, n_groups, sums.data_ptr(), counts.data_ptr(),
-        scratch.data_ptr(), p.parts, p.part_rows, p.cluster, p.smem)
+    err = _launch(lib.segagg_batch_launch, dev, index, p, b, n_groups, sums, counts,
+                  values.data_ptr(), gid.data_ptr(), weights.data_ptr(), n, b, n_groups)
     build.check(err, BATCH_NAME)
     LAUNCH_COUNTS[BATCH_NAME] += 1
     return sums, counts

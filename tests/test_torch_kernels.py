@@ -16,8 +16,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import segment_aggregate as ksa
 from repro_torch.kernels.segment_aggregate import (
-    BARRIER_BYTES, CLUSTER_MAX, PRIV_ROWS, PRIV_THREADS, PRIVATE_GROUPS, RING_BYTES, SLICE_MAX,
-    COUNT_BYTES, SMEM_MAX, STAGES, TILE_ROWS, plan, sliced_smem)
+    BARRIER_BYTES, CLUSTER_MAX, PRIV_CLUSTER, PRIV_THREADS, PRIVATE_GROUPS, RING_BYTES, SLICE_MAX,
+    COUNT_BYTES, SMEM_MAX, STAGES, STEP_ROWS, TILE_ROWS, plan, private_smem, sliced_smem)
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 torch.set_num_threads(1)  # small tensors; leave the cores to the other xdist workers
@@ -107,7 +107,11 @@ def test_segment_aggregate_block_shape_matches_source():
     src = (Path(build.__file__).parent / "csrc" / "segment_aggregate.cu").read_text()
     const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert const["kPrivThreads"] == PRIV_THREADS
-    assert const["kPrivThreads"] * const["kSteps"] == PRIV_ROWS
+    assert (const["kStepRows"], const["kPrivCluster"], const["kCopyGroups"],
+            const["kPrivMinBlocks"], const["kPrivateGroups"], const["kMinSteps"]) == (
+        STEP_ROWS, PRIV_CLUSTER, ksa.COPY_GROUPS, ksa.PRIV_MIN_BLOCKS, PRIVATE_GROUPS,
+        ksa.MIN_STEPS)
+    assert STEP_ROWS == 32 * 4  # 4 rows a lane: one 16-byte load of each array
     assert (const["kTileRows"], const["kStages"], const["kSliceMax"], const["kClusterMax"],
             const["kBarrierBytes"]) == (TILE_ROWS, STAGES, SLICE_MAX, CLUSTER_MAX, BARRIER_BYTES)
     assert "constexpr int kStageWords = kTileRows + 4;" in src
@@ -115,6 +119,11 @@ def test_segment_aggregate_block_shape_matches_source():
     assert COUNT_BYTES == STAGES * ksa.FILTERS * 4
     assert RING_BYTES == STAGES * 3 * (TILE_ROWS + 4) * 4
     assert 8 * 8 * PRIVATE_GROUPS == 64 * 1024  # 8 warps' copies of 2 * G floats
+    # ... and a byte tag a slot unless each lane has its own copy
+    assert private_smem(PRIVATE_GROUPS) == 8 * (8 * 1024 + 1024) <= SMEM_MAX
+    assert [ksa.copies_of(g) for g in (1, 16, 17, 32, 128, 256, 512, 1024)] == [
+        32, 32, 16, 16, 4, 2, 1, 1]
+    assert private_smem(16) == 8 * 8 * 16 * 32 and private_smem(128) == 8 * (8 + 1) * 128 * 4
     for bytes_ in (RING_BYTES, sliced_smem(2048), sliced_smem(4096)):
         assert f"{bytes_:,}" in src, bytes_
     assert ksa.WINDOW_GROUPS == CLUSTER_MAX * SLICE_MAX
@@ -125,16 +134,22 @@ def test_segment_aggregate_block_shape_matches_source():
                                      (1 << 23, 2048, 132), (1 << 23, 16384, 132),
                                      (100, 4, 132), (1 << 20, 1 << 16, 132)])
 def test_segment_aggregate_grid(n, g, sms):
-    """The launch shape: per-warp partials in blocks that fill the card while
-    few groups; above, clusters whose windows of slices cover the groups,
-    one per chunk of whole tiles and window, every chunk holding rows, no
-    more clusters than the card holds at once."""
+    """The launch shape: while few groups, whole clusters of blocks with
+    per-warp copies, no more than the card holds at once and no more than
+    give every warp a step of rows; above, clusters whose windows of slices
+    cover the groups, one per chunk of whole tiles and window, every chunk
+    holding rows, no more clusters than the card holds at once."""
     p = plan(n, g, sms)
     if g <= PRIVATE_GROUPS:
-        assert p.cluster == 0 and p.windows == 1 and p.smem == 8 * 8 * g
-        assert 1 <= p.parts <= max(1, -(-n // PRIV_ROWS))
-        assert p.parts * PRIV_THREADS <= 2048 * sms  # resident at once
+        assert p.cluster == 0 and p.windows == 1 and p.smem == private_smem(g)
+        assert p.parts % PRIV_CLUSTER == 0 and p.parts >= PRIV_CLUSTER
+        steps = -(-n // STEP_ROWS)
+        assert p.parts == PRIV_CLUSTER or (p.parts - PRIV_CLUSTER) * 8 < steps
+        per_sm = min(ksa.PRIV_MIN_BLOCKS, 2048 // PRIV_THREADS, 228 * 1024 // (p.smem + 1024))
+        assert p.parts <= sms * per_sm  # resident at once
         assert p.parts // sms * p.smem <= 228 * 1024
+        assert ksa.partial_sets(p) == p.parts // PRIV_CLUSTER
+        assert plan(n, g, sms, max_clusters=5).parts <= 5 * PRIV_CLUSTER
         return
     assert 1 <= p.cluster <= CLUSTER_MAX and p.cluster * p.slice * p.windows >= g
     assert p.smem == sliced_smem(p.slice) <= SMEM_MAX
@@ -229,13 +244,62 @@ def test_segment_aggregate_batch_grid(b, n, g):
     rows of that plan's partials: within a quarter of the input bytes above
     1,024 groups."""
     p = plan(n, g, 132)
-    sums, counts, scratch = ksa._buffers(torch.device("meta"), (b, g), p)
+    sums, counts = ksa._buffers(torch.device("meta"), (b, g))
     assert sums.shape == counts.shape == (b, g)
-    assert scratch.numel() == b * p.parts * 2 * g
     if g > PRIVATE_GROUPS:
-        assert 4 * scratch.numel() * 4 <= b * n * 12
+        assert 4 * b * ksa.partial_sets(p) * 2 * g * 4 <= b * n * 12
+    else:
+        assert ksa.partial_sets(p) <= 132 * ksa.PRIV_MIN_BLOCKS // PRIV_CLUSTER
     src = (Path(build.__file__).parent / "csrc" / "segment_aggregate.cu").read_text()
     assert "blockIdx.y" in src and "gridDim.y" not in src  # no row sees the batch size
+
+
+@pytest.mark.parametrize("g", [1, 16, 128, 255, 256, 512, 1024])
+@pytest.mark.parametrize("n", [1, 4096, 100_003, 1 << 20, 1 << 23])
+def test_segment_aggregate_private_plan_invariants(n, g):
+    """Up to 1,024 groups: one launch of whole clusters, a function of (n, G,
+    the card) alone (no batch size enters ``plan``), at most the resident
+    clusters; the last cluster's tree gives each of the 2G outputs a
+    power-of-two group of threads, at most a warp, within the cluster's
+    2,048 threads; copies a warp holding at most COPY_GROUPS groups together
+    (or one copy), byte tags unless a lane has a copy of its own."""
+    for sms, clusters in ((132, None), (132, 66), (132, 49), (114, None)):
+        p = plan(n, g, sms, clusters)
+        assert p == plan(n, g, sms, clusters)
+        assert p.cluster == 0 and p.part_rows == 0 and p.smem == private_smem(g)
+        sets = ksa.partial_sets(p)
+        cap = clusters or sms * min(ksa.PRIV_MIN_BLOCKS, 228 * 1024 // (p.smem + 1024)) // 8
+        assert 1 <= sets <= cap and p.parts == sets * PRIV_CLUSTER
+        if n >= 1 << 23:
+            assert sets == cap  # every resident cluster has rows
+        # ... each warp at least MIN_STEPS steps of the row, where the rows allow
+        assert sets == 1 or (sets - 1) * 64 * ksa.MIN_STEPS * STEP_ROWS < n
+        tpo = ksa.merge_threads(g)
+        assert tpo & (tpo - 1) == 0 and 1 <= tpo <= 32 and tpo * 2 * g <= 2048
+        assert tpo == 32 or 2 * tpo * 2 * g > 2048
+    c = ksa.copies_of(g)
+    assert c & (c - 1) == 0 and (c * g <= ksa.COPY_GROUPS or c == 1) and (c == 32 or 2 * c * g > 512)
+    assert private_smem(g) == 8 * (8 * g * c + (0 if c == 32 else -(-g * c // 16) * 16))
+    src = (Path(build.__file__).parent / "csrc" / "segment_aggregate.cu").read_text()
+    assert "while (tpo < 32 && tpo * 2 * copy <= kClusterThreads) tpo *= 2;" in src
+
+
+def test_segment_aggregate_workspace_grows_and_is_kept():
+    """The partial sets and tickets live in one workspace per device and
+    stream: a call that needs no more reuses it, a larger one replaces it
+    with at least twice the room (tickets zeroed when made)."""
+    dev = torch.device("meta")
+    key = (dev.index, -1)
+    try:
+        first = ksa._workspace(dev, -1, 1000, 3)
+        assert first.scratch.numel() == 1000 and first.tickets.numel() == 64
+        assert first.tickets.dtype == torch.int32
+        assert ksa._workspace(dev, -1, 800, 64) is first
+        grown = ksa._workspace(dev, -1, 1001, 1)
+        assert grown is not first and grown.scratch.numel() == 2000
+        assert ksa._workspace(dev, -1, 10, 65).tickets.numel() == 128
+    finally:
+        ksa._WORKSPACES.pop(key, None)
 
 
 def test_batched_source_builds_on_the_unbatched_kernels():
@@ -400,9 +464,15 @@ def test_segment_aggregate_ring_is_not_refilled_early(cuda, g):
 def test_segagg_probe_patches_apply():
     """``kernels/segagg_probe.py`` patches the kernel source by text: every
     patch still finds its anchor, each variant differs from the kernel, and
-    the instrumented copy marks every section of every role."""
+    the instrumented copy marks every section of every role; so does every
+    patch of the few-group mode (``--few``)."""
     from repro_torch.kernels import segagg_probe
 
+    few = segagg_probe.all_few_patches()
+    assert few.pop("kernel") == segagg_probe.SOURCE.read_text()
+    assert set(few) == set(segagg_probe.FEW_VARIANTS) - {"kernel"}
+    assert all(text != segagg_probe.SOURCE.read_text() for text in few.values())
+    assert segagg_probe.TIMING_ONLY <= set(few)
     sources = segagg_probe.all_patches()
     kernel = sources.pop("kernel")
     assert kernel == segagg_probe.SOURCE.read_text()
@@ -440,6 +510,68 @@ def test_segment_aggregate_clustered_groups(cuda, g):
                                          torch.stack([w, w]))
     assert torch.equal(sb[0], first[0]) and torch.equal(cb[0], first[1])
     assert torch.equal(sb[1], s) and torch.equal(cb[1], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("g", [1, 16, 128, 512, 1024])
+def test_segment_aggregate_private_kernel(cuda, g, order):
+    """Up to 1,024 groups, random gids and sorted ones (a table clustered
+    on the group-by, whose runs the kernel sums before it adds them), with
+    out-of-range gids and weight-0 rows among them: integral inputs give
+    the plain version's bits, normal ones rerun to equal bits within 1e-5
+    of the float64 sum, and each batch row equals the unbatched kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(g + len(order))
+    for n in (1, 129, 100_003, 1 << 21):
+        gid = torch.randint(-2, g + 2, (n,), generator=gen, device=cuda, dtype=torch.int32)
+        if order == "sorted":
+            gid = gid.sort().values
+        vals = torch.randint(0, 50, (n,), generator=gen, device=cuda).float()
+        w = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+        s, c = ops.segment_aggregate(vals, gid, g, w)
+        s2, c2 = ref.segment_aggregate_ref(vals, gid, g, w)
+        assert torch.equal(s, s2) and torch.equal(c, c2), n
+        normal = torch.randn(n, generator=gen, device=cuda)
+        first = ops.segment_aggregate(normal, gid, g, w)
+        for _ in range(2):
+            again = ops.segment_aggregate(normal, gid, g, w)
+            assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]), n
+        ok = (gid >= 0) & (gid < g)
+        truth = torch.zeros(g, dtype=torch.float64, device=cuda).index_add_(
+            0, gid[ok].long(), (normal * w)[ok].double())
+        scale = torch.zeros(g, dtype=torch.float64, device=cuda).index_add_(
+            0, gid[ok].long(), (normal * w)[ok].abs().double())
+        assert float(((first[0].double() - truth).abs() - 1e-5 * scale).max()) <= 0, n
+        sb, cb = ops.segment_aggregate_batch(torch.stack([normal, vals, normal]),
+                                             torch.stack([gid, gid, gid.flip(0)]), g,
+                                             torch.stack([w, w, w]))
+        assert torch.equal(sb[0], first[0]) and torch.equal(cb[0], first[1]), n
+        assert torch.equal(sb[1], s) and torch.equal(cb[1], c), n
+        s3, c3 = ops.segment_aggregate(normal, gid.flip(0).contiguous(), g, w)
+        assert torch.equal(sb[2], s3) and torch.equal(cb[2], c3), n
+
+
+@pytest.mark.cuda
+def test_segment_aggregate_back_to_back_calls_see_no_stale_workspace(cuda):
+    """Calls on one stream with no wait between them, of other n, G and B
+    (the private kernel's tickets and partial sets and the sliced kernel's
+    partials share a workspace): each result equals its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    calls = []
+    for b, n, g in ((0, 1 << 22, 16), (3, 5000, 1024), (0, 1, 1), (8, 1 << 18, 128),
+                    (0, 1 << 20, 4096), (2, 100_003, 512), (0, 1 << 22, 16), (16, 4096, 64)):
+        rows = max(b, 1)
+        gid = torch.randint(-1, g + 1, (rows, n), generator=gen, device=cuda, dtype=torch.int32)
+        vals = torch.randint(0, 20, (rows, n), generator=gen, device=cuda).float()
+        w = (torch.rand((rows, n), generator=gen, device=cuda) < 0.7).float()
+        calls.append((b, gid, vals, w, g))
+    out = [ops.segment_aggregate_batch(vals, gid, g, w) if b
+           else ops.segment_aggregate(vals[0], gid[0], g, w[0]) for b, gid, vals, w, g in calls]
+    torch.cuda.synchronize()
+    for (s, c), (b, gid, vals, w, g) in zip(out, calls):
+        s2, c2 = (ref.segment_aggregate_batch_ref(vals, gid, g, w) if b
+                  else ref.segment_aggregate_ref(vals[0], gid[0], g, w[0]))
+        assert torch.equal(s, s2) and torch.equal(c, c2), (b, g)
 
 
 # ---- sketch_filter's compaction and the one-launch fragment_bitmap ---------------
@@ -688,6 +820,138 @@ def test_each_call_is_one_kernel_launch(cuda):
     assert LAUNCH_COUNTS["fragment_bitmap"] == counts.get("fragment_bitmap", 0) + 1
     assert LAUNCH_COUNTS["sketch_filter"] == counts.get("sketch_filter", 0) + 1
     assert LAUNCH_COUNTS[ksf.ROWS_COUNTER] == counts.get(ksf.ROWS_COUNTER, 0) + 1
+
+
+def test_batch_bitmap_constants_match_source():
+    """The batched bitmap's wrapper plans its grid with the source's
+    cluster, tile and chunk sizes, and binds every function it exports."""
+    from repro_torch.kernels import fragment_bitmap as kfb
+
+    src = (build.CSRC / "fragment_bitmap_batch.cu").read_text()
+    assert _constant(src, "kMasksPerChunk") == kfb.MASKS_PER_CHUNK
+    assert _constant(src, "kMaxRanges") == kfb.MAX_RANGES
+    assert _constant(src, "kCluster") == kfb.BATCH_CLUSTER
+    assert _constant(src, "kThreads") * _constant(src, "kRowsPerThread") == kfb.BATCH_TILE_ROWS
+    exported = set(re.findall(r'extern "C" int (\w+)\(', src))
+    assert exported == set(build.SIGNATURES["fragment_bitmap_batch"])
+    assert "unpack_kernel" not in src and "cudaMemset" not in src  # one launch a call
+
+
+@pytest.mark.parametrize("n", [1, 4096, 4097, 1 << 20, 1 << 23])
+@pytest.mark.parametrize("chunks,clusters", [(1, 124), (2, 124), (3, 16), (1, 1)])
+def test_batch_bitmap_grid(n, chunks, clusters):
+    """Whole clusters, at least one, sharing the resident clusters among the
+    chunks of 32 masks, no more than one tile of 4,096 rows a block."""
+    from repro_torch.kernels import fragment_bitmap as kfb
+
+    blocks = kfb.batch_blocks(n, chunks, clusters)
+    assert blocks % 8 == 0 and blocks >= 8
+    assert blocks == 8 or blocks // 8 * chunks <= clusters
+    assert blocks == 8 or (blocks - 8) * 4096 < n
+
+
+def test_batch_bitmap_workspace_grows():
+    """The word table and count live in one workspace per device and stream,
+    replaced by one of at least twice the words when a call needs more."""
+    from repro_torch.kernels import fragment_bitmap as kfb
+
+    dev = torch.device("meta")
+    try:
+        first = kfb._batch_workspace(dev, -1, 100)
+        assert first.table.numel() == 101 and first.table.dtype == torch.int32
+        assert first.done == first.ptr + 4 * 100  # the count after the words
+        assert kfb._batch_workspace(dev, -1, 64) is first
+        assert kfb._batch_workspace(dev, -1, 101).table.numel() == 201
+    finally:
+        kfb._BATCH_WORKSPACES.pop((dev.index, -1), None)
+
+
+def test_bitmap_probe_patches_apply():
+    """``kernels/bitmap_probe.py`` patches the batched source by text: every
+    patch still finds its anchor and each variant differs from the kernel."""
+    from repro_torch.kernels import bitmap_probe
+
+    sources = bitmap_probe.all_patches()
+    kernel = sources.pop("kernel")
+    assert kernel == bitmap_probe.SOURCE.read_text()
+    assert sources and all(text != kernel for text in sources.values())
+    assert bitmap_probe.TIMING_ONLY <= set(sources)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 33, 64])
+@pytest.mark.parametrize("n", [1, 15, 4100, (1 << 20) + 12, 1 << 22])
+def test_fragment_bitmap_batch_kernel_cases(cuda, b, n):
+    """n not a multiple of 16 (and of 4), all-zero masks and masks of one
+    row, buckets out of range: the plain version's bits, each row equal to
+    fragment_bitmap's, one launch counted a call."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 7 + n)
+    for n_ranges in (1, 100, 32768):
+        bucket = torch.randint(-2, n_ranges + 2, (n,), generator=gen, device=cuda,
+                               dtype=torch.int32)
+        provs = torch.rand((b, n), generator=gen, device=cuda) < 0.05
+        provs[0] = False  # all zero
+        if b > 1:
+            provs[1] = False
+            provs[1, n // 2] = True  # one row
+        before = LAUNCH_COUNTS["fragment_bitmap_batch"]
+        got = ops.fragment_bitmap_batch(provs, bucket, n_ranges)
+        assert LAUNCH_COUNTS["fragment_bitmap_batch"] == before + 1
+        assert torch.equal(got, ref.fragment_bitmap_batch_ref(provs, bucket, n_ranges)), n_ranges
+        for i in {0, 1 % b, b - 1}:
+            assert torch.equal(got[i], ops.fragment_bitmap(provs[i], bucket, n_ranges)), i
+
+
+@pytest.mark.cuda
+def test_fragment_bitmap_batch_views_and_stale_workspace(cuda):
+    """Views at every 4-byte offset (buckets copied once, counted, where the
+    16-byte loads need it; masks off a 4-byte boundary loaded row by row), and calls
+    of other B, n and ranges back to back on one stream: each equals the
+    plain version."""
+    from repro_torch.kernels import fragment_bitmap as kfb
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n = 100_004
+    base = torch.randint(-1, 101, (n + 4,), generator=gen, device=cuda, dtype=torch.int32)
+    flat = torch.rand(9 * n + 4, generator=gen, device=cuda) < 0.1
+    for b_off, p_off in ((0, 0), (1, 0), (2, 0), (3, 0), (0, 1), (2, 3)):
+        bucket, provs = base[b_off:b_off + n], flat[p_off:p_off + 9 * n].view(9, n)
+        assert bucket.data_ptr() % 16 == 4 * b_off and provs.data_ptr() % 4 == p_off
+        copies = LAUNCH_COUNTS[kfb.BATCH_COPY_COUNTER]
+        got = ops.fragment_bitmap_batch(provs, bucket, 100)
+        assert torch.equal(got, ref.fragment_bitmap_batch_ref(provs, bucket, 100)), b_off
+        copied = p_off == 0 and b_off != 0  # only the 16-byte loads need the copy
+        assert LAUNCH_COUNTS[kfb.BATCH_COPY_COUNTER] == copies + copied, (b_off, p_off)
+    calls = []
+    for b, n, r in ((8, 1 << 22, 100), (40, 5000, 7), (1, 1, 1), (64, 1 << 20, 32768),
+                    (8, 1 << 22, 100), (3, 4097, 4096)):
+        bucket = torch.randint(-1, r + 1, (n,), generator=gen, device=cuda, dtype=torch.int32)
+        provs = torch.rand((b, n), generator=gen, device=cuda) < 0.2
+        calls.append((provs, bucket, r))
+    out = [ops.fragment_bitmap_batch(*c) for c in calls]
+    torch.cuda.synchronize()
+    for got, c in zip(out, calls):
+        assert torch.equal(got, ref.fragment_bitmap_batch_ref(*c))
+
+
+@pytest.mark.cuda
+def test_fragment_bitmap_batch_is_one_kernel_a_call(cuda):
+    """No memset, no unpack: one kernel on the profiler's trace a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    n = 1 << 20
+    bucket = torch.randint(0, 100, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    for b in (8, 33):
+        provs = torch.rand((b, n), generator=gen, device=cuda) < 0.25
+        ops.fragment_bitmap_batch(provs, bucket, 100)  # the workspace made outside the profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ops.fragment_bitmap_batch(provs, bucket, 100)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and "bitmap_batch_kernel" in names[0], names
 
 
 def test_filter_probe_patches_apply():

@@ -366,8 +366,9 @@ def test_fused_launch_path_has_no_host_sync():
 
     chain = [tshard.ShardedEngine._launch, tshard._fused_body, ops.segment_aggregate_batch,
              ksa.segment_aggregate_batch]
-    helpers = [ksa._plan_on, ksa._device_plan, ksa.plan, ksa._buffers, build.library,
-               build.stream_handle, build.check_tensor, build.check]
+    helpers = [ksa._plan_on, ksa._device_plan, ksa.plan, ksa._buffers, ksa._launch,
+               ksa._workspace, ksa.partial_sets, build.library, build.stream_handle,
+               build.check_tensor, build.check]
     trees = {fn: ast.parse(textwrap.dedent(inspect.getsource(fn))) for fn in chain + helpers}
 
     def names(tree):

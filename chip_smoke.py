@@ -35,7 +35,19 @@ burst; after the delete a burst with thresholds taken anew from the current
 table and its replay, so that the post-delete check holds real output;
 every result is checked against a plain numpy group-by of the full table,
 the fused and host-loop results against each other bit for bit, and no
-route may be served degraded.  Phase 6 serves ``stablelm-1.6b`` at full
+route may be served degraded.  Phase 7 drives the join templates at TPC-H
+scale factor 1 (lineitem 6,001,215 rows, orders 1,500,303, part 1,000,202,
+from ``make_tpch``'s distributions): ``run`` over three generated Q-AJGH and
+a Q-AAJGH, replayed; ``run_batch`` of six Q-AJGH differing in their HAVING
+thresholds, a replay, a 1% append, a one-year delete, a one-year delete of
+orders (a dimension: the sketches stay, as the reference keeps them), a
+second 1% append that re-captures every join sketch, and a burst with
+thresholds taken anew; a ``ShardedEngine`` over 4 shards with its fused and
+host-loop replays and an orders delete that evicts the join sketches.
+Every result is checked against full-table execution of its version and a
+plain numpy join and group-by, every maintained sketch against a fresh
+capture, the fused results against the host loop's bit for bit, and kernels
+1-5 must each launch.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -625,11 +637,21 @@ def _result_map(res):
             for i in range(len(res.values))}
 
 
+def _same_result(a, b) -> bool:
+    """The same groups in the same order with equal values: the fast form
+    of equal canonical results."""
+    import numpy as np
+
+    return (sorted(a.group_values) == sorted(b.group_values) and len(a.values) == len(b.values)
+            and all(np.array_equal(a.group_values[k], b.group_values[k]) for k in a.group_values)
+            and np.array_equal(a.values, b.values))
+
+
 def check_result(q, res, full, envelope_left: bool) -> str:
     """'exact' when ``res`` equals full-table execution; 'within 1e-6' when
     the group sums left the float32 integer envelope and every difference
     is order-of-addition rounding.  Raises otherwise."""
-    if res.canonical() == full.canonical():
+    if _same_result(res, full) or res.canonical() == full.canonical():
         return "exact"
     require(envelope_left, f"{q}: result differs from full-table execution inside "
                            f"the 2^24 envelope")
@@ -1372,6 +1394,521 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the join templates at TPC-H scale factor 1
+# ---------------------------------------------------------------------------
+
+TPCH_SF1_LINEITEM = 6_001_215  # lineitem rows at scale factor 1 (TPC-H specification)
+JOIN_UNIQUE, JOIN_REPLAYS = 3, 2
+# The burst: six thresholds halfway between the seven largest distinct
+# lineitem counts of a shipdate, highest first, so that each sketch holds
+# the few dates at the top (selective) and no member subsumes a later one.
+# Counts keep the maintainers exact (an integral aggregate), so every
+# maintained sketch must equal a fresh capture.
+JOIN_BURST = 6
+JOIN_KERNELS = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
+                "fragment_bitmap_batch", "segment_aggregate_batch")
+
+
+def _lineitem_batch(rng, m: int, n_lineitem: int) -> dict:
+    """``m`` lineitem rows from ``make_tpch(n_lineitem)``'s distributions
+    (its orders = lineitem / 4, part = lineitem / 6 rule), with the table's
+    dtypes."""
+    import numpy as np
+
+    n_orders, n_part = max(1, n_lineitem // 4), max(1, n_lineitem // 6)
+    quantity = rng.integers(1, 51, m)
+    shipdate = rng.integers(8036, 10592, m)
+    return dict(
+        l_orderkey=rng.integers(1, n_orders + 1, m).astype(np.int32),
+        l_partkey=rng.integers(1, n_part + 1, m).astype(np.int32),
+        l_suppkey=rng.integers(1, max(2, n_part // 10), m).astype(np.int32),
+        l_quantity=quantity.astype(np.float32),
+        l_extendedprice=(quantity * rng.uniform(900, 105000 / 50, m)).astype(np.float32),
+        l_discount=(rng.integers(0, 11, m).astype(np.float32) / 100.0).astype(np.float32),
+        l_tax=(rng.integers(0, 9, m).astype(np.float32) / 100.0).astype(np.float32),
+        l_shipdate=shipdate.astype(np.int32),
+        l_commitdate=(shipdate + rng.integers(-30, 61, m)).astype(np.int32),
+        l_receiptdate=(shipdate + rng.integers(1, 31, m)).astype(np.int32),
+    )
+
+
+def _plain_groups_join(cols, attrs, n):
+    """Group ids of ``n`` rows by a mixed-radix key over ``attrs`` (one 1-D
+    ``np.unique``) and each group's key values."""
+    import numpy as np
+
+    key = np.zeros(n, dtype=np.int64)
+    lows, sizes = [], []
+    for a in attrs:
+        v = cols[a].astype(np.int64)
+        lows.append(int(v.min()))
+        sizes.append(int(v.max()) - lows[-1] + 1)
+        key = key * sizes[-1] + (v - lows[-1])
+    uniq, inv = np.unique(key, return_inverse=True)
+    values, rest = {}, uniq
+    for a, lo, size in reversed(list(zip(attrs, lows, sizes))):
+        values[a] = rest % size + lo
+        rest = rest // size
+    return inv.reshape(-1), uniq.shape[0], values
+
+
+def _plain_aggregate(fn, inv, n_groups, vals):
+    import numpy as np
+
+    counts = np.bincount(inv, minlength=n_groups).astype(np.float64)
+    if fn == "count":
+        return counts
+    sums = np.bincount(inv, weights=vals.astype(np.float64), minlength=n_groups)
+    return sums / np.maximum(counts, 1.0) if fn == "avg" else sums
+
+
+def _plain_join_inner(q, li, orders):
+    """The inner block of a join query by a plain numpy join and group-by,
+    independent of the port's executor, catalog and kernels: each
+    ``l_orderkey`` searched in the sorted ``o_orderkey`` (inner join), one
+    1-D ``np.unique`` over a mixed-radix group key, float64 ``bincount``
+    sums.  Returns (group key values, float64 aggregate per group)."""
+    import numpy as np
+
+    rk = orders[q.join.right_key]
+    order = np.argsort(rk, kind="stable")
+    lk = li[q.join.left_key]
+    pos = np.minimum(np.searchsorted(rk[order], lk), rk.shape[0] - 1)
+    match = rk[order][pos] == lk
+    attrs = set(q.groupby) | ({q.agg.attr} if q.agg.attr else set())
+    cols = {a: (li[a][match] if a in li else orders[a][order[pos[match]]]) for a in attrs}
+    inv, n_groups, values = _plain_groups_join(cols, q.groupby, int(match.sum()))
+    return values, _plain_aggregate(q.agg.fn, inv, n_groups,
+                                    None if q.agg.fn == "count" else cols[q.agg.attr])
+
+
+def _plain_join(q, inner):
+    """``q``'s result from ``_plain_join_inner``'s groups: HAVING, then the
+    nested outer block.  Returns (group key values, float64 values), groups
+    in lexicographic order of the (outer) group-by."""
+    import numpy as np
+
+    values, agg = inner
+    keep = np.asarray(q.having.mask(agg)) if q.having is not None else np.ones(agg.shape, bool)
+    values = {a: v[keep] for a, v in values.items()}
+    agg = agg[keep]
+    if q.outer_groupby is not None:
+        inv, n_groups, values = _plain_groups_join(values, q.outer_groupby, int(keep.sum()))
+        agg = _plain_aggregate(q.outer_agg.fn, inv, n_groups, agg)
+        keep = (np.asarray(q.outer_having.mask(agg)) if q.outer_having is not None
+                else np.ones(n_groups, bool))
+        values = {a: v[keep] for a, v in values.items()}
+        agg = agg[keep]
+    return values, agg
+
+
+def _check_plain(q, res, plain) -> None:
+    """``res`` against ``_plain_join``: equal group sets and values within
+    rel 1e-4 (a group on one side only must sit within rel 1e-4 of the
+    deciding threshold)."""
+    import numpy as np
+
+    values, agg = plain
+    got = np.asarray(res.values, dtype=np.float64)
+    if len(got) == len(agg) and all(
+            np.array_equal(np.asarray(res.group_values[a]).astype(np.int64), v)
+            for a, v in values.items()):
+        bad = np.nonzero(np.abs(got - agg) > 1e-4 * np.abs(agg))[0]
+        require(bad.size == 0, f"{q}: {bad.size} groups differ from the plain join beyond "
+                               f"rel 1e-4, the first {got[bad[:1]]} against {agg[bad[:1]]}")
+        return
+    attrs = sorted(values)
+    want = {tuple(float(values[a][i]) for a in attrs): float(agg[i]) for i in range(agg.size)}
+    have = _result_map(res)
+    tau = (q.outer_having if q.outer_groupby is not None else q.having).value
+    for k in set(have) | set(want):
+        if k in have and k in want:
+            require(abs(have[k] - want[k]) <= 1e-4 * abs(want[k]),
+                    f"{q}: group {k} {have[k]} against the plain join's {want[k]}")
+        else:
+            v = have.get(k, want.get(k))
+            require(abs(v - tau) <= 1e-4 * abs(tau),
+                    f"{q}: group {k} ({v}) on one side of the plain join only")
+
+
+def phase_join(n_lineitem: int, seed: int, device: str = "cuda") -> dict:
+    """The join templates on the card at TPC-H scale: ``run`` (generated
+    Q-AJGH and a Q-AAJGH, replayed), ``run_batch`` and maintenance (a burst
+    of six Q-AJGH, a replay, a 1% append, a one-year delete, a one-year
+    delete of orders, another 1% append, each followed by the burst), and a
+    ``ShardedEngine`` over 4 shards (burst, fused and host-loop replays, an
+    orders delete that evicts the join sketches).  Returns the phase's
+    launches by kernel."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (Aggregate, Catalog, ColumnTable, Database, Having, JoinSpec,
+                                  PBDSEngine, Query, ShardedEngine, capture_sketch,
+                                  default_catalog, execute)
+    from repro_torch.core.datasets import make_tpch
+    from repro_torch.core.queries import segment_sums_counts
+    from repro_torch.core.table import encode_groups
+    from repro_torch.core.workload import TPCH_JOIN_SPEC, generate_workload
+    from repro_torch.device import to_host
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    db = make_tpch(n_lineitem, seed=seed, device=dev)
+    sync()
+    log(f"[join] tpch: " + ", ".join(
+        f"{t.name} {t.num_rows} rows x {len(t.schema)} columns "
+        f"({sum(v.numel() * v.element_size() for v in t.columns.values()) / 1e6:.1f} MB)"
+        for t in db.tables.values()) + f" on {dev}, made in {time.perf_counter() - t_phase:.2f} s")
+    join = JoinSpec("orders", "l_orderkey", "o_orderkey")
+    t0 = time.perf_counter()
+    workload = generate_workload(TPCH_JOIN_SPEC, db, JOIN_UNIQUE, seed=seed)
+    require(len(workload) == JOIN_UNIQUE, "the join workload generator returned too few queries")
+    # The Q-AAJGH of tests/test_shard.py: count over (l_partkey, l_suppkey),
+    # outer sum by l_suppkey, outer threshold at the 0.8 quantile.
+    aajgh = Query("lineitem", ("l_partkey", "l_suppkey"), Aggregate("count", None), join=join,
+                  having=Having(">", 0.0), outer_groupby=("l_suppkey",),
+                  outer_agg=Aggregate("sum", None))
+    outer_vals = execute(aajgh, db, catalog=default_catalog()).values
+    aajgh = dataclasses.replace(
+        aajgh, outer_having=Having(">", float(np.quantile(outer_vals, 0.8))))
+    queries = workload + [aajgh]
+    log(f"[join] workload: {len(queries)} queries x {JOIN_REPLAYS} replays, generated in "
+        f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
+            f"{q.template} gb={'/'.join(q.groupby)} {q.agg.fn}({q.agg.attr or '*'})"
+            for q in queries))
+
+    cols_of = {"lineitem": sorted(db["lineitem"].schema), "orders": sorted(db["orders"].schema)}
+
+    def host(vdb):
+        return {n: {a: to_host(vdb[n][a]) for a in cols_of[n]} for n in cols_of}
+
+    def integral(q):
+        return q.agg.fn == "count" or q.agg.attr == "l_quantity"
+
+    checks = []  # (label, db of the version, queries, outputs)
+    check_dbs = {}
+
+    def check_db(vdb):
+        """The version's tables for the checks: the version 0 database with the
+        process-wide catalog (generate_workload's encodings), each mutated
+        version as fresh root tables with a fresh catalog (no delta path),
+        and its columns on the host."""
+        key = (id(vdb["lineitem"]), id(vdb["orders"]))
+        if key not in check_dbs:
+            if vdb["lineitem"].delta is None and vdb["orders"].delta is None:
+                cdb, cat = vdb, default_catalog()
+            else:
+                cdb = Database({n: ColumnTable(n, dict(vdb[n].columns), vdb[n].primary_key)
+                                for n in vdb.names})
+                cat = Catalog()
+            check_dbs[key] = (vdb, cdb, cat, host(vdb))
+        return check_dbs[key][1:]
+
+    def check_all():
+        """Every recorded result against full-table execution of its version
+        and the plain numpy join (each computed once per version and query,
+        the plain join's groups once per version and inner block)."""
+        outcomes = collections.Counter()
+        fulls, inners = {}, {}
+        for label, vdb, qs, outs in checks:
+            cdb, cat, cols = check_db(vdb)
+            version = (id(cdb["lineitem"]), id(cdb["orders"]))
+            for q, (res, _) in zip(qs, outs):
+                key = (version, q.signature())
+                if key not in fulls:
+                    fulls[key] = execute(q, cdb, catalog=cat)
+                outcomes[check_result(q, res, fulls[key], envelope_left=not integral(q))] += 1
+                key = (version, q.inner_signature())
+                if key not in inners:
+                    inners[key] = _plain_join_inner(q, cols["lineitem"], cols["orders"])
+                _check_plain(q, res, _plain_join(q, inners[key]))
+            log(f"[join] {label}: {len(qs)} results equal full-table execution {dict(outcomes)} "
+                f"and agree with the plain numpy join")
+            outcomes.clear()
+
+    for name in (*BUILT, ROWS_COUNTER):
+        LAUNCH_COUNTS[name] = 0
+
+    # -- run: misses, then replays served from the index ------------------------
+    eng = PBDSEngine(db, strategy="CB-OPT-GB", n_ranges=100, theta=0.05, seed=seed)
+    outs = []
+    t_run = time.perf_counter()
+    for r in range(JOIN_REPLAYS):
+        for i, q in enumerate(queries):
+            before = {k: eng.catalog.stats.get(k, 0) for k in
+                      ("join_materialize", "join_delta", "join_hit")}
+            sync()
+            t0 = time.perf_counter()
+            res, info = eng.run(q)
+            sync()
+            wall = time.perf_counter() - t0
+            outs.append((res, info))
+            js = {k: eng.catalog.stats.get(k, 0) - v for k, v in before.items()}
+            log(f"[join] run r{r} q{i} {q.template} gb={'/'.join(q.groupby)} {q.agg.fn} "
+                f"{'hit ' if info.reused else 'miss'} created={info.created} attr={info.attr} "
+                f"sel={info.selectivity} select={info.t_select * 1e3:.1f}ms "
+                f"capture={info.t_capture * 1e3:.1f}ms execute={info.t_execute * 1e3:.1f}ms "
+                f"wall={wall * 1e3:.1f}ms Catalog.join {js} groups_out={len(res.values)}")
+    t_run = time.perf_counter() - t_run
+    checks.append(("run", db, queries * JOIN_REPLAYS, outs))
+    require(eng.index.hits >= 1, "no join query hit the index")
+    require(any(info.created for _, info in outs), "no join sketch was created")
+    run_launches = {k: LAUNCH_COUNTS[k] for k in BUILT}
+    log(f"[join] run: {len(outs)} queries in {t_run:.1f} s, hits {eng.index.hits}, misses "
+        f"{eng.index.misses}; launches {run_launches}; engine catalog {dict(eng.catalog.stats)}")
+
+    # -- run_batch and maintenance ------------------------------------------------
+    def burst_at(vdb, catalog):
+        """Six Q-AJGH counting a shipdate's lineitems, their thresholds
+        halfway between the seven largest distinct counts of ``vdb``."""
+        base = Query("lineitem", ("l_shipdate",), Aggregate("count", None), join=join)
+        top = np.unique(execute(base, vdb, catalog=catalog).values)[::-1]
+        require(top.size > JOIN_BURST, f"shipdates take only {top.size} distinct counts")
+        taus = (top[:JOIN_BURST] + top[1:JOIN_BURST + 1]) / 2.0
+        log(f"[join] burst: {JOIN_BURST} Q-AJGH gb=l_shipdate count(*) > "
+            + ", ".join(f"{t:g}" for t in taus))
+        return [dataclasses.replace(base, having=Having(">", float(t))) for t in taus]
+
+    burst = burst_at(db, default_catalog())
+    beng = PBDSEngine(db, strategy="CB-OPT-GB", n_ranges=100, theta=0.05, seed=seed)
+    rng = np.random.default_rng(seed)
+    stats = {}
+    captures = []  # (label, db of the version, [(query, sketch)] to equal a fresh capture)
+
+    def run_burst(label, qs, expect, current=None):
+        """``qs`` through ``run_batch``; ``current`` lists the queries whose
+        sketches describe this version (all, when None)."""
+        sync()
+        t0 = time.perf_counter()
+        out = beng.run_batch(qs)
+        sync()
+        wall = time.perf_counter() - t0
+        for i, (q, (res, info)) in enumerate(zip(qs, out)):
+            log(f"[join] {label} q{i} >{q.having.value:g} "
+                f"{'hit ' if info.reused else 'miss'} created={info.created} "
+                f"repaired={info.repaired} attr={info.attr} sel={info.selectivity} "
+                f"select={info.t_select * 1e3:.1f}ms capture={info.t_capture * 1e3:.1f}ms "
+                f"repair={info.t_repair * 1e3:.1f}ms execute={info.t_execute * 1e3:.1f}ms "
+                f"total={info.t_total * 1e3:.1f}ms groups_out={len(res.values)}")
+        st = dict(beng.catalog.stats)
+        log(f"[join] {label}: {len(qs)} queries in {wall * 1e3:.1f} ms wall; "
+            f"maintained {st.get('sketch_maintained', 0)}, re-captured "
+            f"{st.get('sketch_recaptured', 0)}; Catalog.join materialize "
+            f"{st.get('join_materialize', 0)}, delta {st.get('join_delta', 0)}, hit "
+            f"{st.get('join_hit', 0)}")
+        for what, cond in expect.items():
+            require(all(cond(info) for _, info in out), f"{label}: not every query {what}")
+        stats[label] = st
+        checks.append((label, beng.db, qs, out))
+        sigs = None if current is None else {q.signature() for q in current}
+        captures.append((label, beng.db, [(e.query, e.sketch) for e in beng.index.entries()
+                                          if sigs is None or e.query.signature() in sigs]))
+        return out
+
+    def timed(what, fn):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        log(f"[join] {what}: {(time.perf_counter() - t0) * 1e3:.1f} ms wall; lineitem "
+            f"{beng.db['lineitem'].num_rows} rows v{beng.db['lineitem'].version}, orders "
+            f"{beng.db['orders'].num_rows} rows v{beng.db['orders'].version}")
+
+    missed = {"missed": lambda i: i.created}
+    hit = {"hit unrepaired": lambda i: i.reused and not i.repaired}
+    repaired = {"was repaired": lambda i: i.reused and i.repaired}
+    t_batch = time.perf_counter()
+    run_burst("burst", burst, missed)
+    run_burst("replay", burst, hit)
+    m = int(round(APPEND_FRAC * beng.db["lineitem"].num_rows))
+    timed(f"append_rows of {m} lineitem rows",
+          lambda: beng.append_rows("lineitem", _lineitem_batch(rng, m, n_lineitem)))
+    run_burst("after append", burst, repaired)
+    ship = to_host(beng.db["lineitem"]["l_shipdate"])
+    lo = 8036 + 365 * 3  # the fourth year of shipdates
+    timed(f"delete_rows of l_shipdate year [{lo}, {lo + 365})",
+          lambda: beng.delete_rows("lineitem", (ship >= lo) & (ship < lo + 365)))
+    run_burst("after delete", burst, repaired)
+    require(stats["after delete"].get("sketch_maintained", 0) == 2 * len(burst)
+            and stats["after delete"].get("sketch_recaptured", 0) == 0,
+            "the fact-table mutations were not all maintained")
+    odate = to_host(beng.db["orders"]["o_orderdate"])
+    lo = 8036 + 365 * 2  # the third year of orderdates: their lineitems dangle
+    timed(f"delete_rows of orders o_orderdate year [{lo}, {lo + 365})",
+          lambda: beng.delete_rows("orders", (odate >= lo) & (odate < lo + 365)))
+    # The single-node hit path checks the fact table's version only (as the
+    # reference's): the sketches stay, and stay sufficient (counts only fall).
+    run_burst("after orders delete", burst, hit, current=[])
+    recaptured0 = stats["after orders delete"].get("sketch_recaptured", 0)
+    timed(f"append_rows of {m} lineitem rows",
+          lambda: beng.append_rows("lineitem", _lineitem_batch(rng, m, n_lineitem)))
+    # Each join maintainer now meets a moved dimension and refuses, so every
+    # repair re-captures.
+    run_burst("after second append", burst, repaired)
+    recaptured = stats["after second append"].get("sketch_recaptured", 0) - recaptured0
+    log(f"[join] the lineitem append after the orders delete re-captured {recaptured} of "
+        f"{len(burst)} join sketches")
+    require(recaptured == len(burst),
+            f"{recaptured} re-captures for {len(burst)} join sketches kept across the orders delete")
+    # Every count fell by about a seventh with the orders delete, so the
+    # burst's thresholds hold no group now: a burst with thresholds taken
+    # anew from this version, and its replay, put real output under the
+    # checks.
+    fresh = burst_at(beng.db, beng.catalog)
+    run_burst("new thresholds", fresh, missed)
+    out = run_burst("new thresholds, replay", fresh, hit)
+    require(sum(len(res.values) > 0 for res, _ in out) >= len(fresh) // 2,
+            "the burst with new thresholds holds too few groups")
+    # These sketches were captured over the mutated dimension, so a fact
+    # append is maintained, not re-captured: the join maintainers' repairs
+    # past a dimension mutation, with real output under the checks.
+    timed(f"append_rows of {m} lineitem rows",
+          lambda: beng.append_rows("lineitem", _lineitem_batch(rng, m, n_lineitem)))
+    out = run_burst("new thresholds, after a third append", fresh, repaired, current=fresh)
+    before, after = stats["new thresholds, replay"], stats["new thresholds, after a third append"]
+    require(after.get("sketch_maintained", 0) - before.get("sketch_maintained", 0) == len(fresh)
+            and after.get("sketch_recaptured", 0) == before.get("sketch_recaptured", 0),
+            "the append after the re-capture was not maintained")
+    require(sum(len(res.values) > 0 for res, _ in out) >= len(fresh) // 2,
+            "the burst after the third append holds too few groups")
+    log(f"[join] run_batch and maintenance in {time.perf_counter() - t_batch:.1f} s")
+    batch_launches = {k: LAUNCH_COUNTS[k] for k in BUILT}
+    attrs = collections.Counter(e.sketch.attr for e in beng.index.entries())
+    attr = attrs.most_common(1)[0][0]
+
+    # -- sharded ----------------------------------------------------------------
+    sync()
+    t0 = time.perf_counter()
+    se = ShardedEngine(db, "lineitem", attr, n_shards=N_SHARDS, n_ranges=100,
+                       strategy="CB-OPT-GB", theta=0.05, seed=seed)
+    sync()
+    log(f"[join] ShardedEngine on {attr} built in {time.perf_counter() - t0:.2f} s: shard rows "
+        f"{[int(s.table.num_rows) for s in se.shards]}")
+    launch_log = {}
+
+    def shard_burst(label, expect, qs=burst):
+        before = {k: LAUNCH_COUNTS[k] for k in (*BUILT, "fused_partials")}
+        sync()
+        t0 = time.perf_counter()
+        out = se.run_batch(qs)
+        sync()
+        wall = time.perf_counter() - t0
+        launch_log[label] = {k: LAUNCH_COUNTS[k] - v for k, v in before.items()
+                             if LAUNCH_COUNTS[k] != v}
+        route = se.last_route if any(info.reused for _, info in out) else None
+        for i, (q, (res, info)) in enumerate(zip(qs, out)):
+            log(f"[join] {label} q{i} >{q.having.value:g} "
+                f"{'hit ' if info.reused else 'miss'} created={info.created} "
+                f"shards contacted={info.shards_contacted} skipped={info.shards_skipped} "
+                f"total={info.t_total * 1e3:.1f}ms groups_out={len(res.values)}")
+        n_degraded = sum(bool(info.degraded) for _, info in out)
+        log(f"[join] {label}: {wall * 1e3:.1f} ms wall; launches {launch_log[label]}; route "
+            f"fused={route.fused if route else None} "
+            f"launch={route.t_launch_s * 1e3 if route else 0:.3f}ms degraded {n_degraded}")
+        require(n_degraded == 0 and not (route and route.degraded),
+                f"{label}: results were served degraded (health {se.health})")
+        for what, cond in expect.items():
+            require(all(cond(info) for _, info in out), f"{label}: not every query {what}")
+        checks.append((label, se.db, qs, out))
+        return out
+
+    shard_burst("sharded burst", {"missed": lambda i: i.created})
+    fused_out = shard_burst("sharded replay", {"hit": lambda i: i.reused})
+    require(launch_log["sharded replay"].get("fused_partials") == 1
+            and launch_log["sharded replay"].get("segment_aggregate_batch") == (
+                1 if dev.type == "cuda" else None),
+            f"the sharded replay took {launch_log['sharded replay']}, not one fused launch")
+    se.fused = False
+    loop_out = shard_burst("sharded replay, host loop", {"hit": lambda i: i.reused})
+    se.fused = True
+    for i, ((rf, _), (rl, _)) in enumerate(zip(fused_out, loop_out)):
+        require(np.array_equal(rf.values, rl.values)
+                and sorted(rf.group_values) == sorted(rl.group_values)
+                and all(np.array_equal(rf.group_values[a], rl.group_values[a])
+                        for a in rf.group_values),
+                f"q{i}: the fused and host-loop results differ")
+    log(f"[join] fused and host-loop results equal bit for bit ({len(burst)} queries)")
+    shard_burst("sharded replay, fused again", {"hit": lambda i: i.reused})
+    odate = to_host(se.db["orders"]["o_orderdate"])
+    lo = 8036 + 365 * 2
+    t0 = time.perf_counter()
+    se.delete_rows("orders", (odate >= lo) & (odate < lo + 365))
+    log(f"[join] sharded orders delete: {(time.perf_counter() - t0) * 1e3:.1f} ms; index "
+        f"entries {len(se.engine.index)}, registrations {len(se._registered)}")
+    require(len(se.engine.index) == 0 and not se._registered,
+            "the orders delete did not evict the join sketches")
+    shard_burst("sharded after orders delete", {"re-captured": lambda i: i.created and not i.reused})
+    shard_burst("sharded after orders delete, replay", {"hit": lambda i: i.reused})
+    # As on one node, the old thresholds hold no group now: thresholds taken
+    # anew put the re-captured sharded join under the checks with output.
+    sfresh = burst_at(se.db, se.engine.catalog)
+    shard_burst("sharded, new thresholds", {"missed": lambda i: i.created}, sfresh)
+    out = shard_burst("sharded, new thresholds, replay", {"hit": lambda i: i.reused}, sfresh)
+    require(sum(len(res.values) > 0 for res, _ in out) >= len(sfresh) // 2,
+            "the sharded burst with new thresholds holds too few groups")
+    launches = {k: LAUNCH_COUNTS[k] for k in BUILT}
+    rows_launches = LAUNCH_COUNTS[ROWS_COUNTER]
+    t_drive = time.perf_counter() - t_phase
+    log(f"[join] driven in {t_drive:.1f} s; launches run {run_launches}, with run_batch "
+        f"{batch_launches}, all {launches}")
+
+    if dev.type == "cuda":
+        for name in JOIN_KERNELS:
+            require(launches[name] > 0, f"kernel {name} was not launched in phase 7")
+        require_compacted("join", launches["sketch_filter"], rows_launches)
+
+    # Where a join miss's host time goes: the join, the joined table's group
+    # encode, against the device aggregation it feeds (after the counts were
+    # read: this launch is no request's).
+    q = max(workload, key=lambda q: len(q.groupby))
+    sync()
+    t0 = time.perf_counter()
+    flat, _ = Catalog().join(db["lineitem"], db["orders"], join.left_key, join.right_key)
+    sync()
+    t_join = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gid, n_groups, _ = encode_groups(flat, q.groupby)
+    t_encode = time.perf_counter() - t0
+    gid_dev = torch.from_numpy(gid).to(dev)
+    vals = flat[q.agg.attr] if q.agg.attr else torch.ones(flat.num_rows, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    segment_sums_counts(vals, gid_dev, n_groups)
+    sync()
+    t_agg = time.perf_counter() - t0
+    log(f"[join] one join miss, {flat.num_rows} joined rows, group-by {'/'.join(q.groupby)} "
+        f"({n_groups} groups): host Catalog.join {t_join * 1e3:.1f} ms, host encode_groups "
+        f"{t_encode * 1e3:.1f} ms, device segment_sums_counts {t_agg * 1e3:.2f} ms")
+    del flat, gid_dev, vals
+
+    # Checks, after the counts were read.
+    t0 = time.perf_counter()
+    for label, vdb, entries in captures:
+        if not entries:
+            continue
+        cdb, cat, _ = check_db(vdb)
+        for q, sk in entries:
+            want = capture_sketch(q, cdb, sk.ranges, catalog=cat)
+            require(np.array_equal(want.bits, sk.bits) and want.size_rows == sk.size_rows,
+                    f"{label}: the sketch of {q} differs from a fresh capture")
+        log(f"[join] {label}: {len(entries)} sketches equal a fresh capture")
+    check_all()
+    log(f"[join] checks in {time.perf_counter() - t0:.1f} s; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: sketch-filtered LM serving at full width
 # ---------------------------------------------------------------------------
 
@@ -1667,6 +2204,10 @@ def main() -> int:
     launches["fragment_bitmap_batch"] = batch_launches["fragment_bitmap_batch"]
     shard_launches = phase_shard(ROWS, SEED, db, workload, full_values)
     launches["segment_aggregate_batch"] = shard_launches["segment_aggregate_batch"]
+    del db, workload, full_values
+    join_launches = phase_join(TPCH_SF1_LINEITEM, SEED)
+    for name in JOIN_KERNELS:
+        launches[name] += join_launches[name]
     launches["flash_attention"] = phase_serve(SEED_SERVE)["flash_attention"]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 

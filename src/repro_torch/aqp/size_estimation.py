@@ -1,10 +1,9 @@
 """Sketch-size estimation — Algorithms 1 & 2 and Def. 9 of the paper; port of
-``repro/aqp/size_estimation.py`` for single-table queries (the wander-join
-branch comes with the join slice).
+``repro/aqp/size_estimation.py``.
 
 Pipeline (Fig. 3):
   stratified sample (cached)  ->  AQR: per-group aggregate estimates
-  ->  HAVING on estimates -> G'
+  (wander join when the template joins)  ->  HAVING on estimates -> G'
   ->  fragment incidence of G' under the candidate's range partition
   ->  size  = sum of #R_r over satisfied ranges        (Alg. 2)
       E[size], Frechet lo/hi via pass probabilities    (Def. 9)
@@ -24,6 +23,7 @@ from repro_torch import prng
 from repro_torch.aqp.bootstrap import bootstrap_group_means
 from repro_torch.aqp.estimators import GroupEstimates, group_estimates, pass_probability
 from repro_torch.aqp.sampling import SampleSet
+from repro_torch.aqp.wander_join import JoinIndex, join_sample_values
 from repro_torch.device import to_host
 from repro_torch.runtime.guards import hot_path
 
@@ -69,20 +69,26 @@ def aqr_estimates(
     Depends only on the query's FROM/WHERE/GROUP BY/aggregate, not on the
     HAVING chain.
     """
-    from repro_torch.core.queries import JOIN_SLICE
-
-    if q.join is not None:
-        raise NotImplementedError(JOIN_SLICE)
     fact = db[q.table]
     sample_rows = fact.gather(torch.from_numpy(samples.indices))
-    kb, _kw = prng.split(key)  # the reference's second key feeds wander join
-    fn = q.agg.fn
-    values = None if fn == "count" else sample_rows[q.agg.attr]
-    pred = (
-        q.where.mask(sample_rows)
-        if q.where is not None
-        else torch.ones(samples.num_samples, dtype=torch.bool, device=fact.device)
-    )
+    kb, kw = prng.split(key)
+    if q.join is not None:
+        right = db[q.join.right]
+        v, u = join_sample_values(kw, JoinIndex.build(right, q.join.right_key), right,
+                                  sample_rows, q.join, q.agg.attr, q.where)
+        # Wander-join contributions already fold the fan-out; the group scaler
+        # #g/#s_g is applied by the Haas estimator below with fn='sum'.
+        fn = "sum" if q.agg.fn != "avg" else "avg"
+        values = torch.from_numpy(v.astype(np.float32)).to(fact.device)
+        pred = torch.from_numpy(u).to(fact.device)
+    else:
+        fn = q.agg.fn
+        values = None if fn == "count" else sample_rows[q.agg.attr]
+        pred = (
+            q.where.mask(sample_rows)
+            if q.where is not None
+            else torch.ones(samples.num_samples, dtype=torch.bool, device=fact.device)
+        )
 
     est = group_estimates(fn, values, pred, samples.sample_gid, samples.n_groups,
                           samples.group_sizes, z=cfg.z)

@@ -276,12 +276,13 @@ def admit_wave(
         te0 = time.perf_counter()
         ib = inner_block(db, members[0][1], catalog)
         ib_share = (time.perf_counter() - te0) / len(members)
+        n_fact = db[members[0][1].table].num_rows
         for pos, q in members:
             tq0 = time.perf_counter()
             results[pos] = result_from_group_state(
                 q, ib.group_values, ib.agg_np, ib.present, ib.flat.device)
             if pos in admitted:
-                provs[pos] = provenance_from_inner(q, ib)
+                provs[pos] = provenance_from_inner(q, ib, n_fact)
             t_exec[pos] = ib_share + (time.perf_counter() - tq0)
 
     # Fused capture: one bucketize + one batched bitmap launch per partition.

@@ -21,11 +21,17 @@ add or subtract per-fragment counts, gather the kept rows)
 instead of redoing the full-table host work.  The ``*_delta`` stat counters
 separate that delta-sized work from full misses.
 
+Join layouts (``join``): the materialized equi-join of a fact table with a
+dimension (the right key unique) and each joined row's fact row.  The key
+sort and ``searchsorted`` run on the host, as in the reference, the column
+gathers on the tables' device.  A mutated fact table joins only its delta:
+an append joins the batch and is built as an append of the parent's joined
+table (so the joined relation's encodings delta-refresh like a base
+table's), a delete drops the joined rows of the deleted fact rows.
+
 The sharded engine (``repro_torch.core.shard``) also keeps its stacked
 shard-major launch inputs here, keyed by registration and guarded by a
 freshness token (``get_stacked``/``put_stacked``/``drop_stacked``).
-
-Not in this slice: join layouts.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from typing import TYPE_CHECKING, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.table import ColumnTable, encode_groups
+from repro_torch.core.table import ColumnTable, encode_groups, unique_rows
 from repro_torch.device import to_host
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
@@ -68,14 +74,13 @@ def map_group_keys(
     """Map a batch of stacked group-key rows through an existing dictionary.
 
     Known keys take their existing gid; unseen ones get fresh ids in the
-    order ``np.unique`` lists them (``key_index`` is mutated in place), or
+    order ``unique_rows`` lists them (``key_index`` is mutated in place), or
     raise ``KeyError`` when ``grow=False``.  The shared primitive of the
     catalog's encoding refresh, sketch maintainers and sample extension.
     Returns ``(gid per batch row, unseen unique key rows in assignment
     order, new group count)``.
     """
-    uniq, inv = np.unique(stacked, axis=0, return_inverse=True)
-    inv = inv.reshape(-1)
+    uniq, inv = unique_rows(stacked)
     mapped = np.empty(uniq.shape[0], dtype=np.int64)
     new_rows = []
     for i, row in enumerate(uniq):
@@ -127,8 +132,43 @@ def extend_encoding(
                          group_values, key_index)
 
 
+def join_rows(
+    fact_cols: Dict[str, torch.Tensor],
+    right: ColumnTable,
+    left_key: str,
+    right_key: str,
+) -> Tuple[Dict[str, torch.Tensor], np.ndarray, np.ndarray]:
+    """Inner equi-join of a column batch against ``right`` (right key unique).
+
+    Returns ``(joined columns, matched batch row ids, right row ids)``; the
+    joined rows keep the batch's row order.  A right column whose name the
+    batch already has becomes ``<right>.<attr>``, so a delta batch joins
+    byte-compatibly with its parent layout.  The key sort and search run on
+    the host, the column gathers on the columns' device.
+    """
+    lk = to_host(fact_cols[left_key])
+    rk = to_host(right[right_key])
+    order = np.argsort(rk, kind="stable")
+    rk_sorted = rk[order]
+    pos = np.searchsorted(rk_sorted, lk)
+    pos_clip = np.minimum(pos, len(rk_sorted) - 1)
+    matched = rk_sorted[pos_clip] == lk
+    fact_idx = np.nonzero(matched)[0]
+    right_idx = order[pos_clip[fact_idx]]
+
+    cols: Dict[str, torch.Tensor] = {}
+    fact_take = torch.from_numpy(fact_idx).to(fact_cols[left_key].device)
+    right_take = torch.from_numpy(right_idx).to(right.device)
+    for a in sorted(fact_cols):
+        cols[a] = fact_cols[a].index_select(0, fact_take)
+    for a in right.schema:
+        name = a if a not in cols else f"{right.name}.{a}"
+        cols[name] = right[a].index_select(0, right_take)
+    return cols, fact_idx, right_idx
+
+
 class Catalog:
-    """Cross-query cache of encodings, bucketizations and instances.
+    """Cross-query cache of encodings, bucketizations, joins and instances.
 
     Every map is bounded FIFO (``max_entries`` per map): entries hold strong
     table references to keep their id() keys valid.
@@ -140,6 +180,8 @@ class Catalog:
         self._groups: Dict[Tuple[int, Tuple[str, ...]], Tuple[ColumnTable, GroupEncoding]] = {}
         self._buckets: Dict[Tuple[int, Tuple], Tuple[ColumnTable, torch.Tensor]] = {}
         self._frag_sizes: Dict[Tuple[int, Tuple], Tuple[ColumnTable, np.ndarray]] = {}
+        self._joins: Dict[Tuple[int, int, str, str],
+                          Tuple[ColumnTable, ColumnTable, ColumnTable, np.ndarray]] = {}
         self._instances: Dict[Tuple[int, int], Tuple[object, ColumnTable, ColumnTable]] = {}
         self._distinct: Dict[Tuple[int, str], Tuple[ColumnTable, int, np.ndarray]] = {}
         self._nonneg: Dict[Tuple[int, str], Tuple[ColumnTable, bool]] = {}
@@ -168,6 +210,8 @@ class Catalog:
                       self._distinct, self._nonneg, self._wheres):
             for k in [k for k in cache if k[0] == tid]:
                 del cache[k]
+        for k in [k for k in self._joins if tid in (k[0], k[1])]:
+            del self._joins[k]
         for k in [k for k in self._instances if k[1] == tid]:
             del self._instances[k]
         for k in [k for k, v in self._instance_rows.items()
@@ -382,6 +426,44 @@ class Catalog:
         mask = pred.mask(table)
         self._put(self._wheres, key, (table, mask))
         return mask
+
+    # -- join layouts ---------------------------------------------------------
+    def join(
+        self, fact: ColumnTable, right: ColumnTable, left_key: str, right_key: str
+    ) -> Tuple[ColumnTable, np.ndarray]:
+        """Materialized equi-join (right key unique) and the fact row of each
+        joined row.  Fact rows with no partner are dropped (inner join);
+        right columns are prefixed with ``<right>.`` when their name
+        collides."""
+        key = (id(fact), id(right), left_key, right_key)
+        hit = self._joins.get(key)
+        if hit is not None and hit[0] is fact and hit[1] is right:
+            self.stats["join_hit"] += 1
+            return hit[2], hit[3]
+        d = fact.delta
+        if d is not None:
+            p_joined, p_fact_idx = self.join(d.parent, right, left_key, right_key)
+            if d.kind == "append":
+                cols_new, b_idx, _ = join_rows(d.appended.columns, right, left_key, right_key)
+                # The new joined table is an append of its parent, so the
+                # joined relation has a delta chain of its own.
+                joined = p_joined.append({a: to_host(cols_new[a]) for a in p_joined.schema})
+                fact_idx = np.concatenate([p_fact_idx, b_idx + d.parent.num_rows])
+            else:
+                keep_row = np.zeros(d.parent.num_rows, dtype=bool)
+                keep_row[d.kept_idx] = True
+                old_to_new = np.cumsum(keep_row) - 1
+                joined_keep = keep_row[p_fact_idx]
+                joined = p_joined.delete(~joined_keep)
+                fact_idx = old_to_new[p_fact_idx[joined_keep]]
+            self.stats["join_delta"] += 1
+            self._put(self._joins, key, (fact, right, joined, fact_idx))
+            return joined, fact_idx
+        self.stats["join_materialize"] += 1
+        cols, fact_idx, _ = join_rows(fact.columns, right, left_key, right_key)
+        joined = ColumnTable(f"{fact.name}_join_{right.name}", cols, fact.primary_key)
+        self._put(self._joins, key, (fact, right, joined, fact_idx))
+        return joined, fact_idx
 
     # -- sketch instances (D_P) ----------------------------------------------
     def get_instance(self, sketch: object, table: ColumnTable) -> Optional[ColumnTable]:

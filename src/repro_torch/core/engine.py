@@ -1,5 +1,5 @@
 """PBDSEngine — the Fig. 3 workflow as one online component (port of
-``repro/core/engine.py``, single-table templates).
+``repro/core/engine.py``).
 
 For each incoming query:
   1. probe the sketch index; on a hit, bring the sketch current if its table

@@ -25,8 +25,12 @@ a stale set bit merely skips less, a wrongly cleared one would be unsafe.
 The state lives on the host with the reference's dtypes (float64
 ``np.add.at``, int64 ``bincount``, a dict of dicts for the incidence), so
 the counters are equal bits to the reference's.  The delta rows come from
-the table's device once per delta.  Joins are not ported: a join query
-raises ``MaintenanceError`` everywhere, so ``repair_sketch`` re-captures.
+the table's device once per delta.
+
+Join templates are maintained for mutations of the *fact* table: the delta
+batch alone is joined against the dimension table, held by identity.  A
+mutated dimension table raises ``MaintenanceError`` and ``repair_sketch``
+re-captures.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from repro_torch.core.catalog import (
     Catalog,
     default_catalog,
     extend_group_values,
+    join_rows,
     map_group_keys,
 )
 from repro_torch.core.queries import _OPS, Query, provenance_group_keep
@@ -48,8 +53,6 @@ from repro_torch.core.safety import monotone_safe
 from repro_torch.core.sketch import ProvenanceSketch
 from repro_torch.core.table import ColumnTable, Database, TableDelta
 from repro_torch.device import to_host
-
-JOIN_REFUSED = "join queries are not maintained until the join slice; re-capture"
 
 
 class MaintenanceError(RuntimeError):
@@ -86,8 +89,6 @@ class SketchMaintainer:
         if not isinstance(ranges, RangeSet):
             raise MaintenanceError("only single-attribute RangeSet partitions "
                                    "are maintainable; composite sketches re-capture")
-        if q.join is not None:
-            raise MaintenanceError(JOIN_REFUSED)
         catalog = catalog or default_catalog()
         self.q = q
         self.ranges = ranges
@@ -97,18 +98,25 @@ class SketchMaintainer:
         self.version = fact.version
         self.exact = monotone_safe(q, db, catalog)
         self.conservative = False
+        self.right = db[q.join.right] if q.join is not None else None
 
-        enc = catalog.groups(fact, q.groupby)
-        frag = to_host(catalog.bucketize(fact, ranges))
+        if q.join is not None:
+            flat, fact_idx = catalog.join(fact, self.right, q.join.left_key,
+                                          q.join.right_key)
+        else:
+            flat, fact_idx = fact, None
+        enc = catalog.groups(flat, q.groupby)
+        bucket = to_host(catalog.bucketize(fact, ranges))
+        frag = bucket if fact_idx is None else bucket[fact_idx]
         where = _predicate_mask(
-            q, {a: to_host(fact[a]) for a in ([q.where.attr] if q.where else [])},
-            fact.num_rows)
+            q, {a: to_host(flat[a]) for a in ([q.where.attr] if q.where else [])},
+            flat.num_rows)
         if q.agg.fn == "count":
-            values = np.ones(fact.num_rows, dtype=np.float64)
+            values = np.ones(flat.num_rows, dtype=np.float64)
             self._values_integral = True
         else:
-            values = to_host(fact[q.agg.attr]).astype(np.float64)
-            self._values_integral = _is_integral(fact[q.agg.attr])
+            values = to_host(flat[q.agg.attr]).astype(np.float64)
+            self._values_integral = _is_integral(flat[q.agg.attr])
 
         # Private copies: the maintainer must outlive catalog evictions.
         self.n_groups = enc.n_groups
@@ -150,6 +158,7 @@ class SketchMaintainer:
         m.version = self.version
         m.exact = monotone_safe(q, db, catalog or default_catalog())
         m.conservative = False
+        m.right = self.right
         m._values_integral = self._values_integral
         m.n_groups = self.n_groups
         m.key_index = dict(self.key_index)
@@ -174,8 +183,9 @@ class SketchMaintainer:
     def state_dict(self) -> dict:
         """Portable counter state: per-group aggregates, the deduped (group,
         fragment) incidence and the threshold products, pinned to the fact
-        table's (uid, version) so a restore can delta-replay forward with
-        ``apply``.  ``key_index`` is rebuilt on restore."""
+        table's (uid, version), and the join dimension's when there is one,
+        so a restore can delta-replay forward with ``apply``.  ``key_index``
+        is rebuilt on restore."""
         gs: List[int] = []
         fs: List[int] = []
         cs: List[int] = []
@@ -190,8 +200,8 @@ class SketchMaintainer:
             "exact": bool(self.exact),
             "conservative": bool(self.conservative),
             "values_integral": bool(self._values_integral),
-            "right_uid": None,
-            "right_version": None,
+            "right_uid": None if self.right is None else self.right.uid,
+            "right_version": None if self.right is None else self.right.version,
             "n_groups": int(self.n_groups),
             "group_values": {a: v.copy() for a, v in self.group_values.items()},
             "sums": self.sums.copy(),
@@ -208,12 +218,12 @@ class SketchMaintainer:
     def from_state(cls, q: Query, db: Database, ranges: RangeSet,
                    state: dict) -> "SketchMaintainer":
         """Resurrect a maintainer from ``state_dict`` output; raises
-        ``MaintenanceError`` when the state is for another lineage."""
+        ``MaintenanceError`` when the state is for another lineage or its
+        join dimension is at another version than the counters were folded
+        against."""
         if not isinstance(ranges, RangeSet):
             raise MaintenanceError("only single-attribute RangeSet partitions "
                                    "are maintainable; composite sketches re-capture")
-        if q.join is not None:
-            raise MaintenanceError(JOIN_REFUSED)
         fact = db[q.table]
         if state["table_uid"] != fact.uid:
             raise MaintenanceError(
@@ -228,6 +238,15 @@ class SketchMaintainer:
         m.exact = bool(state["exact"])
         m.conservative = bool(state["conservative"])
         m._values_integral = bool(state["values_integral"])
+        if q.join is not None:
+            right = db[q.join.right]
+            if (right.uid != state["right_uid"]
+                    or right.version != state["right_version"]):
+                raise MaintenanceError("join dimension table moved since the "
+                                       "state was replicated; re-capture")
+            m.right = right
+        else:
+            m.right = None
         m.n_groups = int(state["n_groups"])
         m.group_values = {a: np.asarray(v).copy()
                           for a, v in state["group_values"].items()}
@@ -305,10 +324,16 @@ class SketchMaintainer:
         return gid, where, values
 
     def _delta_cols(self, batch: ColumnTable) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
-        """A delta batch's columns on the host, and its rows' fragment ids
-        (bucketized on the batch's device, in float32 as every capture is)."""
+        """A delta batch's flat columns on the host, and the fragment id of
+        each flat row's fact row (bucketized on the batch's device, in
+        float32 as every capture is).  With a join the flat rows are the
+        batch rows that have a partner, joined."""
         frag = to_host(self.ranges.bucketize(batch[self.ranges.attr]))
-        return {a: to_host(batch[a]) for a in batch.schema}, frag
+        if self.q.join is None:
+            return {a: to_host(batch[a]) for a in batch.schema}, frag
+        cols, b_idx, _ = join_rows(batch.columns, self.right, self.q.join.left_key,
+                                   self.q.join.right_key)
+        return {a: to_host(v) for a, v in cols.items()}, frag[b_idx]
 
     # -- delta application -----------------------------------------------------
     def _update_rows(self, gid: np.ndarray, frag: np.ndarray, where: np.ndarray,
@@ -388,8 +413,8 @@ class SketchMaintainer:
         if table.uid != self.table_uid:
             raise MaintenanceError(
                 f"table lineage changed (uid {table.uid} != {self.table_uid})")
-        if self.q.join is not None:
-            raise MaintenanceError(JOIN_REFUSED)
+        if self.q.join is not None and db[self.q.join.right] is not self.right:
+            raise MaintenanceError("join dimension table mutated; re-capture")
         chain: List[TableDelta] = []
         t = table
         while t.version > self.version:

@@ -1,12 +1,12 @@
-"""Query IR + executor for the paper's single-table templates (port of
+"""Query IR + executor for the paper's templates (port of
 ``repro/core/queries.py``).
 
-Templates: Q-AGH (aggregation-groupby-having, optional WHERE/HAVING) and
-the nested Q-AAGH.  The join templates (Q-AJGH, Q-AAJGH) raise
-``NotImplementedError`` until the join slice.  Group-by encodings and
-bucketizations are catalog state; per-row aggregation runs on the tables'
-device through ``repro_torch.kernels.ops.segment_aggregate`` (the CUDA
-kernel on the card, its plain version on the CPU).  The inner
+Templates: Q-AGH (aggregation-groupby-having, optional WHERE/HAVING),
+Q-AJGH (with an equi-join of the fact table against a dimension whose key
+is unique), and the nested Q-AAGH and Q-AAJGH.  Group-by encodings, join
+layouts and bucketizations are catalog state; per-row aggregation runs on
+the tables' device through ``repro_torch.kernels.ops.segment_aggregate``
+(the CUDA kernel on the card, its plain version on the CPU).  The inner
 FROM/WHERE/GROUP BY/agg block is evaluated once per query and shared between
 the result and the provenance (``execute_and_provenance``).
 """
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.catalog import Catalog, default_catalog
-from repro_torch.core.table import PAD_VALID, ColumnTable, Database
+from repro_torch.core.table import PAD_VALID, ColumnTable, Database, unique_rows
 from repro_torch.device import to_host
 from repro_torch.runtime.guards import hot_path
 
@@ -30,8 +30,6 @@ _OPS = {
     "<=": lambda x, v: x <= v,
     "=": lambda x, v: x == v,
 }
-
-JOIN_SLICE = "join templates come with the join slice of the port (Catalog.join, wander join)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,6 +218,20 @@ def segment_aggregate(
 
 
 # ---------------------------------------------------------------------------
+# Join materialization (right key unique, e.g. orders.orderkey)
+# ---------------------------------------------------------------------------
+
+
+def materialize_join(
+    db: Database, q: Query, catalog: Optional[Catalog] = None
+) -> Tuple[ColumnTable, np.ndarray]:
+    """The joined flat table and, per joined row, its fact-table row; built
+    once per (fact, right, keys) in the catalog."""
+    catalog = catalog or default_catalog()
+    return catalog.join(db[q.table], db[q.join.right], q.join.left_key, q.join.right_key)
+
+
+# ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
 
@@ -228,11 +240,13 @@ def segment_aggregate(
 class InnerBlock:
     """Products of the FROM/WHERE/GROUP BY/agg inner block, computed once.
 
-    ``present[g]`` is True iff group ``g`` has at least one row passing
-    WHERE.
+    ``fact_idx`` maps flat rows back to fact-table rows (``None`` means the
+    identity: no join).  ``present[g]`` is True iff group ``g`` has at least
+    one row passing WHERE.
     """
 
     flat: ColumnTable
+    fact_idx: Optional[np.ndarray]
     gid: np.ndarray
     n_groups: int
     group_values: Dict[str, np.ndarray]
@@ -275,12 +289,14 @@ def _inner_block(db: Database, q: Query, catalog: Optional[Catalog] = None) -> I
     aggregate values and group presence."""
     catalog = catalog or default_catalog()
     if q.join is not None:
-        raise NotImplementedError(JOIN_SLICE)
-    flat = db[q.table]
+        flat, fact_idx = materialize_join(db, q, catalog)
+    else:
+        flat, fact_idx = db[q.table], None
     enc, where_mask, sums, counts = inner_group_partials(q, flat, catalog)
     agg = _finalize_aggregate(q.agg.fn, sums, counts)
     return InnerBlock(
         flat=flat,
+        fact_idx=fact_idx,
         gid=enc.gid,
         n_groups=enc.n_groups,
         group_values=enc.group_values,
@@ -336,7 +352,7 @@ def result_from_group_state(
     if stacked.shape[0] == 0:
         return QueryResult(group_values={a: np.empty(0) for a in q.outer_groupby},
                            values=np.empty(0))
-    uniq, ogid = np.unique(stacked, axis=0, return_inverse=True)
+    uniq, ogid = unique_rows(stacked)
     n_outer = uniq.shape[0]
     outer_np = _outer_values(q, inner_vals, ogid, n_outer, device)
     keep = np.ones(n_outer, dtype=bool)
@@ -372,8 +388,7 @@ def provenance_group_keep(
             stacked = np.stack(
                 [group_values[a][inner_idx] for a in q.outer_groupby], axis=1
             )
-            uniq, ogid = np.unique(stacked, axis=0, return_inverse=True)
-            ogid = ogid.reshape(-1)
+            uniq, ogid = unique_rows(stacked)
             outer_vals = _outer_values(q, agg_np[inner_idx], ogid, uniq.shape[0], device)
             outer_keep = np.ones(uniq.shape[0], dtype=bool)
             if q.outer_having is not None:
@@ -386,19 +401,25 @@ def provenance_group_keep(
     return inner_keep
 
 
-def _provenance_from_inner(q: Query, ib: InnerBlock) -> np.ndarray:
+def _provenance_from_inner(q: Query, ib: InnerBlock, n_fact_rows: int) -> np.ndarray:
+    """The provenance over the fact table's ``n_fact_rows`` rows: a joined
+    block's kept rows scattered back to their fact rows, so a fact row with
+    no partner is never in it."""
     inner_keep = provenance_group_keep(q, ib.agg_np, ib.group_values, ib.n_groups,
                                        ib.flat.device)
-    return inner_keep[ib.gid] & ib.where_np
+    row_keep = inner_keep[ib.gid] & ib.where_np
+    if ib.fact_idx is None:
+        return row_keep
+    mask = np.zeros(n_fact_rows, dtype=bool)
+    mask[ib.fact_idx[row_keep]] = True
+    return mask
 
 
 # Public names for the inner-block products: batched admission
 # (``repro_torch.core.admission``) evaluates the shared FROM/WHERE/GROUP
 # BY/agg block once per signature group and derives every member's result
 # and provenance from the same ``InnerBlock``; the group-level tails are pure
-# functions of it, so sharing is bit-exact.  Without joins the inner block's
-# rows are the fact table's rows, so ``provenance_from_inner`` takes no
-# ``n_fact_rows`` (the reference's scatters a joined block back through it).
+# functions of it, so sharing is bit-exact.
 inner_block = _inner_block
 result_from_inner = _result_from_inner
 provenance_from_inner = _provenance_from_inner
@@ -411,8 +432,9 @@ def execute(q: Query, db: Database, catalog: Optional[Catalog] = None) -> QueryR
 
 def provenance_mask(q: Query, db: Database, catalog: Optional[Catalog] = None) -> np.ndarray:
     """Lineage P(Q, D) as a boolean mask over the fact table's rows: a row is
-    in it iff it satisfies WHERE and its group survives the HAVING chain."""
-    return _provenance_from_inner(q, _inner_block(db, q, catalog))
+    in it iff it satisfies WHERE, joins (for the join templates) and its
+    group survives the HAVING chain."""
+    return _provenance_from_inner(q, _inner_block(db, q, catalog), db[q.table].num_rows)
 
 
 @hot_path
@@ -422,4 +444,4 @@ def execute_and_provenance(
     """Fused capture+execute path: one inner-block evaluation yields both the
     query result and the provenance mask."""
     ib = _inner_block(db, q, catalog)
-    return _result_from_inner(q, ib), _provenance_from_inner(q, ib)
+    return _result_from_inner(q, ib), _provenance_from_inner(q, ib, db[q.table].num_rows)

@@ -26,7 +26,9 @@ each shard up to the coordinator's mutation count (the watermark).  When
 the placement attribute is in the (outer) GROUP BY, every group lives on
 one shard, so per-shard maintainers keep the sketch's bits shard-locally
 and the logical bits are their OR; otherwise the coordinator's maintainer
-keeps them.
+keeps them.  Dimension tables are replicated to every shard: a join query's
+local instance is joined with the shard's replica, and a mutated dimension
+is replicated anew and evicts the sketches whose join reads it.
 
 Every shard op is timed against a deadline and a per-(shard, op) straggler
 baseline: a shard past the deadline is served coordinator-side until it
@@ -58,7 +60,7 @@ from repro_torch.core.queries import (
     result_from_group_state,
 )
 from repro_torch.core.ranges import RangeSet, equi_depth_ranges
-from repro_torch.core.table import ColumnTable, Database, FragmentLayout
+from repro_torch.core.table import ColumnTable, Database, FragmentLayout, unique_rows
 from repro_torch.device import to_host
 from repro_torch.runtime.guards import LAUNCH_COUNTS, SHAPE_CLASSES, hot_path
 from repro_torch.runtime.resilience import StragglerMonitor
@@ -322,15 +324,31 @@ class FragmentShard:
         self._inst[key] = (token, inst)
         return inst
 
+    def joined_instance(self, q: Query, key: int, ranges: RangeSet,
+                        bits: np.ndarray) -> ColumnTable:
+        """The local sketch instance, joined with the shard's replica of the
+        query's dimension table when the query joins."""
+        return _joined(q, self._instance(key, ranges, bits), self.dims, self.catalog)
+
     def partial(
         self, q: Query, key: int, ranges: RangeSet, bits: np.ndarray
     ) -> Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]:
         """Per-group partial aggregates over the local sketch instance:
         ``(group key values, sums, WHERE-passing counts)``; the coordinator
         re-keys on the values, so local numbering is never coordinated."""
-        inst = self._instance(key, ranges, bits)
-        enc, _, sums, counts = inner_group_partials(q, inst, self.catalog)
+        enc, _, sums, counts = inner_group_partials(
+            q, self.joined_instance(q, key, ranges, bits), self.catalog)
         return enc.group_values, to_host(sums), to_host(counts)
+
+
+def _joined(q: Query, inst: ColumnTable, dims: Mapping[str, ColumnTable],
+            catalog: Catalog) -> ColumnTable:
+    """``inst`` joined with ``dims[q.join.right]`` through ``catalog`` when
+    ``q`` joins, else ``inst``."""
+    if q.join is None:
+        return inst
+    flat, _ = catalog.join(inst, dims[q.join.right], q.join.left_key, q.join.right_key)
+    return flat
 
 
 # ---------------------------------------------------------------------------
@@ -615,10 +633,18 @@ class ShardedEngine:
             pass  # inbox full; the log carries it
 
     def _replicate_dim(self, table_name: str) -> None:
-        """Replicate a mutated dimension table to the shards (join sketches
-        on it would be evicted; joins are not in this slice)."""
+        """Replicate a mutated dimension table and evict the sketches whose
+        join reads it: sketches are versioned against the fact table only,
+        so serving one across a dimension mutation could return a stale
+        join.  The next query re-captures."""
         for shard in self.shards:
             shard.update_dim(self.engine.db[table_name])
+        for e in list(self.engine.index.entries()):
+            if e.query.join is not None and e.query.join.right == table_name:
+                self.engine.index.remove(e)
+                if e.reg_id:
+                    self._unregister(e.reg_id)
+                    self._emit("evict", e.reg_id)
 
     # -- queries ---------------------------------------------------------------
     @hot_path
@@ -830,7 +856,8 @@ class ShardedEngine:
 
     def _degraded_partial(self, sid: int, q: Query, reg: _Registered, bits: np.ndarray):
         """Coordinator-side stand-in for ``FragmentShard.partial``."""
-        flat = self._degraded_flat(sid, reg, bits)
+        flat = _joined(q, self._degraded_flat(sid, reg, bits), self.db.tables,
+                       self.engine.catalog)
         enc, _, sums, counts = inner_group_partials(q, flat, self.engine.catalog)
         return enc.group_values, to_host(sums), to_host(counts)
 
@@ -879,7 +906,8 @@ class ShardedEngine:
         for sid in contacted_ids:
             if sid in degraded:
                 per_shard.append(inner_block_arrays(
-                    q, self._degraded_flat(sid, reg, bits), catalog))
+                    q, _joined(q, self._degraded_flat(sid, reg, bits), self.db.tables,
+                               catalog), catalog))
             else:
                 per_shard.append(self._shard_call(sid, "instance", functools.partial(
                     self.shards[sid].block_arrays, key, reg.ranges, bits, q)))
@@ -899,8 +927,7 @@ class ShardedEngine:
                                          axis=1))
                     owners.append(i)
             if mats:
-                uniq, inv = np.unique(np.concatenate(mats), axis=0, return_inverse=True)
-                inv = inv.reshape(-1)
+                uniq, inv = unique_rows(np.concatenate(mats))
                 n_groups = int(uniq.shape[0])
                 group_values = {a: uniq[:, i] for i, a in enumerate(attrs)}
                 off = 0
@@ -1220,8 +1247,7 @@ def merge_partials_state(
         counts.append(c.astype(np.float64))
     if not keys:
         return None
-    uniq, inv = np.unique(np.concatenate(keys), axis=0, return_inverse=True)
-    inv = inv.reshape(-1)
+    uniq, inv = unique_rows(np.concatenate(keys))
     sums_m = np.zeros(uniq.shape[0], dtype=np.float64)
     counts_m = np.zeros(uniq.shape[0], dtype=np.float64)
     np.add.at(sums_m, inv, np.concatenate(sums))

@@ -49,9 +49,10 @@ class LoopbackShardClient:
 
     def block_arrays(self, key: int, ranges: RangeSet, bits: np.ndarray, q: Query):
         """One shard's inner-block arrays (encoding, WHERE mask, values) over
-        its sketch instance, for the stacked layout."""
+        its sketch instance (joined when the query joins), for the stacked
+        layout."""
         shard = self._shard
-        return inner_block_arrays(q, shard._instance(key, ranges, bits), shard.catalog)
+        return inner_block_arrays(q, shard.joined_instance(q, key, ranges, bits), shard.catalog)
 
     # -- client-side state ---------------------------------------------------------
     def has_maintainer(self, key: int) -> bool:

@@ -387,15 +387,43 @@ class Database:
         return devices.pop()
 
 
+def unique_rows(stacked: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``np.unique(stacked, axis=0, return_inverse=True)``: the distinct rows
+    of a 2-D array in lexicographic order, and each row's index among them
+    (1-D).  Integer rows whose value ranges pack into one int64 key are
+    found by a 1-D ``np.unique`` of that mixed-radix key, which orders them
+    alike and takes a tenth of the time; other rows take
+    ``np.unique(axis=0)``."""
+    n, k = stacked.shape
+    if n and k and stacked.dtype.kind in "iu":
+        lows = [int(stacked[:, j].min()) for j in range(k)]
+        sizes = [int(stacked[:, j].max()) - lows[j] + 1 for j in range(k)]
+        total = 1
+        for size in sizes:
+            total *= size
+        if total < 2 ** 62:
+            key = np.zeros(n, dtype=np.int64)
+            for j in range(k):
+                key = key * sizes[j] + (stacked[:, j].astype(np.int64) - lows[j])
+            ukey, inv = np.unique(key, return_inverse=True)
+            uniq = np.empty((ukey.shape[0], k), dtype=stacked.dtype)
+            for j in reversed(range(k)):
+                uniq[:, j] = ukey % sizes[j] + lows[j]
+                ukey = ukey // sizes[j]
+            return uniq, inv.reshape(-1)
+    uniq, inv = np.unique(stacked, axis=0, return_inverse=True)
+    return uniq, inv.reshape(-1)
+
+
 def encode_groups(
     table: ColumnTable, attrs: Sequence[str]
 ) -> Tuple[np.ndarray, int, Dict[str, np.ndarray]]:
-    """Dictionary-encode the group-by key on the host (``np.unique``), as
-    the reference does: ``(gid, n_groups, group_values)`` with groups
-    numbered in lexicographic key order."""
+    """Dictionary-encode the group-by key on the host, as the reference
+    does: ``(gid, n_groups, group_values)`` with groups numbered in
+    lexicographic key order (``unique_rows``)."""
     if not attrs:
         return np.zeros(table.num_rows, dtype=np.int32), 1, {}
     stacked = np.stack([to_host(table[a]) for a in attrs], axis=1)
-    uniq, gid = np.unique(stacked, axis=0, return_inverse=True)
+    uniq, gid = unique_rows(stacked)
     group_values = {a: uniq[:, i] for i, a in enumerate(attrs)}
-    return gid.reshape(-1).astype(np.int32), int(uniq.shape[0]), group_values
+    return gid.astype(np.int32), int(uniq.shape[0]), group_values

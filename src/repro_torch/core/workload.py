@@ -1,8 +1,7 @@
 """Synthetic query workloads (Sec. 11.1); port of ``repro/core/workload.py``.
 
 Random instantiations of the Q-AGH / Q-AJGH / Q-AAJGH templates over the
-four datasets (the join specs need the join slice to run), with HAVING
-thresholds drawn from the actual group-aggregate quantiles so workloads mix
+four datasets, with HAVING thresholds drawn from the actual group-aggregate quantiles so workloads mix
 selective and broad queries (like the paper's 1000-query batches).
 
 Also home of the engine's :class:`WorkloadLog` — the bounded window of

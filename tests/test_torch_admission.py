@@ -10,8 +10,8 @@ surviving sets and conservatism), as ``_assert_index_parity`` in
 add float32 in row order on the CPU, so "equal" means equal bits
 everywhere.  Also here: the batched bitmap's plain version against the
 reference's Pallas kernel (interpret mode) and jnp oracle, batched capture
-against per-query capture, the shared-work counters, and a ``cuda`` test of
-the CUDA kernel that skips without a card.
+against per-query capture, the shared-work counters, the join templates'
+batches, and a ``cuda`` test of the CUDA kernel that skips without a card.
 """
 import dataclasses
 
@@ -81,13 +81,16 @@ def _threshold(mod, q, db, quantile):
 
 def _batch(mod, db, dataset, template, quantiles):
     """Queries differing only in HAVING threshold, descending, so that no
-    earlier query subsumes a later one (every query is a miss)."""
+    earlier query subsumes a later one (every query is a miss).  The join
+    templates (tpch only) join lineitem with orders, as
+    ``tests/test_admission.py:72,92`` do."""
     table, gb, (fn, attr), inner_gb, outer_gb = SHAPES[dataset]
-    if template == "Q-AGH":
-        q = mod.Query(table, gb, mod.Aggregate(fn, attr))
+    join = mod.JoinSpec("orders", "l_orderkey", "o_orderkey") if "J" in template else None
+    if template in ("Q-AGH", "Q-AJGH"):
+        q = mod.Query(table, gb, mod.Aggregate(fn, attr), join=join)
         return [dataclasses.replace(q, having=mod.Having(">", _threshold(mod, q, db, qt)))
                 for qt in quantiles]
-    inner = mod.Query(table, inner_gb, mod.Aggregate(fn, attr))
+    inner = mod.Query(table, inner_gb, mod.Aggregate(fn, attr), join=join)
     return [dataclasses.replace(
         inner, having=mod.Having(">", _threshold(mod, inner, db, qt)),
         outer_groupby=outer_gb, outer_agg=mod.Aggregate("sum", None),
@@ -237,6 +240,36 @@ def test_run_batch_matches_reference(dataset, template, tpch, crimes):
     assert snap_t["clock"] == snap_r["clock"]
     assert ([(s, q.signature()) for s, q in snap_t["entries"]]
             == [(s, q.signature()) for s, q in snap_r["entries"]])
+
+
+@pytest.mark.parametrize("template", ["Q-AJGH", "Q-AAJGH"])
+def test_run_batch_join_templates_match_reference(template, tpch):
+    """The join templates' all-miss batches with duplicates: the reference's
+    ``run_batch``, the port's and the port's sequential ``run`` agree, and
+    the signature group's members share one inner-block pass (one join
+    materialization, one group encode of the joined table)."""
+    rdb, tdb = tpch
+    quantiles = (0.95, 0.9, 0.85, 0.8)
+    rq = _batch(R, rdb, "tpch", template, quantiles)
+    tq = _batch(T, tdb, "tpch", template, quantiles)
+    assert [q.signature() for q in tq] == [q.signature() for q in rq]
+    assert {q.template for q in tq} == {template}
+    rq, tq = rq + [rq[0], rq[-1]], tq + [tq[0], tq[-1]]
+    r_eng, t_bat, t_seq = _engines(rdb, tdb)
+    out = _replay(rq, tq, r_eng, t_bat, t_seq, f"tpch {template}")
+    _assert_index_parity(r_eng, t_bat, f"tpch {template}")
+    _assert_index_parity(t_seq, t_bat, f"tpch {template} sequential")
+    assert sum(i.created for _, i in out) >= 2
+    assert sum(i.reused for _, i in out) >= 1
+    assert (t_bat.index.hits, t_bat.index.misses) == (r_eng.index.hits, r_eng.index.misses)
+    assert dict(t_bat.catalog.stats) == dict(r_eng.catalog.stats)
+    # One join layout and encode of the base table (and one per warmed
+    # instance) either way; the batch reads them once per signature group.
+    for counter in ("join_materialize", "encode_groups"):
+        assert t_bat.catalog.stats[counter] == t_seq.catalog.stats[counter], counter
+    assert t_bat.catalog.stats["join_hit"] < t_seq.catalog.stats["join_hit"]
+    for e in t_bat.index.entries():
+        assert e.maintainer is not None and e.maintainer.right is tdb["orders"]
 
 
 def test_run_batch_mixed_hits_and_misses(tpch):

@@ -3,8 +3,6 @@ seeded CB-OPT-GB workload of Q-AGH and Q-AAGH queries replayed on both
 engines must give equal canonical results, equal ``RunInfo``
 created/reused/attr, equal sketch bits and equal index contents (both
 engines sum float32 in row order on the CPU, so results are bit-equal)."""
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -196,16 +194,10 @@ def test_mask_branch_does_not_compact_on_the_host(dbs, workloads, monkeypatch):
 
 
 def test_deferred_paths_name_their_slice(dbs, workloads):
-    """What later slices bring still refuses: joins, the random strategies
-    (in ``run`` and ``run_batch``) and the fault half of sharded serving
-    (subprocess shards, fault injection, rebalance)."""
+    """What later slices bring still refuses: the random strategies (in
+    ``run`` and ``run_batch``) and the subprocess half of sharded serving."""
     _, tdb = dbs
     _, tq = workloads
-    joined = dataclasses.replace(tq[0], join=T.JoinSpec("orders", "pid", "o_orderkey"))
-    with pytest.raises(NotImplementedError):
-        T.execute(joined, tdb)
-    with pytest.raises(NotImplementedError):
-        T.PBDSEngine(tdb).run(joined)
     rand = T.PBDSEngine(tdb, strategy="RAND-GB")
     with pytest.raises(NotImplementedError):
         rand.run(tq[0])

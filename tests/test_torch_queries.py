@@ -1,7 +1,10 @@
 """The port's executor against the reference: the paper's Fig. 1 example
 with its exact values, and ``execute`` / ``execute_and_provenance`` on
-Q-AGH and Q-AAGH queries over crimes and stars (canonical results and
-provenance masks equal; both sum float32 in row order on the CPU)."""
+Q-AGH and Q-AAGH queries over crimes and stars, and Q-AJGH and Q-AAJGH
+over crimes joined with a dimension (canonical results and provenance
+masks equal; both sum float32 in row order on the CPU)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -138,8 +141,38 @@ def test_capture_and_sketch_instance_match_reference(dbs, attr):
 
 
 def test_join_templates_wait_for_their_slice(dbs):
-    _, tdb = dbs["crimes"]
-    q = T.Query("crimes", ("district",), T.Aggregate("count"),
-                join=T.JoinSpec("other", "district", "district"))
-    with pytest.raises(NotImplementedError):
-        T.execute(q, tdb)
+    """The join templates no longer wait: Q-AJGH and Q-AAJGH over crimes
+    joined with a real dimension (one row per district, some districts
+    missing, so some crimes have no partner) equal the reference's, results
+    and provenance masks alike."""
+    rdb, tdb = dbs["crimes"]
+    districts = np.unique(tdb["crimes"]["district"].numpy())
+    rng = np.random.default_rng(3)
+    dim = {"d_district": districts[districts % 5 != 0],
+           "d_zone": rng.integers(0, 4, districts.size).astype(np.int32)[districts % 5 != 0]}
+    rdb = rdb.with_table(R.from_numpy("districts", dim))
+    tdb = tdb.with_table(T.from_numpy("districts", dim, device="cpu"))
+    specs = [
+        dict(groupby=("district", "year"), agg=("sum", "records")),
+        dict(groupby=("d_zone", "year"), agg=("count", None)),
+        dict(groupby=("district", "year"), agg=("sum", "records"), having=(">", 60.0),
+             outer=(("district",), ("count", None), None)),
+    ]
+    for spec in specs:
+        rq = dataclasses.replace(_q(R, "crimes", **spec),
+                                 join=R.JoinSpec("districts", "district", "d_district"))
+        tq = dataclasses.replace(_q(T, "crimes", **spec),
+                                 join=T.JoinSpec("districts", "district", "d_district"))
+        # Thresholds at the 0.7 quantile of the reference's group values.
+        tau = float(np.quantile(R.execute(rq, rdb).values, 0.7))
+        field = "outer_having" if "outer" in spec else "having"
+        rq = dataclasses.replace(rq, **{field: R.Having(">=", tau)})
+        tq = dataclasses.replace(tq, **{field: T.Having(">=", tau)})
+        assert tq.template == rq.template and tq.template in ("Q-AJGH", "Q-AAJGH")
+        want_res, want_prov = R.execute_and_provenance(rq, rdb, catalog=R.Catalog())
+        got_res, got_prov = T.execute_and_provenance(tq, tdb, catalog=T.Catalog())
+        assert len(got_res.values) > 0
+        assert got_res.canonical() == want_res.canonical()
+        np.testing.assert_array_equal(got_prov, want_prov)
+        assert not got_prov[~np.isin(tdb["crimes"]["district"].numpy(),
+                                     dim["d_district"])].any()

@@ -1,7 +1,8 @@
 """The port's fragment-sharded serving against the reference's, on the CPU.
 
 Twins of ``tests/test_shard.py`` and ``tests/test_shard_batch.py`` on the
-single-table templates (Q-AGH, Q-AAGH; joins are not ported yet).  Each runs
+four templates (the join ones against the shards' replicas of ``orders``),
+and of the dimension mutation that evicts join sketches.  Each runs
 the same seeded data through ``repro.core.ShardedEngine`` and
 ``repro_torch.core.ShardedEngine`` and holds, with no tolerance: results
 (group values and values, bit for bit, which inside the integral envelope
@@ -139,16 +140,28 @@ def _tpch_templates(mod, db):
                      outer_groupby=("l_suppkey",), outer_agg=mod.Aggregate("sum", None))
     aagh = dataclasses.replace(
         aagh, outer_having=mod.Having(">", _threshold(mod, aagh, db, 0.8)))
-    return {"Q-AGH": agh, "Q-AAGH": aagh}
+    join = mod.JoinSpec("orders", "l_orderkey", "o_orderkey")
+    ajgh = mod.Query("lineitem", ("l_suppkey",), mod.Aggregate("sum", "l_quantity"), join=join)
+    ajgh = dataclasses.replace(ajgh, having=mod.Having(">", _threshold(mod, ajgh, db, 0.8)))
+    aajgh = mod.Query("lineitem", ("l_partkey", "l_suppkey"), mod.Aggregate("count", None),
+                      join=join, having=mod.Having(">", 0.0),
+                      outer_groupby=("l_suppkey",), outer_agg=mod.Aggregate("sum", None))
+    aajgh = dataclasses.replace(
+        aajgh, outer_having=mod.Having(">", _threshold(mod, aajgh, db, 0.8)))
+    return {"Q-AGH": agh, "Q-AAGH": aagh, "Q-AJGH": ajgh, "Q-AAJGH": aajgh}
+
+
+def _pair_tpch(n, seed):
+    rdb = rdata.make_tpch(n, seed=seed)
+    return rdb, _port_db(rdb)
 
 
 @pytest.fixture(scope="module")
 def tpch():
-    rdb = rdata.make_tpch(N_ROWS, seed=7)
-    return rdb, _port_db(rdb)
+    return _pair_tpch(N_ROWS, 7)
 
 
-@pytest.mark.parametrize("template", ["Q-AGH", "Q-AAGH"])
+@pytest.mark.parametrize("template", ["Q-AGH", "Q-AAGH", "Q-AJGH", "Q-AAJGH"])
 @pytest.mark.parametrize("n_shards", [1, 3])
 def test_routed_equals_single_node(tpch, n_shards, template):
     rdb, tdb = tpch
@@ -160,6 +173,45 @@ def test_routed_equals_single_node(tpch, n_shards, template):
     res, info = _run_both(rse, tse, rq, tq, "warm")
     assert info.reused and info.shards_contacted + info.shards_skipped == n_shards
     assert res.canonical() == want
+    assert _snapshot(tse) == _snapshot(rse)
+
+
+def test_dimension_mutation_evicts_and_recaptures():
+    """``tests/test_shard.py::test_dimension_mutation_evicts_and_recaptures``:
+    an append to ``orders`` is replicated to every shard and evicts the join
+    sketch (index entry, registration, shard maintainers), so the next run
+    captures afresh (``created``, not ``reused``) and stays exact."""
+    rdb, tdb = _pair_tpch(N_ROWS, 13)
+
+    def query(mod, db):
+        q = mod.Query("lineitem", ("l_suppkey",), mod.Aggregate("sum", "l_quantity"),
+                      join=mod.JoinSpec("orders", "l_orderkey", "o_orderkey"))
+        return dataclasses.replace(q, having=mod.Having(">", _threshold(mod, q, db, 0.8)))
+
+    rq, tq = query(R, rdb), query(T, tdb)
+    rse, tse = _engines(rdb, tdb, "lineitem", "l_suppkey", 2, n_ranges=32)
+    _run_both(rse, tse, rq, tq, "cold")
+    _, info = _run_both(rse, tse, rq, tq, "warm")
+    assert info.reused
+    assert all(len(s.maintainers) == 1 for s in tse.shards)
+    n = tse.db["orders"].num_rows
+    rows = {
+        "o_orderkey": np.arange(n + 1, n + 101, dtype=np.int64),
+        "o_custkey": np.ones(100, dtype=np.int64),
+        "o_totalprice": np.full(100, 1000.0, dtype=np.float32),
+        "o_orderdate": np.full(100, 9000, dtype=np.int32),
+        "o_shippriority": np.zeros(100, dtype=np.int32),
+    }
+    rse.append_rows("orders", rows)
+    tse.append_rows("orders", rows)
+    assert len(tse.engine.index) == 0 and not tse._registered
+    assert all(s.dims["orders"] is tse.db["orders"] for s in tse.shards)
+    assert all(not s.maintainers for s in tse.shards)
+    res, info = _run_both(rse, tse, rq, tq, "after the dimension append")
+    assert info.created and not info.reused
+    assert res.canonical() == T.execute(tq, tse.db).canonical()
+    res, info = _run_both(rse, tse, rq, tq, "warm again")
+    assert info.reused and res.canonical() == T.execute(tq, tse.db).canonical()
     assert _snapshot(tse) == _snapshot(rse)
 
 
@@ -350,6 +402,25 @@ def test_shard_past_the_deadline_is_served_coordinator_side(monkeypatch):
     assert _snapshot(tse) == _snapshot(rse)
 
 
+def test_shard_past_the_deadline_serves_joins_coordinator_side(tpch, monkeypatch):
+    """A join query's degraded slices are joined through the coordinator's
+    catalog, as the reference's ``_degraded_flat`` joins them: results,
+    routes and ``degraded`` flags equal, on the fused and host-loop paths."""
+    monkeypatch.setattr(tshard, "OP_DEADLINE_S", 0.0)
+    rdb, tdb = tpch
+    rq, tq = _tpch_templates(R, rdb)["Q-AJGH"], _tpch_templates(T, tdb)["Q-AJGH"]
+    rse, tse = _engines(rdb, tdb, "lineitem", "l_suppkey", 3, ref_kw={"op_deadline_s": 0.0},
+                        n_ranges=32)
+    n_degraded = 0
+    for step in range(4):
+        for fused in (True, False):
+            rse.fused = tse.fused = fused
+            res, info = _run_both(rse, tse, rq, tq, f"step {step} fused={fused}")
+            assert res.canonical() == T.execute(tq, tse.db).canonical()
+            n_degraded += info.degraded
+    assert n_degraded > 0 and tse.health == rse.health
+
+
 def test_fused_launch_path_has_no_host_sync():
     """``tools.analyze`` links calls by bare name across ``src/``, so the
     port's ``_launch`` reaches ``_fused_body`` through a variable and the
@@ -413,20 +484,29 @@ def test_sharded_engine_refuses_what_this_slice_lacks():
 
 
 def _tpch_batches(mod, db, quantiles=(0.55, 0.8, 0.9)):
+    """``tests/test_shard_batch.py``'s per-template batches, the join ones
+    (``:71``, ``:89``) included."""
+    join = mod.JoinSpec("orders", "l_orderkey", "o_orderkey")
     agh = mod.Query("lineitem", ("l_suppkey",), mod.Aggregate("sum", "l_quantity"))
+    ajgh = dataclasses.replace(agh, join=join)
     aagh = mod.Query("lineitem", ("l_partkey", "l_suppkey"), mod.Aggregate("sum", "l_quantity"),
                      having=mod.Having(">", 0.0),
                      outer_groupby=("l_suppkey",), outer_agg=mod.Aggregate("sum", None))
-    return {
-        "Q-AGH": [dataclasses.replace(agh, having=mod.Having(">", _threshold(mod, agh, db, qt)))
-                  for qt in quantiles],
-        "Q-AAGH": [dataclasses.replace(
-            aagh, outer_having=mod.Having(">", _threshold(mod, aagh, db, qt)))
-            for qt in quantiles],
-    }
+    aajgh = dataclasses.replace(aagh, agg=mod.Aggregate("count", None), join=join)
+
+    def having(q):
+        return [dataclasses.replace(q, having=mod.Having(">", _threshold(mod, q, db, qt)))
+                for qt in quantiles]
+
+    def outer_having(q):
+        return [dataclasses.replace(q, outer_having=mod.Having(">", _threshold(mod, q, db, qt)))
+                for qt in quantiles]
+
+    return {"Q-AGH": having(agh), "Q-AJGH": having(ajgh),
+            "Q-AAGH": outer_having(aagh), "Q-AAJGH": outer_having(aajgh)}
 
 
-@pytest.mark.parametrize("template", ["Q-AGH", "Q-AAGH"])
+@pytest.mark.parametrize("template", ["Q-AGH", "Q-AAGH", "Q-AJGH", "Q-AAJGH"])
 def test_run_batch_matches_sequential(tpch, template):
     rdb, tdb = tpch
     rqs, tqs = _tpch_batches(R, rdb)[template], _tpch_batches(T, tdb)[template]
@@ -517,6 +597,32 @@ def test_fused_equals_host_loop_bitwise():
         for a in rf.group_values:
             np.testing.assert_array_equal(rf.group_values[a], rl.group_values[a])
         assert rf.canonical() == T.execute(tq, tse.db).canonical()
+
+
+def test_fused_equals_host_loop_bitwise_over_joins(tpch):
+    """The join templates (and a WHERE on a dimension attribute) through the
+    fused launch and the per-shard host loop: equal bits, equal to the
+    reference and to single-node execution."""
+    rdb, tdb = tpch
+    rqs, tqs = _tpch_templates(R, rdb), _tpch_templates(T, tdb)
+    pairs = [(rqs[t], tqs[t]) for t in ("Q-AJGH", "Q-AAJGH")]
+    rw, tw = (dataclasses.replace(qs["Q-AJGH"], where=mod.Predicate("o_shippriority", ">=", 2))
+              for mod, qs in ((R, rqs), (T, tqs)))
+    pairs.append((rw, tw))
+    rse, tse = _engines(rdb, tdb, "lineitem", "l_suppkey", 3, n_ranges=32)
+    for rq, tq in pairs:
+        _run_both(rse, tse, rq, tq, "cold")
+        outs = {}
+        for fused in (True, False):
+            rse.fused = tse.fused = fused
+            outs[fused] = _run_both(rse, tse, rq, tq, f"fused={fused}")
+            assert outs[fused][1].reused and tse.last_route.fused == fused
+        (rf, _), (rl, _) = outs[True], outs[False]
+        np.testing.assert_array_equal(rf.values, rl.values)
+        for a in rf.group_values:
+            np.testing.assert_array_equal(rf.group_values[a], rl.group_values[a])
+        assert rf.canonical() == T.execute(tq, tse.db).canonical()
+    assert _snapshot(tse) == _snapshot(rse)
 
 
 def test_hit_batch_costs_one_fused_launch():

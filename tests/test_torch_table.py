@@ -78,6 +78,37 @@ def test_encode_groups(attrs):
         np.testing.assert_array_equal(tv[a], rv[a])
 
 
+@pytest.mark.parametrize("case", [
+    "int32 two columns", "int32 negative", "int64 wide", "int16 three columns",
+    "uint8", "float32", "int64 beyond one key", "one row", "no rows"])
+def test_unique_rows_equals_numpy_unique_axis0(case):
+    """The packed-key path orders and numbers rows as ``np.unique(axis=0)``
+    does (dtype kept); rows it cannot pack take ``np.unique(axis=0)``."""
+    from repro_torch.core.table import unique_rows
+
+    rng = np.random.default_rng(len(case))
+    n = 5_000
+    stacked = {
+        "int32 two columns": lambda: np.stack([rng.integers(8036, 10592, n),
+                                               rng.integers(1, 1000, n)], 1).astype(np.int32),
+        "int32 negative": lambda: rng.integers(-50, 50, (n, 2)).astype(np.int32),
+        "int64 wide": lambda: np.stack([rng.integers(-2**40, 2**40, n),
+                                        rng.integers(0, 3, n)], 1).astype(np.int64),
+        "int16 three columns": lambda: rng.integers(-3, 4, (n, 3)).astype(np.int16),
+        "uint8": lambda: rng.integers(0, 256, (n, 2)).astype(np.uint8),
+        "float32": lambda: rng.integers(0, 9, (n, 2)).astype(np.float32) / 4,
+        "int64 beyond one key": lambda: np.stack([rng.integers(-2**62, 2**62, n),
+                                                  rng.integers(0, 2**20, n)], 1),
+        "one row": lambda: np.array([[3, -1]], dtype=np.int32),
+        "no rows": lambda: np.empty((0, 2), dtype=np.int32),
+    }[case]()
+    want_u, want_inv = np.unique(stacked, axis=0, return_inverse=True)
+    got_u, got_inv = unique_rows(stacked)
+    assert got_u.dtype == want_u.dtype and got_inv.ndim == 1
+    np.testing.assert_array_equal(got_u, want_u)
+    np.testing.assert_array_equal(got_inv, want_inv.reshape(-1))
+
+
 def _tables(db_or_table):
     if isinstance(db_or_table, (R.Database, T.Database)):
         return db_or_table.tables

@@ -47,7 +47,20 @@ host-loop replays and an orders delete that evicts the join sketches.
 Every result is checked against full-table execution of its version and a
 plain numpy join and group-by, every maintained sketch against a fresh
 capture, the fused results against the host loop's bit for bit, and kernels
-1-5 must each launch.  Phase 6 serves ``stablelm-1.6b`` at full
+1-5 must each launch.  Phase 8 drives every selection strategy of the
+paper: on phase 3's crimes table a fresh ``PBDSEngine`` (100 ranges, theta
+0.05) for NO-PS and each of the five random, three cost-based strategies
+and OPT over three generated queries and their replay, and a ``run_batch``
+burst under RAND-GB; Fig. 9's mix (NO-PS, RAND-PK, RAND-GB, CB-OPT-GB,
+24 runs of 8 generated queries) over phase 7's TPC-H ``lineitem`` and a
+6.7M-row ``make_stars`` table, each engine's maintainer builds and group
+encodings timed on the host; and four two-attribute Q-AGH queries
+through ``select_composite_gb``, ``capture_composite`` and
+``execute_with_composite``.  It checks every result against full-table
+execution, every random pick against its candidate pool and a second
+engine's, the batch against the sequential runs, each composite sketch
+against the single sketches of its parts and the plain bitmap, and that
+kernels 1-4 each launch.  Phases run in the order 1-5, 7, 8, 6.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -1531,14 +1544,15 @@ def _check_plain(q, res, plain) -> None:
                     f"{q}: group {k} ({v}) on one side of the plain join only")
 
 
-def phase_join(n_lineitem: int, seed: int, device: str = "cuda") -> dict:
+def phase_join(n_lineitem: int, seed: int, device: str = "cuda", db=None) -> dict:
     """The join templates on the card at TPC-H scale: ``run`` (generated
     Q-AJGH and a Q-AAJGH, replayed), ``run_batch`` and maintenance (a burst
     of six Q-AJGH, a replay, a 1% append, a one-year delete, a one-year
     delete of orders, another 1% append, each followed by the burst), and a
     ``ShardedEngine`` over 4 shards (burst, fused and host-loop replays, an
-    orders delete that evicts the join sketches).  Returns the phase's
-    launches by kernel."""
+    orders delete that evicts the join sketches).  Makes the TPC-H tables
+    unless ``db`` holds them (the engines mutate versions of their own, so
+    ``db`` is left as it was).  Returns the phase's launches by kernel."""
     import collections
     import dataclasses
 
@@ -1563,12 +1577,15 @@ def phase_join(n_lineitem: int, seed: int, device: str = "cuda") -> dict:
             torch.cuda.synchronize()
 
     t_phase = time.perf_counter()
-    db = make_tpch(n_lineitem, seed=seed, device=dev)
+    made = db is None
+    if made:
+        db = make_tpch(n_lineitem, seed=seed, device=dev)
     sync()
     log(f"[join] tpch: " + ", ".join(
         f"{t.name} {t.num_rows} rows x {len(t.schema)} columns "
         f"({sum(v.numel() * v.element_size() for v in t.columns.values()) / 1e6:.1f} MB)"
-        for t in db.tables.values()) + f" on {dev}, made in {time.perf_counter() - t_phase:.2f} s")
+        for t in db.tables.values()) + f" on {dev}"
+        + (f", made in {time.perf_counter() - t_phase:.2f} s" if made else ""))
     join = JoinSpec("orders", "l_orderkey", "o_orderkey")
     t0 = time.perf_counter()
     workload = generate_workload(TPCH_JOIN_SPEC, db, JOIN_UNIQUE, seed=seed)
@@ -1909,6 +1926,331 @@ def phase_join(n_lineitem: int, seed: int, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: every selection strategy, Fig. 9's mix and composite sketches
+# ---------------------------------------------------------------------------
+
+# 8a: generated CRIMES_SPEC queries, each replayed once (cut from 4 to 3 to
+# keep the script inside its limit: 8b's TPC-H misses are slow on the host).
+STRATEGY_QUERIES, STRATEGY_SEED = 3, 33
+STARS_ROWS = ROWS  # 8b's stars table: generated, at the crimes row count
+# 8b: benchmarks/bench_fig9_endtoend.py's draw (8 unique queries at seed 9,
+# runs picked by default_rng(9).integers), n_repeat cut from 5 to 3.
+FIG9_UNIQUE, FIG9_REPEAT, FIG9_SEED = 8, 3, 9
+FIG9_STRATEGIES = ("NO-PS", "RAND-PK", "RAND-GB", "CB-OPT-GB")
+COMPOSITE_GROUPBYS = (("district", "year"), ("community", "month"), ("ward", "year"),
+                      ("district", "month"))
+STRATEGY_KERNELS = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
+                    "fragment_bitmap_batch")
+
+
+def _envelope_left(q, table, catalog, integral_cols: dict) -> bool:
+    """Whether a group's float32 aggregate may differ from full execution by
+    order-of-addition rounding: always over a non-integral column, else when
+    a group's sum of magnitudes (or its count) reaches 2^24."""
+    import numpy as np
+
+    from repro_torch.device import to_host
+
+    if q.agg.fn == "count":
+        vals = None
+    else:
+        key = (id(table), q.agg.attr)
+        if key not in integral_cols:
+            v = to_host(table[q.agg.attr]).astype(np.float64)
+            integral_cols[key] = np.abs(v) if np.array_equal(v, np.floor(v)) else None
+        vals = integral_cols[key]
+        if vals is None:
+            return True
+    enc = catalog.groups(table, q.groupby)
+    sums = np.bincount(enc.gid, weights=vals, minlength=enc.n_groups)
+    return float(sums.max()) >= ENVELOPE
+
+
+def _strategy_line(label: str, out, eng, wall: float) -> None:
+    import numpy as np
+
+    infos = [info for _, _, info in out]
+    sels = [i.selectivity for i in infos if i.selectivity is not None]
+    log(f"[strategies] {label}: mean sketch selectivity "
+        f"{float(np.mean(sels)) if sels else None} over {len(sels)} runs, misses "
+        f"{eng.index.misses}, hits {eng.index.hits}, created {sum(i.created for i in infos)}, "
+        f"attrs {[i.attr and str(i.attr) for i in infos]}; t_select {sum(i.t_select for i in infos):.3f} s, "
+        f"t_capture {sum(i.t_capture for i in infos):.3f} s, "
+        f"t_execute {sum(i.t_execute for i in infos):.3f} s, wall {wall:.3f} s")
+
+
+def phase_strategies(n_rows: int, seed: int, crimes_db=None, tpch_db=None,
+                     n_lineitem: int = TPCH_SF1_LINEITEM, stars_rows: int = STARS_ROWS,
+                     n_queries: int = STRATEGY_QUERIES, device: str = "cuda") -> dict:
+    """Every selection strategy of the paper end to end.  8a: a fresh
+    ``PBDSEngine`` (100 ranges, theta 0.05) for NO-PS and each of
+    ``ALL_STRATEGIES`` over ``n_queries`` generated crimes queries and their
+    replay, and one ``run_batch`` burst under RAND-GB; 8b: Fig. 9's mix
+    (NO-PS, RAND-PK, RAND-GB, CB-OPT-GB over TPC-H ``lineitem`` and stars,
+    24 runs of 8 queries); 8c: four two-attribute Q-AGH queries through
+    ``select_composite_gb``, ``capture_composite`` and
+    ``execute_with_composite``.  Every result is checked against full-table
+    execution, every random pick against its candidate pool and a second
+    engine's, the batch against the sequential runs, each composite sketch
+    against the single sketches of its parts and the plain bitmap.  Makes
+    the tables it is not given.  Returns the phase's launches by kernel."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (Aggregate, Catalog, Database, Having, PBDSEngine, Query,
+                                  capture_composite, capture_sketch, execute,
+                                  execute_with_composite, provenance_mask, select_composite_gb)
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core.datasets import make_crimes, make_stars, make_tpch
+    from repro_torch.core.strategies import (ALL_STRATEGIES, RANDOM_STRATEGIES, candidate_pool,
+                                             select_attribute)
+    from repro_torch.core.workload import (CRIMES_SPEC, STARS_SPEC, TPCH_SPEC,
+                                           generate_workload)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.prng import PRNGKey
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    if crimes_db is None:
+        crimes_db = Database({"crimes": make_crimes(n_rows, seed=seed, device=dev)})
+    if tpch_db is None:
+        tpch_db = make_tpch(n_lineitem, seed=seed, device=dev)
+    stars_db = Database({"stars": make_stars(stars_rows, device=dev)})  # the benchmark's seed
+    sync()
+    log("[strategies] tables: " + ", ".join(
+        f"{t.name} {t.num_rows} rows x {len(t.schema)} columns "
+        f"({sum(v.numel() * v.element_size() for v in t.columns.values()) / 1e6:.1f} MB)"
+        for t in (crimes_db["crimes"], tpch_db["lineitem"], stars_db["stars"]))
+        + f" on {dev}")
+
+    # The workloads (their thresholds come from full executions, before the
+    # counts are reset).
+    t0 = time.perf_counter()
+    crimes_q = generate_workload(CRIMES_SPEC, crimes_db, n_queries, seed=STRATEGY_SEED)
+    require(len(crimes_q) == n_queries, "the crimes workload generator returned too few queries")
+    fig9 = {}
+    for ds, db, spec in (("tpch", tpch_db, TPCH_SPEC), ("stars", stars_db, STARS_SPEC)):
+        base = generate_workload(spec, db, FIG9_UNIQUE, seed=FIG9_SEED)
+        require(len(base) == FIG9_UNIQUE, f"the {ds} workload generator returned too few queries")
+        draw = np.random.default_rng(FIG9_SEED).integers(0, len(base), FIG9_UNIQUE * FIG9_REPEAT)
+        fig9[ds] = (db, [base[i] for i in draw])
+    check_cats = {name: Catalog() for name in ("crimes", "tpch", "stars")}
+    composite_q = []
+    for gb in COMPOSITE_GROUPBYS:
+        base = Query("crimes", gb, Aggregate("sum", "records"))
+        vals = execute(base, crimes_db, catalog=check_cats["crimes"]).values
+        composite_q.append(dataclasses.replace(
+            base, having=Having(">", float(np.quantile(vals, 0.9)))))
+    log(f"[strategies] workloads in {time.perf_counter() - t0:.2f} s: 8a "
+        + "; ".join(f"gb={'/'.join(q.groupby)} {q.agg.fn}({q.agg.attr or '*'})" for q in crimes_q)
+        + "; 8b " + "; ".join(f"{ds} {len(wl)} runs of {len({q.signature() for q in wl})} "
+                              f"queries" for ds, (_, wl) in fig9.items()))
+
+    def drive(eng, q):
+        sync()
+        t0 = time.perf_counter()
+        res, info = eng.run(q)
+        sync()
+        return res, info, time.perf_counter() - t0
+
+    for name in (*BUILT, ROWS_COUNTER):
+        LAUNCH_COUNTS[name] = 0
+    t_drive = time.perf_counter()
+
+    # -- 8a: every strategy over the crimes workload and its replay ---------
+    runs = {}
+    for strat in ("NO-PS",) + ALL_STRATEGIES:
+        eng = PBDSEngine(crimes_db, strategy=strat, n_ranges=100, theta=0.05, seed=seed)
+        out, wall = [], 0.0
+        for q in crimes_q + crimes_q:
+            res, info, w = drive(eng, q)
+            out.append((q, res, info))
+            wall += w
+        runs[strat] = out
+        _strategy_line(f"8a {strat}", out, eng, wall)
+    eng = PBDSEngine(crimes_db, strategy="RAND-GB", n_ranges=100, theta=0.05, seed=seed)
+    sync()
+    t0 = time.perf_counter()
+    batch = eng.run_batch(crimes_q)
+    sync()
+    log(f"[strategies] 8a run_batch RAND-GB: {len(crimes_q)} queries in "
+        f"{time.perf_counter() - t0:.3f} s, created {sum(i.created for _, i in batch)}, "
+        f"attrs {[i.attr and str(i.attr) for _, i in batch]}")
+    t_8a = time.perf_counter() - t_drive
+
+    # -- 8b: Fig. 9's mix ----------------------------------------------------
+    # The misses' host work, split: every maintainer build (inside t_capture)
+    # and every Catalog.groups call (cache hits included; a miss is a group
+    # encoding), each between two synchronizations.
+    host = collections.Counter()
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync()
+                host[key] += time.perf_counter() - t0
+                host[key + " calls"] += 1
+        return wrapper
+
+    t0_8b = time.perf_counter()
+    fig9_runs = {}
+    build_maintainer, groups = engine_mod.build_maintainer, Catalog.groups
+    engine_mod.build_maintainer = timed("maintainer", build_maintainer)
+    Catalog.groups = timed("groups", groups)
+    try:
+        for ds, (db, wl) in fig9.items():
+            for strat in FIG9_STRATEGIES:
+                eng = PBDSEngine(db, strategy=strat, n_ranges=100, theta=0.05, seed=FIG9_SEED)
+                host.clear()
+                out, cum = [], 0.0
+                for q in wl:
+                    res, info, w = drive(eng, q)
+                    out.append((q, res, info))
+                    cum += w
+                fig9_runs[(ds, strat)] = out
+                reused = [i.t_execute for _, _, i in out if i.reused]
+                t_capture = sum(i.t_capture for _, _, i in out)
+                log(f"[strategies] 8b {ds} {strat}: cum_s {cum:.4f}, t_select "
+                    f"{sum(i.t_select for _, _, i in out):.4f}, t_capture {t_capture:.4f}, "
+                    f"t_execute {sum(i.t_execute for _, _, i in out):.4f}, t_probe "
+                    f"{sum(i.t_probe for _, _, i in out):.6f}, reused_exec_mean_s "
+                    f"{float(np.mean(reused)) if reused else None} over {len(reused)}, "
+                    f"idx_hits {eng.index.hits}, idx_misses {eng.index.misses}")
+                log(f"[strategies] 8b {ds} {strat} host split: {host['maintainer calls']} "
+                    f"maintainer builds {host['maintainer']:.4f} s "
+                    f"({100 * host['maintainer'] / max(cum, 1e-9):.1f}% of cum_s, "
+                    f"{100 * host['maintainer'] / max(t_capture, 1e-9):.1f}% of t_capture); "
+                    f"{host['groups calls']} Catalog.groups calls {host['groups']:.4f} s "
+                    f"({100 * host['groups'] / max(cum, 1e-9):.1f}% of cum_s)")
+    finally:
+        engine_mod.build_maintainer, Catalog.groups = build_maintainer, groups
+    t_8b = time.perf_counter() - t0_8b
+
+    # -- 8c: composite sketches (CB-OPT-GB2) ---------------------------------
+    t0_8c = time.perf_counter()
+    comp_cat = Catalog()
+    composites = []
+    for q in composite_q:
+        sync()
+        t0 = time.perf_counter()
+        best, cr, sizes = select_composite_gb(PRNGKey(seed), q, crimes_db, 100, theta=0.05,
+                                              catalog=comp_cat)
+        t1 = time.perf_counter()
+        sk = capture_composite(q, crimes_db, cr, catalog=comp_cat)
+        t2 = time.perf_counter()
+        res = execute_with_composite(q, crimes_db, sk, catalog=comp_cat)
+        sync()
+        t3 = time.perf_counter()
+        hits = comp_cat.stats["instance_hit"]
+        res2 = execute_with_composite(q, crimes_db, sk, catalog=comp_cat)
+        sync()
+        t4 = time.perf_counter()
+        require(comp_cat.stats["instance_hit"] == hits + 1,
+                f"8c: the second execution of {q} missed the instance cache")
+        composites.append((q, best, cr, sk, res, res2))
+        estimates = {"/".join(k): round(v, 6) for k, v in sizes.items()}
+        log(f"[strategies] 8c gb={'/'.join(q.groupby)}: best {best} ({cr.n_ranges} fragments), "
+            f"estimates {estimates}, "
+            f"captured selectivity {sk.selectivity:.6f}; select {(t1 - t0) * 1e3:.1f} ms, "
+            f"capture {(t2 - t1) * 1e3:.1f} ms, execute {(t3 - t2) * 1e3:.1f} ms, "
+            f"cached execute {(t4 - t3) * 1e3:.1f} ms")
+    t_8c = time.perf_counter() - t0_8c
+
+    sync()
+    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    rows_launches = LAUNCH_COUNTS[ROWS_COUNTER]
+    t_drive = time.perf_counter() - t_drive
+    log(f"[strategies] driven in {t_drive:.1f} s (8a {t_8a:.1f}, 8b {t_8b:.1f}, 8c {t_8c:.1f}); "
+        f"launches {launches}")
+    if dev.type == "cuda":
+        for name in STRATEGY_KERNELS:
+            require(launches[name] > 0, f"kernel {name} was not launched in phase 8")
+        require_compacted("strategies", launches["sketch_filter"], rows_launches)
+
+    # -- checks, after the counts were read ----------------------------------
+    t0 = time.perf_counter()
+    fulls, integral_cols = {}, {}
+
+    def check(name, db, q, res):
+        table = db[q.table]
+        key = (name, q.signature())
+        if key not in fulls:
+            fulls[key] = (execute(q, db, catalog=check_cats[name]),
+                          _envelope_left(q, table, check_cats[name], integral_cols))
+        full, left = fulls[key]
+        return check_result(q, res, full, left)
+
+    for strat, out in runs.items():
+        outcomes = collections.Counter(check("crimes", crimes_db, q, res) for q, res, _ in out)
+        log(f"[strategies] 8a {strat}: {len(out)} results vs full-table execution "
+            f"{dict(outcomes)}")
+    for strat in RANDOM_STRATEGIES:
+        twin = PBDSEngine(crimes_db, strategy=strat, n_ranges=100, theta=0.05, seed=seed)
+        n_checked = 0
+        for q, _, info in runs[strat][:n_queries]:
+            if info.reused:
+                continue
+            pick = select_attribute(
+                strat, twin._select_key(q), q, crimes_db, twin.n_ranges,
+                ranges_for=lambda a: twin.ranges_for("crimes", a), catalog=twin.catalog,
+                selection=twin.selection, selection_cache=twin.selection_cache).attr
+            require(pick == info.attr, f"8a {strat}: a second engine picked {pick} for {q}, "
+                                       f"the first {info.attr}")
+            pool = candidate_pool(strat, q, crimes_db, twin.n_ranges, catalog=twin.catalog)
+            require(info.attr is None or info.attr in pool,
+                    f"8a {strat}: pick {info.attr} is not in the pool {pool} of {q}")
+            n_checked += 1
+        log(f"[strategies] 8a {strat}: {n_checked} picks in their pools and equal to a second "
+            f"engine's")
+    for (q, res, info), (b_res, b_info) in zip(runs["RAND-GB"], batch):
+        require(_same_result(res, b_res) or res.canonical() == b_res.canonical(),
+                f"8a run_batch RAND-GB: {q} differs from the sequential run")
+        require((b_info.reused, b_info.created, b_info.attr, b_info.selectivity)
+                == (info.reused, info.created, info.attr, info.selectivity),
+                f"8a run_batch RAND-GB: {q} ran otherwise than sequentially")
+    log(f"[strategies] 8a run_batch RAND-GB: {len(batch)} results and picks equal the "
+        f"sequential runs'")
+    for (ds, strat), out in fig9_runs.items():
+        outcomes = collections.Counter(
+            check(ds, fig9[ds][0], q, res) for q, res, _ in out)
+        log(f"[strategies] 8b {ds} {strat}: {len(out)} results vs full-table execution "
+            f"{dict(outcomes)}")
+    table = crimes_db["crimes"]
+    for q, best, cr, sk, res, res2 in composites:
+        outcome = check("crimes", crimes_db, q, res)
+        require(_same_result(res, res2), f"8c: the cached execution of {q} differs")
+        singles = {p.attr: capture_sketch(q, crimes_db, p, catalog=check_cats["crimes"])
+                   for p in cr.parts}
+        for attr, single in singles.items():
+            require(sk.selectivity <= single.selectivity,
+                    f"8c: composite {best} of {q} covers more than its part {attr}")
+        prov = torch.from_numpy(provenance_mask(q, crimes_db, catalog=check_cats["crimes"]))
+        plain = ref.fragment_bitmap_ref(prov.to(dev), comp_cat.bucketize(table, cr), cr.n_ranges)
+        require(np.array_equal(sk.bits, plain.cpu().numpy().astype(bool)),
+                f"8c: the composite bits of {q} differ from the plain fragment_bitmap")
+        parts = {a: round(s.selectivity, 6) for a, s in singles.items()}
+        log(f"[strategies] 8c gb={'/'.join(q.groupby)}: result {outcome}, selectivity "
+            f"{sk.selectivity:.6f} <= parts {parts}, bits equal the plain bitmap")
+    log(f"[strategies] checks in {time.perf_counter() - t0:.1f} s; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: sketch-filtered LM serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2193,6 +2535,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.core.datasets import make_tpch
+
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
@@ -2204,10 +2548,18 @@ def main() -> int:
     launches["fragment_bitmap_batch"] = batch_launches["fragment_bitmap_batch"]
     shard_launches = phase_shard(ROWS, SEED, db, workload, full_values)
     launches["segment_aggregate_batch"] = shard_launches["segment_aggregate_batch"]
-    del db, workload, full_values
-    join_launches = phase_join(TPCH_SF1_LINEITEM, SEED)
+    del workload, full_values
+    t1 = time.perf_counter()
+    tpch = make_tpch(TPCH_SF1_LINEITEM, seed=SEED, device="cuda")  # phases 7 and 8
+    torch.cuda.synchronize()
+    log(f"[join] tpch made in {time.perf_counter() - t1:.2f} s")
+    join_launches = phase_join(TPCH_SF1_LINEITEM, SEED, db=tpch)
     for name in JOIN_KERNELS:
         launches[name] += join_launches[name]
+    strategy_launches = phase_strategies(ROWS, SEED, crimes_db=db, tpch_db=tpch)
+    for name in STRATEGY_KERNELS:
+        launches[name] += strategy_launches[name]
+    del db, tpch
     launches["flash_attention"] = phase_serve(SEED_SERVE)["flash_attention"]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 

@@ -152,12 +152,17 @@ def _sample_incidence(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """(frag_id, gid) incidence pairs from the *sample* rows of G'.
 
-    When the partition attribute is a group-by attribute the group key pins
-    the fragment exactly (the CB-OPT-GB fast path).
+    Takes a single-attribute ``RangeSet`` or a cross-product
+    ``CompositeRanges``: when every partition attribute is a group-by
+    attribute the group key pins the (composite) fragment exactly (the
+    CB-OPT-GB / CB-OPT-GB2 fast path).
     """
+    from repro_torch.core.ranges import cross_product_id, parts_of
+
     catalog = _catalog(catalog)
     fact = db[q.table]
-    if ranges.attr in samples.groupby:
+    parts = parts_of(ranges)
+    if all(r.attr in samples.groupby for r in parts):
         frag_of_group = catalog.frag_of_group(
             fact, ranges, samples.groupby, samples.group_values)
         gids = np.nonzero(satisfied)[0]
@@ -170,7 +175,8 @@ def _sample_incidence(
     if bucket is not None:
         frag = to_host(bucket.index_select(0, take))
     else:
-        frag = to_host(ranges.bucketize(fact[ranges.attr].index_select(0, take)))
+        frag = cross_product_id(
+            parts, lambda r: to_host(r.bucketize(fact[r.attr].index_select(0, take))))
     pairs = np.unique(np.stack([frag, gids], axis=1), axis=0)
     return pairs[:, 0], pairs[:, 1]
 
@@ -281,6 +287,9 @@ def estimate_size_multi(
     Every (query, candidate) pair becomes one row of a padded incidence
     matrix (pairs and fragments padded to pow2, as in the reference); the
     per-candidate loop only assembles host-side (frag, group) pairs.
+    Candidates may mix ``RangeSet``s and ``CompositeRanges``; the mapping key
+    is an opaque label (a tuple of attributes for CB-OPT-GB2) echoed back in
+    the result.
     """
     catalog = _catalog(catalog)
     rows = []  # (spec_idx, attr, ranges, frag, gids, p_g)
@@ -386,7 +395,7 @@ def estimate_size(
     np.add.at(sum_p, frag, p_g[gids])
     total = max(db[q.table].num_rows, 1)
     return SizeEstimate(
-        attr=ranges.attr,
+        attr=getattr(ranges, "attr", None) or getattr(ranges, "attrs", None),
         est_rows=est_rows,
         est_selectivity=est_rows / total,
         expected_rows=float((sizes * p_frag).sum()),

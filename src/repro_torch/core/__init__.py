@@ -8,6 +8,15 @@ from repro_torch.core.maintenance import (
     build_maintainer,
     repair_sketch,
 )
+from repro_torch.core.multisketch import (
+    CompositeRanges,
+    CompositeSketch,
+    apply_composite,
+    capture_composite,
+    composite_ranges,
+    execute_with_composite,
+    select_composite_gb,
+)
 from repro_torch.core.queries import (
     inner_group_partials,
     Aggregate,

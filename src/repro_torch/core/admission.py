@@ -25,9 +25,10 @@ sequential ``run`` (``tests/test_torch_admission.py`` holds both against the
 reference): selection randomness is content-derived
 (``PBDSEngine._select_key``), ranking ties break on ``(est_rows, attr)``,
 and every shared product is what sequential execution would have pulled
-from the caches.  The random strategies raise ``NotImplementedError`` as in
-``run``.  With ``cluster_tables=True`` the first admission clusters the
-table mid-batch, after the wave's selection shared the pre-cluster sample;
+from the caches.  The random strategies (and OPT) select per query through
+``select_attribute``, whose pick is a function of the query's key.  With
+``cluster_tables=True`` the first admission clusters the table mid-batch,
+after the wave's selection shared the pre-cluster sample;
 group-by candidates (CB-OPT-GB) pin incidence on group values, so the
 choice is the one sequential ``run`` makes.
 """

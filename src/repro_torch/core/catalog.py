@@ -42,6 +42,7 @@ from typing import TYPE_CHECKING, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.ranges import cross_product_id, parts_of
 from repro_torch.core.table import ColumnTable, encode_groups, unique_rows
 from repro_torch.device import to_host
 
@@ -291,6 +292,12 @@ class Catalog:
         return enc
 
     # -- partition-attribute bucketizations ----------------------------------
+    @staticmethod
+    def _bucketize_raw(table: ColumnTable, ranges) -> torch.Tensor:
+        """Bucketize one table under a single-attribute or composite
+        partition."""
+        return cross_product_id(parts_of(ranges), lambda r: r.bucketize(table[r.attr]))
+
     def bucketize(self, table: ColumnTable, ranges: "RangeSet") -> torch.Tensor:
         key = (id(table), ranges.key())
         hit = self._buckets.get(key)
@@ -301,7 +308,7 @@ class Catalog:
         if d is not None:
             parent_bucket = self.bucketize(d.parent, ranges)
             if d.kind == "append":
-                bucket = torch.cat([parent_bucket, ranges.bucketize(d.appended[ranges.attr])])
+                bucket = torch.cat([parent_bucket, self._bucketize_raw(d.appended, ranges)])
             else:
                 bucket = parent_bucket.index_select(
                     0, torch.from_numpy(d.kept_idx).to(table.device))
@@ -309,7 +316,7 @@ class Catalog:
             self._put(self._buckets, key, (table, bucket))
             return bucket
         self.stats["bucketize"] += 1
-        bucket = ranges.bucketize(table[ranges.attr])
+        bucket = self._bucketize_raw(table, ranges)
         self._put(self._buckets, key, (table, bucket))
         return bucket
 
@@ -320,10 +327,12 @@ class Catalog:
         groupby: Tuple[str, ...],
         group_values: Dict[str, np.ndarray],
     ) -> np.ndarray:
-        """Fragment id per *group* under a partition on a group-by attribute
-        (the CB-OPT-GB fast path's vector), cached per (table version,
-        group-by, partition).  The group values are host metadata, so they
-        are bucketized on the host with the device's float32 comparison."""
+        """Fragment id per *group* under a partition on group-by attributes
+        (the CB-OPT-GB and CB-OPT-GB2 fast path's vector), cached per (table
+        version, group-by, partition).  The group values are host metadata,
+        so they are bucketized on the host with the device's float32
+        comparison; a composite partition assembles the row-major
+        cross-product id part by part."""
         key = (table.uid, table.version, tuple(groupby), ranges.key())
         hit = self._frag_groups.get(key)
         n_groups = len(next(iter(group_values.values()))) if group_values else 1
@@ -331,8 +340,8 @@ class Catalog:
             self.stats["frag_of_group_hit"] += 1
             return hit
         self.stats["frag_of_group"] += 1
-        frag = to_host(ranges.bucketize(torch.from_numpy(
-            np.ascontiguousarray(group_values[ranges.attr]))))
+        frag = cross_product_id(parts_of(ranges), lambda r: to_host(r.bucketize(
+            torch.from_numpy(np.ascontiguousarray(group_values[r.attr])))))
         if len(self._frag_groups) >= self.max_entries:
             self._frag_groups.pop(next(iter(self._frag_groups)))
         self._frag_groups[key] = frag

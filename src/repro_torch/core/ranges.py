@@ -7,7 +7,7 @@ fragment than the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Sequence, Tuple, TypeVar
 
 import numpy as np
 import torch
@@ -40,6 +40,25 @@ class RangeSet:
     def key(self) -> Tuple:
         """Hashable identity of the partition (attr + exact bounds)."""
         return (self.attr, self.n_ranges, self.bounds.tobytes())
+
+
+Ids = TypeVar("Ids")
+
+
+def parts_of(ranges) -> Tuple["RangeSet", ...]:
+    """The single-attribute parts of a partition: a ``RangeSet`` itself, or
+    a ``CompositeRanges``' parts (by duck type)."""
+    return getattr(ranges, "parts", (ranges,))
+
+
+def cross_product_id(parts: Sequence["RangeSet"], bucket_of: Callable[["RangeSet"], Ids]) -> Ids:
+    """Row-major fragment id of a cross-product partition from each part's
+    bucket ids (``bucket_of(part)``); one part's ids unchanged."""
+    frag = None
+    for r in parts:
+        b = bucket_of(r)
+        frag = b if frag is None else frag * r.n_ranges + b
+    return frag
 
 
 def equi_depth_ranges(table: ColumnTable, attr: str, n_ranges: int) -> RangeSet:

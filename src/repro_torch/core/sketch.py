@@ -180,6 +180,18 @@ def _pad_instance_pow2(
             rows)
 
 
+def mask_instance(sketch, table: ColumnTable, catalog: Catalog) -> Tuple[ColumnTable, np.ndarray]:
+    """The rows of ``table`` whose fragment the sketch keeps (ascending, so
+    ``table.select(keep)``'s order) and their base-table row ids, unpadded:
+    the ``sketch_filter_rows`` kernel's kept rows gathered on the table's
+    device.  ``sketch`` is single-attribute or composite."""
+    from repro_torch.kernels import ops as kops
+
+    bucket = catalog.bucketize(table, sketch.ranges)
+    _, rows = kops.sketch_filter_rows(bucket, torch.from_numpy(sketch.bits).to(table.device))
+    return table.gather(rows), to_host(rows)
+
+
 def _build_instance(
     sketch: ProvenanceSketch, table: ColumnTable, catalog: Catalog
 ) -> Tuple[ColumnTable, np.ndarray]:
@@ -199,12 +211,8 @@ def _build_instance(
         inst, rows = table.take_fragments(np.nonzero(sketch.bits)[0],
                                           tail_bucket=tail_bucket, return_rows=True)
         return _pad_instance_pow2(inst, rows, catalog)
-    from repro_torch.kernels import ops as kops
-
     catalog.stats["instance_mask"] += 1
-    bucket = catalog.bucketize(table, sketch.ranges)
-    _, rows = kops.sketch_filter_rows(bucket, torch.from_numpy(sketch.bits).to(table.device))
-    return _pad_instance_pow2(table.gather(rows), to_host(rows), catalog)
+    return _pad_instance_pow2(*mask_instance(sketch, table, catalog), catalog)
 
 
 def apply_sketch(

@@ -1,11 +1,11 @@
 """Candidate-attribute selection strategies (Sec. 9 / Sec. 11.1.3); port of
 ``repro/core/strategies.py``.
 
-Cost-based:  CB-OPT (all safe attrs), CB-OPT-REL (query-relevant),
-             CB-OPT-GB (group-by attrs only — the paper's winner).
-Oracles:     OPT (exact capture of every candidate), NO-PS (in the engine).
-The random baselines (RAND-*) draw with ``jax.random.randint``, which the
-port's PRNG does not have yet; they raise ``NotImplementedError``.
+Random baselines: RAND-ALL, RAND-REL-ALL, RAND-GB, RAND-PK, RAND-AGG (one
+                  ``prng.randint`` pick from the candidate pool).
+Cost-based:       CB-OPT (all safe attrs), CB-OPT-REL (query-relevant),
+                  CB-OPT-GB (group-by attrs only — the paper's winner).
+Oracles:          OPT (exact capture of every candidate), NO-PS (in the engine).
 """
 from __future__ import annotations
 
@@ -33,8 +33,6 @@ from repro_torch.core.table import Database
 RANDOM_STRATEGIES = ("RAND-ALL", "RAND-REL-ALL", "RAND-GB", "RAND-PK", "RAND-AGG")
 COST_STRATEGIES = ("CB-OPT", "CB-OPT-REL", "CB-OPT-GB")
 ALL_STRATEGIES = RANDOM_STRATEGIES + COST_STRATEGIES + ("OPT",)
-
-RANDINT_SLICE = "the random strategies wait for the port's randint"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,8 +162,6 @@ def select_attribute(
     :class:`SelectionConfig` plus a shared :class:`SelectionCache`, which
     only the cost-based strategies consult.
     """
-    if strategy in RANDOM_STRATEGIES:
-        raise NotImplementedError(RANDINT_SLICE)
     catalog = catalog or default_catalog()
     sel_cfg = selection if selection is not None else PAPER_FAITHFUL
     cost_based = strategy in COST_STRATEGIES
@@ -187,6 +183,11 @@ def select_attribute(
         cands = stats_prefilter(q, db, cands, ranges_for, catalog=catalog)
     if not cands:
         return done(SelectionResult(strategy, None, cands, {}))
+
+    if strategy in RANDOM_STRATEGIES:
+        # One scalar draw on the host, bit-equal with jax.random.randint.
+        i = int(prng.randint(key, (), 0, len(cands), device="cpu"))
+        return SelectionResult(strategy, cands[i], cands, {})
 
     if strategy == "OPT":
         sizes = {a: actual_size(q, db, ranges_for(a)) for a in cands}

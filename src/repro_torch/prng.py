@@ -13,9 +13,12 @@ partitionable scheme the ``i``-th draw of ``split``/``uniform`` hashes the
 64-bit counter ``i`` as the word pair ``(i >> 32, i & 0xFFFFFFFF)``, and
 ``fold_in(key, d)`` hashes ``(0, d)``; ``uniform`` keeps ``b0 ^ b1`` of the
 hashed pair and maps its top 23 bits onto [0, 1) through the float32
-mantissa (``bits >> 9 | 0x3F800000``, minus 1.0).
+mantissa (``bits >> 9 | 0x3F800000``, minus 1.0).  ``randint`` splits the
+key in two, draws 32 bits from each the same way, and folds the pair into
+the span by JAX's double-width modulus.
 
-Key arithmetic stays on the host; ``uniform`` runs on the requested device.
+Key arithmetic stays on the host; ``uniform`` and ``randint`` run on the
+requested device.
 """
 from __future__ import annotations
 
@@ -90,6 +93,21 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=1)
 
 
+def _bits32(key: torch.Tensor, shape: Tuple[int, ...], device: torch.device
+            ) -> torch.Tensor:
+    """32 random bits per element (``b0 ^ b1`` of the hashed counters)."""
+    n = 1
+    for s in shape:
+        n *= s
+    k0, k1 = _words(key)
+    b0, b1 = threefry2x32(k0, k1, *_counters(n, device))
+    return (b0 ^ b1).reshape(shape)
+
+
+def _shape(shape: Union[int, Sequence[int]]) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
+
+
 def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]],
             device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` on ``device`` (CUDA
@@ -99,7 +117,7 @@ def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]],
     ``(B, *shape)``, row ``b`` equal to ``uniform(key[b], shape)`` (what
     ``jax.vmap`` over split keys gives).
     """
-    shape = (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
+    shape = _shape(shape)
     n = 1
     for s in shape:
         n *= s
@@ -118,3 +136,41 @@ def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]],
     bits = (b0 ^ b1) >> 9 | 0x3F800000  # < 2**31: fits int32 as is
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     return floats.reshape(out_shape)
+
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint(key: torch.Tensor, shape: Union[int, Sequence[int]], minval: int, maxval: int,
+            device: DeviceLike = None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) on
+    ``device`` (CUDA unless ``"cpu"``).
+
+    Bounds are clamped to int32; ``maxval <= minval`` returns ``minval``.
+    The span's modulus of the 64 random bits of two draws is taken as
+    ``((hi % span) * m + lo % span) % span`` with ``m = (2**16 % span)**2
+    % span``, every step in uint32 arithmetic (wrapping: for a span above
+    2**16, ``m`` is 0), exactly as JAX computes it.
+    """
+    shape = _shape(shape)
+    device = resolve_device(device)
+    maxval_out_of_range = int(maxval) > _I32_MAX
+    lo_v = min(max(int(minval), _I32_MIN), _I32_MAX)
+    hi_v = min(max(int(maxval), _I32_MIN), _I32_MAX)
+    k1, k2 = split(key)
+    higher, lower = _bits32(k1, shape, device), _bits32(k2, shape, device)
+    span = (hi_v - lo_v) & _MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif maxval_out_of_range:
+        span = (span + 1) & _MASK
+    if span == 0:  # the full 2**32 range: XLA's remainder by 0 keeps the dividend
+        offset = lower
+    else:
+        multiplier = (1 << 16) % span
+        multiplier = ((multiplier * multiplier) & _MASK) % span  # wraps, as uint32 does
+        offset = (((higher % span) * multiplier) & _MASK) + lower % span
+        offset = (offset & _MASK) % span
+    out = (lo_v + offset) & _MASK
+    out = torch.where(out >= (1 << 31), out - (1 << 32), out)
+    return out.to(torch.int32)

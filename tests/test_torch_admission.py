@@ -323,10 +323,17 @@ def test_run_batch_other_strategies(tpch, strategy):
 
 
 def test_run_batch_random_strategy_is_deferred(tpch):
-    _, tdb = tpch
-    tq = _batch(T, tdb, "tpch", "Q-AGH", (0.9,))
-    with pytest.raises(NotImplementedError):
-        TPBDSEngine(tdb, strategy="RAND-GB").run_batch(tq)
+    """A random strategy defers its pick to ``select_attribute`` per query
+    (the query's content-derived key): the wave, its replay and the index
+    equal the reference's and sequential ``run``'s."""
+    rdb, tdb = tpch
+    rq = _batch(R, rdb, "tpch", "Q-AGH", (0.95, 0.85))
+    tq = _batch(T, tdb, "tpch", "Q-AGH", (0.95, 0.85))
+    r_eng, t_bat, t_seq = _engines(rdb, tdb, strategy="RAND-GB")
+    got = _replay(rq + [rq[0]], tq + [tq[0]], r_eng, t_bat, t_seq, "RAND-GB")
+    assert any(info.created for _, info in got) and got[-1][1].reused
+    _assert_index_parity(r_eng, t_bat, "RAND-GB")
+    _assert_index_parity(t_seq, t_bat, "RAND-GB sequential")
 
 
 def test_shared_miss_path_work(tpch):

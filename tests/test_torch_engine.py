@@ -194,15 +194,17 @@ def test_mask_branch_does_not_compact_on_the_host(dbs, workloads, monkeypatch):
 
 
 def test_deferred_paths_name_their_slice(dbs, workloads):
-    """What later slices bring still refuses: the random strategies (in
-    ``run`` and ``run_batch``) and the subprocess half of sharded serving."""
+    """What later slices bring still refuses: the subprocess and fault half
+    of sharded serving.  The random strategies, once deferred, now run in
+    ``run`` and ``run_batch``."""
     _, tdb = dbs
     _, tq = workloads
     rand = T.PBDSEngine(tdb, strategy="RAND-GB")
-    with pytest.raises(NotImplementedError):
-        rand.run(tq[0])
-    with pytest.raises(NotImplementedError):
-        rand.run_batch(tq[:2])
+    res, info = rand.run(tq[0])
+    assert res.canonical() == T.execute(tq[0], tdb).canonical()
+    assert info.attr is None or info.attr in tq[0].groupby
+    assert [r.canonical() for r, _ in rand.run_batch(tq[:2])] == [
+        T.execute(q, tdb).canonical() for q in tq[:2]]
     with pytest.raises(NotImplementedError):
         T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
     se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)

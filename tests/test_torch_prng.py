@@ -79,3 +79,33 @@ def test_uniform_chain_matches_engine_keys():
     jkb, _ = jax.random.split(jke)
     tkb, _ = prng.split(tke)
     assert (_np(tkb) == _np(jkb)).all()
+
+
+RANDINT_KEYS = ([jax.random.PRNGKey(s) for s in (0, 1, 9, 17, 2**31 - 1)]
+                + [jax.random.fold_in(jax.random.PRNGKey(s), d)
+                   for s in (0, 9, 3) for d in (1, 7, 12345, stable_hash32(("crimes", ("year",))),
+                                                2**31 - 1)])
+
+
+@pytest.mark.parametrize("minval,maxval", [(0, 1), (0, 2), (0, 3), (0, 7), (0, 10),
+                                           (0, 2**31 - 1), (-5, 5), (4, 4), (9, 2)])
+@pytest.mark.parametrize("shape", [(), (5,), (3, 4)])
+def test_randint(minval, maxval, shape):
+    """Call site: the random strategies' pick, ``randint(key, (), 0, n)``.
+    Spans 1 to 2**31 - 1 (above 2**16 JAX's uint32 multiplier wraps to 0),
+    ``maxval <= minval`` (returns ``minval``), 20 keys."""
+    assert len(RANDINT_KEYS) == 20
+    for key in RANDINT_KEYS:
+        want = np.asarray(jax.random.randint(key, shape, minval, maxval))
+        got = prng.randint(torch.from_numpy(_np(key).astype(np.int64)), shape, minval, maxval,
+                           device="cpu").numpy()
+        assert got.dtype == want.dtype == np.int32 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_randint_engine_key_chain():
+    """seed -> fold_in(query hash) -> randint over a candidate pool of three."""
+    h = stable_hash32(("crimes", ("district", "year"), ("sum", "records")))
+    jk = jax.random.fold_in(jax.random.PRNGKey(9), h)
+    tk = prng.fold_in(prng.PRNGKey(9), h)
+    assert int(prng.randint(tk, (), 0, 3, device="cpu")) == int(jax.random.randint(jk, (), 0, 3))

@@ -35,7 +35,17 @@ burst; after the delete a burst with thresholds taken anew from the current
 table and its replay, so that the post-delete check holds real output;
 every result is checked against a plain numpy group-by of the full table,
 the fused and host-loop results against each other bit for bit, and no
-route may be served degraded.  Phase 7 drives the join templates at TPC-H
+route may be served degraded.  Phase 9 drives shard faults on phase 5's
+engine and last burst: a kill of the shard owning the most sketch bits
+(its slices served from the coordinator's table inside the one fused
+launch), a 1% append while it is dead, its heal (recovery by checkpoint
+adopt, delta replay and re-registration, each timed), a partition across a
+one-year delete, a flaky shard, a stall past a lowered deadline, and a kill
+with ``rebalance`` replayed fused and through the host loop; every result
+is checked against a plain group-by of its version, the recovered shard's
+maintainers against fresh captures of its rows, the route's
+``degraded``/``failed_shards``/``n_retries`` against the fault, and no
+step may re-capture.  Phase 7 drives the join templates at TPC-H
 scale factor 1 (lineitem 6,001,215 rows, orders 1,500,303, part 1,000,202,
 from ``make_tpch``'s distributions): ``run`` over three generated Q-AJGH and
 a Q-AAJGH, replayed; ``run_batch`` of six Q-AJGH differing in their HAVING
@@ -60,7 +70,7 @@ through ``select_composite_gb``, ``capture_composite`` and
 execution, every random pick against its candidate pool and a second
 engine's, the batch against the sequential runs, each composite sketch
 against the single sketches of its parts and the plain bitmap, and that
-kernels 1-4 each launch.  Phases run in the order 1-5, 7, 8, 6.  Phase 6 serves ``stablelm-1.6b`` at full
+kernels 1-4 each launch.  Phases run in the order 1-5, 9, 7, 8, 6.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -1183,12 +1193,13 @@ def _plain_result(q, groups):
 SHARD_KERNELS = ("segment_aggregate_batch", "sketch_filter")
 
 
-def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None) -> dict:
+def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None):
     """``ShardedEngine`` over ``N_SHARDS`` fragment shards on the
     ``SHARD_ATTR`` partition: burst (misses), replay (one fused launch),
     replay through the host loop, replay fused again, append 1% and burst,
     delete one year and burst.  Without phase 3's table, workload and full-table results it
-    makes its own."""
+    makes its own.  Returns the launches, the engine and its last burst
+    (phase 9 drives its faults on them)."""
     import numpy as np
     import torch
 
@@ -1403,6 +1414,254 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
                         .canonical(), f"{q}: differs from the executor over the full table")
     log(f"[shard] {sum(outcomes.values())} results vs full-table group-by {outcomes}")
     log(f"[shard] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches, se, fresh
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: shard faults on phase 5's engine
+# ---------------------------------------------------------------------------
+
+FAULT_KERNELS = ("segment_aggregate", "segment_aggregate_batch")
+FAULT_STALL_S, FAULT_DEADLINE_S = 1.0, 0.5  # step 7: a stall past a lowered deadline
+
+
+def phase_faults(se, burst, seed: int) -> dict:
+    """Shard faults on phase 5's ``ShardedEngine``, table and last burst:
+    the burst replayed fused; a kill of the shard owning the most set bits
+    of the burst's sketches (served coordinator-side inside the one fused
+    launch); a 1% append while it is dead; heal (recovery by checkpoint
+    adopt, delta replay and re-registration, timed by part); a partition
+    across a one-year delete, healed (the lost ships re-shipped from the
+    log); a flaky shard (two dropped ops retried away); a stall past a
+    lowered op deadline; and a kill with ``rebalance``, replayed fused,
+    through the host loop and fused again.  Every result is checked against
+    a plain group-by of its version's full table, and no step may
+    re-capture (``index.misses`` stays flat)."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import execute_and_provenance
+    from repro_torch.device import to_host
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    t_phase = time.perf_counter()
+    needed = {a for q in burst for a in q.groupby} | {q.agg.attr for q in burst if q.agg.attr}
+    cols_cache = {}
+    outcomes: dict = {}
+
+    def host_cols():
+        crimes = se.db["crimes"]
+        if cols_cache.get("table") is not crimes:
+            cols_cache.clear()
+            cols_cache["table"] = crimes
+            cols_cache["cols"] = {a: to_host(crimes[a]) for a in needed}
+        return cols_cache["cols"]
+
+    def check(label, out):
+        cols, cache = host_cols(), {}
+        for q, (res, _) in zip(burst, out):
+            sig = q.inner_signature()
+            if sig not in cache:
+                cache[sig] = _plain_groups(q, cols)
+            outcome = check_result(q, res, _plain_result(q, cache[sig]), cache[sig][2])
+            outcomes[outcome] = outcomes.get(outcome, 0) + 1
+
+    def replay(label, *, degraded, one_launch=True, repaired=None):
+        before = {k: LAUNCH_COUNTS[k] for k in (*BUILT, "fused_partials")}
+        misses = se.index.misses
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = se.run_batch(burst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCH_COUNTS[k] - v for k, v in before.items() if LAUNCH_COUNTS[k] != v}
+        route = se.last_route
+        n_empty = sum(len(res.values) == 0 for res, _ in out)
+        log(f"[faults] {label}: {len(burst)} queries in {wall * 1e3:.1f} ms wall; launches "
+            f"{launches}; route fused={route.fused} degraded={route.degraded} "
+            f"failed_shards={route.failed_shards} retries={route.n_retries} "
+            f"deltas_applied={route.deltas_applied} launch={route.t_launch_s * 1e3:.3f}ms "
+            f"merge={route.t_merge_s * 1e3:.3f}ms; health {se.health}; shard versions "
+            f"{[s.version for s in se.shards]} of {se.version}; empty {n_empty}")
+        require(all(info.reused for _, info in out), f"{label}: a query missed")
+        require(se.index.misses == misses, f"{label}: the index missed (a re-capture)")
+        require(route.degraded == degraded and all(info.degraded == degraded for _, info in out),
+                f"{label}: degraded is not {degraded} (route {route.failed_shards}, "
+                f"health {se.health})")
+        if repaired is not None:
+            require(all(info.repaired == repaired for _, info in out),
+                    f"{label}: repaired is not {repaired} everywhere")
+        if one_launch:
+            require(launches.get("fused_partials") == 1
+                    and launches.get("segment_aggregate_batch") == 1,
+                    f"{label}: {launches} launches, not one fused launch")
+        check(label, out)
+        return out, route, wall
+
+    for name in (*BUILT, "fused_partials", ROWS_COUNTER):
+        LAUNCH_COUNTS[name] = 0
+    misses0 = se.index.misses
+    replay("replay", degraded=False)
+
+    # 2. Kill the shard owning the most set bits of the burst's sketches.
+    entries = {e.reg_id: e for e in map(se.index.lookup_entry, burst)
+               if e.sketch.ranges.key() == se.ranges.key()}.values()  # on the serving partition
+    require(bool(entries), "no sketch of the burst is on the serving partition")
+    owned_bits = [sum(int(e.sketch.bits[se.plan.fragments_of(s)].sum()) for e in entries)
+                  for s in range(N_SHARDS)]
+    victim = int(np.argmax(owned_bits))
+    log(f"[faults] set bits of the burst's {len(entries)} sketches on {SHARD_ATTR} by shard "
+        f"{owned_bits}: kill shard {victim}")
+    se.shards[victim].inject("kill")
+    _, route, _ = replay("killed", degraded=True)
+    require(victim in route.failed_shards, f"the route names {route.failed_shards}, not {victim}")
+    replay("killed, again", degraded=True)
+    require(se.health[victim] == "dead", f"shard {victim} is {se.health[victim]}, not dead")
+
+    # 3. A 1% append while the shard is dead: shipped to the others, logged for it.
+    rng = np.random.default_rng(seed + 9)
+    crimes = se.db["crimes"]
+    m = int(round(APPEND_FRAC * crimes.num_rows))
+    rows = {a: to_host(crimes[a].index_select(0, torch.from_numpy(
+                rng.integers(0, crimes.num_rows, m)).to(crimes.device)))
+            for a in crimes.schema}
+    t0 = time.perf_counter()
+    se.append_rows("crimes", rows)
+    log(f"[faults] append_rows of {m} rows while shard {victim} is dead: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; its log holds {len(se._log[victim])} deltas")
+    replay("after append, killed", degraded=True, repaired=True)
+
+    # 4. Heal: checkpoint adopt, delta replay, re-registration, each timed
+    # on the recovered shard.
+    split = collections.defaultdict(float)
+
+    def timed(obj, name, part):
+        fn = getattr(obj, name)
+
+        def wrapper(*args, **kwargs):
+            if obj is se and args[0] != victim:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                split[part] += time.perf_counter() - t0
+        setattr(obj, name, wrapper)
+
+    client = se.shards[victim]
+    for obj, name, part in ((client, "restore_checkpoint", "adopt"),
+                            (se, "_sync_shard", "replay"),
+                            (se, "_reregister_shard", "re-register"),
+                            (se, "_recover_shard", "recovery")):
+        timed(obj, name, part)
+    ckpt_version = se._ckpt[victim].version
+    client.heal()
+    try:
+        _, route, wall = replay("healed", degraded=False, repaired=True)
+    finally:
+        for obj, name in ((client, "restore_checkpoint"), (se, "_sync_shard"),
+                          (se, "_reregister_shard"), (se, "_recover_shard")):
+            delattr(obj, name)
+    log(f"[faults] recovery of shard {victim} from its checkpoint at version {ckpt_version} to "
+        f"{se.version}: {split['recovery'] * 1e3:.1f} ms = adopt {split['adopt'] * 1e3:.1f} + "
+        f"delta replay {split['replay'] * 1e3:.1f} + re-registration "
+        f"{split['re-register'] * 1e3:.1f} + checkpoint, of the {wall * 1e3:.1f} ms read")
+    require(se.health[victim] == "healthy", f"shard {victim} is {se.health[victim]} after heal")
+    require(se.shards[victim].version == se.version, "the recovered shard lags the watermark")
+    # The recovered maintainers against a fresh capture of the shard's rows:
+    # the fragments (of the sketch's partition) holding provenance rows that
+    # the shard owns, from the provenance of the full table.  Kernel
+    # launches of the check are not the path's.
+    counts_before = dict(LAUNCH_COUNTS)
+    shard, ctable = se.shards[victim], se.db["crimes"]
+    on_victim = se._row_shard == victim
+    n_checked = 0
+    for key, reg in se._registered.items():
+        if not reg.group_local or not se.index.contains(reg.entry):
+            continue
+        require(shard.has_maintainer(key), f"shard {victim} lacks the maintainer of entry {key}")
+        _, prov = execute_and_provenance(reg.entry.query, se.db, catalog=se.engine.catalog)
+        bucket = to_host(se.engine.catalog.bucketize(ctable, reg.ranges))
+        want = np.zeros(reg.ranges.n_ranges, dtype=bool)
+        want[bucket[prov & on_victim]] = True
+        require(np.array_equal(shard.bits_for(key), want),
+                f"shard {victim}'s maintained bits of entry {key} differ from a fresh capture")
+        n_checked += 1
+    LAUNCH_COUNTS.clear()
+    LAUNCH_COUNTS.update(counts_before)
+    require(n_checked > 0, "no group-local entry to check on the recovered shard")
+    log(f"[faults] shard {victim}'s {n_checked} maintainers equal fresh captures of its rows")
+
+    # 5. A partition across a one-year delete; the lost ships come from the log.
+    part = (victim + 1) % N_SHARDS
+    years = to_host(se.db["crimes"]["year"])
+    uniq, counts = np.unique(years, return_counts=True)
+    year = int(uniq[np.argmin(counts)])
+    se.shards[part].inject("partition")
+    se.delete_rows("crimes", years == year)
+    behind = se.shards[part].version
+    log(f"[faults] delete of year {year} ({int(counts.min())} rows) while shard {part} is "
+        f"partitioned: it holds version {behind} of {se.version}, health {se.health[part]}, "
+        f"its log {len(se._log[part])} deltas")
+    require(behind < se.version, "the partitioned shard received the delete")
+    se.shards[part].heal()
+    replay("partition healed", degraded=False, repaired=True)
+    require(se.shards[part].version == se.version and se.shards[part].lag == 0,
+            "the healed shard did not catch up from the log")
+
+    # 6. A flaky shard: two dropped ops, retried away.
+    se.shards[part].inject("flaky", 2)
+    _, route, _ = replay("flaky", degraded=False)
+    require(route.n_retries >= 2, f"{route.n_retries} retries for a flaky shard")
+
+    # 7. A stall past a lowered deadline: served coordinator-side.
+    stalled = (victim + 2) % N_SHARDS
+    require(se._monitors[(stalled, "catch_up")].median() is not None,
+            f"shard {stalled}'s catch_up has no timing baseline yet")
+    deadline = se.op_deadline_s
+    se.op_deadline_s = FAULT_DEADLINE_S
+    se.shards[stalled].inject("stall", FAULT_STALL_S)
+    try:
+        _, route, _ = replay("stalled", degraded=True)
+    finally:
+        se.shards[stalled].heal()
+        se.op_deadline_s = deadline
+    require(stalled in route.failed_shards, f"the stalled shard {stalled} was not routed around")
+    replay("stall healed", degraded=False)
+    require(se.health == ["healthy"] * N_SHARDS, f"health {se.health} after the heals")
+
+    # 8. Kill and rebalance: the survivors take the dead shard's fragments.
+    se.shards[victim].inject("kill")
+    t0 = time.perf_counter()
+    rebuilt = se.rebalance([victim])
+    torch.cuda.synchronize()
+    log(f"[faults] rebalance away from shard {victim}: rebuilt {rebuilt} in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; fragments per shard "
+        f"{[int(se.plan.fragments_of(s).size) for s in range(N_SHARDS)]}, shard rows "
+        f"{[None if s.state_lost else int(s.table.num_rows) for s in se.shards]}")
+    require(rebuilt and not (se.plan.owner == victim).any(), "rebalance left the dead shard owning")
+    fused_out, _, _ = replay("rebalanced", degraded=False)
+    se.fused = False
+    loop_out, _, _ = replay("rebalanced, host loop", degraded=False, one_launch=False)
+    se.fused = True
+    for i, ((rf, _), (rl, _)) in enumerate(zip(fused_out, loop_out)):
+        require(_same_result(rf, rl), f"q{i:02d}: the fused and host-loop results differ "
+                                      f"after the rebalance")
+    replay("rebalanced, fused again", degraded=False)
+    require(se.index.misses == misses0, "the faults re-captured a sketch")
+
+    launches = {name: LAUNCH_COUNTS[name] for name in (*BUILT, "fused_partials")}
+    require_compacted("faults", launches["sketch_filter"], LAUNCH_COUNTS[ROWS_COUNTER])
+    for name in FAULT_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the fault path")
+    log(f"[faults] launches {launches}; {sum(outcomes.values())} results vs full-table "
+        f"group-by {outcomes}")
+    log(f"[faults] phase done in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2546,9 +2805,12 @@ def main() -> int:
     launches, db, workload, full_values = phase_engine(ROWS, UNIQUE, REPLAYS, SEED)
     batch_launches = phase_batch(ROWS, SEED, db, workload, full_values)
     launches["fragment_bitmap_batch"] = batch_launches["fragment_bitmap_batch"]
-    shard_launches = phase_shard(ROWS, SEED, db, workload, full_values)
+    shard_launches, sharded, burst = phase_shard(ROWS, SEED, db, workload, full_values)
     launches["segment_aggregate_batch"] = shard_launches["segment_aggregate_batch"]
-    del workload, full_values
+    fault_launches = phase_faults(sharded, burst, SEED)
+    for name in FAULT_KERNELS:
+        launches[name] += fault_launches[name]
+    del workload, full_values, sharded, burst
     t1 = time.perf_counter()
     tpch = make_tpch(TPCH_SF1_LINEITEM, seed=SEED, device="cuda")  # phases 7 and 8
     torch.cuda.synchronize()

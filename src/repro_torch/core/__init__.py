@@ -71,7 +71,9 @@ from repro_torch.core.shard import (
     RouteInfo,
     ShardedEngine,
     ShardPlan,
+    ShardUnavailableError,
     StackedInstances,
+    StaleEpochError,
     local_table_for,
     merge_partials_state,
     plan_fragments,

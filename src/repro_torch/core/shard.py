@@ -1,5 +1,5 @@
 """Fragment-sharded serving: fragments placed on shards, sketches routed
-(port of ``repro/core/shard.py``, the fault-free half, on one card).
+(port of ``repro/core/shard.py``, the in-process loopback shards).
 
 A clustered ``ColumnTable``'s fragments are placed on S shards (in-process
 ``FragmentShard`` objects on the engine's device), and a reused sketch is
@@ -30,12 +30,19 @@ keeps them.  Dimension tables are replicated to every shard: a join query's
 local instance is joined with the shard's replica, and a mutated dimension
 is replicated anew and evicts the sketches whose join reads it.
 
-Every shard op is timed against a deadline and a per-(shard, op) straggler
-baseline: a shard past the deadline is served coordinator-side until it
-answers in time again.  Injected faults, retries, the recovery of a lost
-shard, ``rebalance``, peer checkpoints, subprocess shards and metadata
-replication belong to the fault half of the sharded path, a later slice;
-they raise ``NotImplementedError`` here or are absent.
+Every shard op goes through ``_shard_call``: bounded retries against
+``ShardUnavailableError``, a deadline with a per-(shard, op) straggler
+baseline, and the health machine healthy -> suspect -> dead -> recovering
+-> healthy.  A shard that is down, unreachable or past the deadline has its
+slices served coordinator-side (bit-identical inside the envelope, in the
+one fused launch too); a lost shard recovers by adopting its checkpoint,
+replaying the coordinator's delta log and re-registering its maintainers by
+local counting, never by re-capture; ``rebalance`` re-places a dead shard's
+fragments onto the survivors.  Faults are injected in-process
+(``FragmentShard.inject``, driven by ``runtime/chaos.py``).  Subprocess
+shards, peer-mirrored checkpoints and metadata replication to a standby
+coordinator belong to the process-boundary slice (ROADMAP A6) and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -62,24 +69,31 @@ from repro_torch.core.queries import (
 from repro_torch.core.ranges import RangeSet, equi_depth_ranges
 from repro_torch.core.table import ColumnTable, Database, FragmentLayout, unique_rows
 from repro_torch.device import to_host
+from repro_torch.parallel.placement import failover_device, place_table, shard_devices
+from repro_torch.runtime.elastic import plan_replacement
 from repro_torch.runtime.guards import LAUNCH_COUNTS, SHAPE_CLASSES, hot_path
-from repro_torch.runtime.resilience import StragglerMonitor
+from repro_torch.runtime.resilience import RetryPolicy, StragglerMonitor, with_retries
 
-RECOVERY_SLICE = (
-    "shard faults, recovery, rebalance, replication and subprocess shards come "
-    "with the fault half of the sharded path (ROADMAP A2b)")
+REPLICATION_SLICE = (
+    "subprocess shards and metadata replication to a standby coordinator come "
+    "with the process-boundary slice (ROADMAP A6)")
 
-# A shard op slower than this, once the op's timing baseline has formed,
-# demotes the shard to suspect: it is served coordinator-side until an op
-# is on time again.
-OP_DEADLINE_S = 5.0
-# Deltas a shard's inbox holds before ``ship`` refuses one.
-INBOX_CAP = 4096
+
+class ShardUnavailableError(RuntimeError):
+    """A shard could not be reached: dead, partitioned or mid-failure.  The
+    one error ``_shard_call`` retries, so transient drops retry while logic
+    errors (the mis-routed-tail guard) surface at once."""
 
 
 class BackpressureError(RuntimeError):
     """A shard's inbox is at its depth cap; the coordinator's per-shard delta
     log carries the entry until the next read resyncs the shard."""
+
+
+class StaleEpochError(RuntimeError):
+    """A shard refused an op fenced behind the newest coordinator epoch it
+    has seen.  Not a ``ShardUnavailableError``: a fenced-out coordinator's
+    op is invalid, not transient, and is never retried."""
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +180,8 @@ def local_table_for(
 class FragmentShard:
     """One shard: its owned fragments' rows, its catalog and its sketch
     maintainers.  Deltas arrive through ``ship`` into an inbox and are
-    applied by ``catch_up`` when the coordinator next reads."""
+    applied by ``catch_up`` when the coordinator next reads.  Every op
+    passes ``_guard``, where injected faults take effect."""
 
     MAX_DELTA_CHAIN = 16
 
@@ -177,6 +192,8 @@ class FragmentShard:
         ranges: RangeSet,
         clustered: ColumnTable,
         dims: Mapping[str, ColumnTable],
+        device: Optional[torch.device] = None,
+        inbox_cap: Optional[int] = None,
         version: int = 0,
     ):
         self.shard_id = shard_id
@@ -185,23 +202,108 @@ class FragmentShard:
         # global fragment id -> local fragment position (-1 = not owned).
         self._local_of_global = np.full(ranges.n_ranges, -1, dtype=np.int64)
         self._local_of_global[self.owned] = np.arange(self.owned.shape[0])
-        # On the coordinator's device, as the tables it is cut from.
-        self.table = local_table_for(shard_id, plan, ranges, clustered, version=version)
-        self.dims: Dict[str, ColumnTable] = dict(dims)
+        # On the shard's pin, else the coordinator's device.
+        self.device = device
+        self.table: Optional[ColumnTable] = place_table(
+            local_table_for(shard_id, plan, ranges, clustered, version=version), device)
+        self.dims: Dict[str, ColumnTable] = {k: place_table(v, device) for k, v in dims.items()}
         self.catalog = Catalog()
         self.maintainers: Dict[int, SketchMaintainer] = {}
         self._inst: Dict[int, Tuple[Tuple, ColumnTable]] = {}
         self._inbox: Deque[Tuple[int, str, object]] = collections.deque()
+        # Past this many queued deltas ``ship`` raises ``BackpressureError``
+        # (``None``: no cap), so a shard that never drains cannot eat the
+        # coordinator's memory; the coordinator's log carries the entry.
+        self.inbox_cap = inbox_cap
         self.backpressure_hits = 0
+        # Injected fault: None, "dead", "stall", "partition" or "flaky".
+        self.fault: Optional[str] = None
+        self.stall_s = 0.0
+        self._flaky_fails = 0
+        # Highest coordinator epoch this shard has accepted an op from: the
+        # shard's identity, not its table state, so it survives a kill and a
+        # rebuild and a fenced-out coordinator stays fenced out.
+        self.epoch = 0
+
+    # -- epoch fence and faults ------------------------------------------------
+    def fence(self, epoch: int, op: str = "") -> None:
+        """Refuse ops behind the newest coordinator epoch seen (a monotone
+        max): once a newer coordinator has reached the shard, the old one's
+        ops raise ``StaleEpochError``."""
+        if epoch < self.epoch:
+            raise StaleEpochError(
+                f"shard {self.shard_id}: coordinator epoch {epoch} is fenced "
+                f"behind {self.epoch} ({op or 'op'})")
+        self.epoch = epoch
+
+    def _guard(self, op: str) -> None:
+        """Every shard op passes here: the failure choke point."""
+        if self.fault in ("dead", "partition"):
+            raise ShardUnavailableError(f"shard {self.shard_id} is {self.fault} ({op})")
+        if self.fault == "flaky":
+            self._flaky_fails -= 1
+            if self._flaky_fails <= 0:
+                self.fault = None
+            raise ShardUnavailableError(f"shard {self.shard_id} dropped {op} (flaky)")
+        if self.fault == "stall" and self.stall_s > 0:
+            time.sleep(self.stall_s)
+        if self.table is None:
+            raise ShardUnavailableError(f"shard {self.shard_id} lost its state ({op})")
 
     def inject(self, kind: str, arg=None) -> None:
-        raise NotImplementedError(RECOVERY_SLICE)
+        """Inject one fault.  ``kill`` loses all in-memory state (table,
+        maintainers, instances, inbox, catalog), as a process death would;
+        ``stall`` makes every op sleep ``arg`` seconds (default 0.02);
+        ``partition`` makes the shard unreachable with its state intact;
+        ``flaky`` fails the next ``arg`` ops (default 1), then heals."""
+        if kind == "kill":
+            self.fault = "dead"
+            self.table = None
+            self.maintainers.clear()
+            self._inst.clear()
+            self._inbox.clear()
+            self.catalog = Catalog()
+        elif kind == "stall":
+            self.fault = "stall"
+            self.stall_s = float(arg) if arg is not None else 0.02
+        elif kind == "partition":
+            self.fault = "partition"
+        elif kind == "flaky":
+            self.fault = "flaky"
+            self._flaky_fails = int(arg) if arg is not None else 1
+        else:
+            raise ValueError(f"unknown fault kind {kind!r}")
+
+    def heal(self) -> None:
+        """Clear any injected fault.  A killed shard becomes reachable but
+        empty: the coordinator finds the lost state on its next read and
+        recovers it (checkpoint adopt, delta replay, re-registration)."""
+        self.fault = None
+        self.stall_s = 0.0
+        self._flaky_fails = 0
+
+    @property
+    def reachable(self) -> bool:
+        """Can the coordinator reach this shard at all?"""
+        return self.fault not in ("dead", "partition")
+
+    def adopt(self, table: ColumnTable, dims: Mapping[str, ColumnTable]) -> None:
+        """Install recovered state (a checkpoint's table and the current
+        dimension tables) after a kill; maintainers and instances are gone
+        until re-registration."""
+        self.table = place_table(table, self.device)
+        self.dims = {k: place_table(v, self.device) for k, v in dims.items()}
+        self.catalog = Catalog()
+        self.maintainers = {}
+        self._inst = {}
+        self._inbox.clear()
 
     # -- replication -----------------------------------------------------------
     @property
     def version(self) -> int:
-        """Local watermark: fact-table deltas applied."""
-        return self.table.version
+        """Local watermark: fact-table deltas applied (-1 while the state
+        is lost)."""
+        return self.table.version if self.table is not None else -1
 
     @property
     def lag(self) -> int:
@@ -211,18 +313,20 @@ class FragmentShard:
         """Enqueue one versioned delta (``append`` rows or ``delete`` local
         mask).  Idempotent: ``catch_up`` drops entries at or below the local
         version, so the coordinator may re-ship a log suffix.  Past
-        ``INBOX_CAP`` entries it raises ``BackpressureError``."""
-        if len(self._inbox) >= INBOX_CAP:
+        ``inbox_cap`` entries it raises ``BackpressureError``."""
+        self._guard("ship")
+        if self.inbox_cap is not None and len(self._inbox) >= self.inbox_cap:
             self.backpressure_hits += 1
-            raise BackpressureError(f"shard {self.shard_id} inbox at cap ({INBOX_CAP})")
+            raise BackpressureError(f"shard {self.shard_id} inbox at cap ({self.inbox_cap})")
         self._inbox.append((version, kind, payload))
 
     def update_dim(self, table: ColumnTable) -> None:
         """Replace a replicated dimension table."""
+        self._guard("update_dim")
         old = self.dims.get(table.name)
         if old is not None:
             self.catalog.invalidate_table(old)
-        self.dims[table.name] = table
+        self.dims[table.name] = place_table(table, self.device)
         for key in [k for k, m in self.maintainers.items()
                     if m.q.join is not None and m.q.join.right == table.name]:
             del self.maintainers[key]
@@ -237,6 +341,7 @@ class FragmentShard:
         maintainers (delta-sized work); returns the number applied.  A
         version gap stops the drain until the coordinator re-ships the
         missing suffix from its log."""
+        self._guard("catch_up")
         applied = 0
         while self.table.version < watermark and self._inbox:
             version, kind, payload = self._inbox[0]
@@ -271,6 +376,7 @@ class FragmentShard:
         """Build this shard's maintainer for one logical index entry (cloned
         from a maintainer of the same inner-block signature when one
         exists)."""
+        self._guard("register")
         self.maintainers[key] = maintainer_for(
             q, self._db(), ranges, self.catalog, list(self.maintainers.values()))
 
@@ -281,6 +387,7 @@ class FragmentShard:
     def bits_for(self, key: int) -> Optional[np.ndarray]:
         """This shard's maintained bits (global fragment ids), or ``None``
         when the maintainer was dropped and needs re-registration."""
+        self._guard("bits_for")
         m = self.maintainers.get(key)
         return m.bits() if m is not None else None
 
@@ -291,6 +398,7 @@ class FragmentShard:
         their global fragment), the keep-mask kernel's kept rows otherwise.  The
         instance's source rows are recorded in the catalog, so its group
         encodings and WHERE masks are gathers of the local table's."""
+        self._guard("instance")
         token = (id(self.table), bits.tobytes())
         cached = self._inst.get(key)
         if cached is not None and cached[0] == token:
@@ -437,9 +545,16 @@ class RouteInfo:
     t_launch_s: float = 0.0
     fused: bool = False
     n_queries: int = 1
-    # Some shard's slices were served coordinator-side this route (it was
-    # past the op deadline).
+    # Degraded-mode bookkeeping: ``failed_shards`` lists the shards whose
+    # slices were served from the coordinator's table this route (down,
+    # unreachable or past the op deadline), ``n_retries`` the transient shard
+    # op failures that retries absorbed, ``stale_checkpoints`` the
+    # cumulative peer-mirrored checkpoints that could not advance (peer
+    # mirrors come with subprocess shards, ROADMAP A6, so 0 here).
     degraded: bool = False
+    failed_shards: Tuple[int, ...] = ()
+    n_retries: int = 0
+    stale_checkpoints: int = 0
 
     @property
     def t_critical_s(self) -> float:
@@ -469,9 +584,15 @@ class ShardedEngine:
         n_ranges: int = 64,
         strategy: str = "CB-OPT-GB",
         policy: str = "contig",
+        use_devices: bool = True,
         fused: bool = True,
         max_registered: Optional[int] = None,
+        health: bool = True,
+        op_deadline_s: float = 5.0,
+        inbox_cap: Optional[int] = 4096,
+        retry_policy: Optional[RetryPolicy] = None,
         transport: str = "loopback",
+        epoch: int = 0,
         **engine_kwargs,
     ):
         for k in ("cluster_tables", "compact_tail_frac"):
@@ -480,8 +601,7 @@ class ShardedEngine:
                 # global-row -> shard-row map that delete routing needs.
                 raise ValueError(f"{k} is coordinator-managed in ShardedEngine")
         if transport == "subprocess":
-            raise NotImplementedError(
-                "subprocess shards come with the process-boundary slice (ROADMAP A6)")
+            raise NotImplementedError(REPLICATION_SLICE)
         if transport != "loopback":
             raise ValueError(f"unknown transport {transport!r}")
         from repro_torch.core import shard_rpc  # deferred: shard_rpc imports us
@@ -498,12 +618,23 @@ class ShardedEngine:
         # sketch selected on it routes as fragment slices on every shard.
         self.engine._ranges_cache[(table, attr)] = self.ranges
         self.plan = plan_fragments(np.diff(clustered.layout.offsets), n_shards, policy=policy)
-        dims = {k: v for k, v in self.engine.db.tables.items() if k != table}
+        dims = self._dims()
+        # Shards are pinned round-robin only when the engine itself is on a
+        # CUDA device and several exist.
+        self._devices = shard_devices(n_shards, use_devices and self.device.type == "cuda")
+        self._inbox_cap = inbox_cap
         self.shards = [
             shard_rpc.LoopbackShardClient(
-                FragmentShard(s, self.plan, self.ranges, clustered, dims))
+                FragmentShard(s, self.plan, self.ranges, clustered, dims, self._devices[s],
+                              inbox_cap=inbox_cap))
             for s in range(n_shards)
         ]
+        # Coordinator epoch, stamped on every fenced shard op: a shard
+        # refuses any lower epoch, so a superseded coordinator cannot land
+        # mutations after a takeover.
+        self.epoch = int(epoch)
+        for c in self.shards:
+            c.epoch = self.epoch
         # Global row -> (shard, local row), kept across mutations so that
         # coordinator delete masks translate to shard-local masks.
         n = clustered.num_rows
@@ -523,27 +654,36 @@ class ShardedEngine:
         self.fused = fused
         # Registrations beyond this are pruned by recency after each pass.
         self.max_registered = max_registered
-        # Shard health: healthy -> suspect on an op past the deadline, back
-        # on the next op in time (``_shard_call``).
+        # Shard health: healthy -> suspect -> dead -> recovering -> healthy
+        # (``_shard_call``, ``_recover_shard``).  ``health=False`` bypasses
+        # the per-op wrapper (a fault-free baseline; never run it against
+        # injected faults).
+        self.health_tracking = health
+        self.op_deadline_s = op_deadline_s
+        self._retry_policy = retry_policy or RetryPolicy(
+            max_attempts=3, backoff_s=1e-3, backoff_mult=2.0,
+            retryable=(ShardUnavailableError,), deadline_s=op_deadline_s)
         self.health: List[str] = ["healthy"] * n_shards
         self._monitors: Dict[Tuple[int, str], StragglerMonitor] = {}
-        # Per-shard recovery point and the log of deltas shipped past it.
-        self._ckpt = [c.make_checkpoint() for c in self.shards]
+        self._route_retries = 0
+        self.stale_checkpoints = [0] * n_shards
+        # Recovery state held by the coordinator: per shard a checkpoint (a
+        # reference to its immutable local table at its last drained read)
+        # and the log of every delta shipped past it.  A lost shard recovers
+        # by checkpoint adopt + log replay + maintainer re-registration.
+        self._ckpt = [c.make_checkpoint(clustered, 0) for c in self.shards]
         self._log: List[List[Tuple[int, str, object]]] = [[] for _ in range(n_shards)]
 
     def _emit(self, kind: str, payload) -> None:
-        """Stream one metadata record to the attached standby: a no-op, since
-        no standby can be attached in this slice."""
+        """Stream one metadata record to an attached standby: a no-op until
+        replication lands (ROADMAP A6)."""
 
     def attach_replica(self, replica) -> None:
-        raise NotImplementedError(RECOVERY_SLICE)
+        raise NotImplementedError(REPLICATION_SLICE)
 
     @classmethod
     def from_replica(cls, store, *, epoch: int, attach=None) -> "ShardedEngine":
-        raise NotImplementedError(RECOVERY_SLICE)
-
-    def rebalance(self, dead: Optional[Sequence[int]] = None) -> List[int]:
-        raise NotImplementedError(RECOVERY_SLICE)
+        raise NotImplementedError(REPLICATION_SLICE)
 
     # -- convenience -----------------------------------------------------------
     @property
@@ -627,18 +767,28 @@ class ShardedEngine:
         is the authoritative copy, so a refused ship leaves the shard lagging
         until the next read resyncs it from the log."""
         self._log[sid].append((version, kind, payload))
+        if self.health_tracking and self.health[sid] == "dead":
+            return  # known dead: recovery replays the log
         try:
             self.shards[sid].ship(version, kind, payload)
         except BackpressureError:
             pass  # inbox full; the log carries it
+        except ShardUnavailableError:
+            self._demote(sid)
 
     def _replicate_dim(self, table_name: str) -> None:
         """Replicate a mutated dimension table and evict the sketches whose
         join reads it: sketches are versioned against the fact table only,
         so serving one across a dimension mutation could return a stale
-        join.  The next query re-captures."""
-        for shard in self.shards:
-            shard.update_dim(self.engine.db[table_name])
+        join.  The next query re-captures.  An unreachable shard is skipped:
+        ``_sync_shard`` refreshes a drifted replica before it serves again."""
+        for sid, shard in enumerate(self.shards):
+            if self.health_tracking and self.health[sid] == "dead":
+                continue
+            try:
+                shard.update_dim(self.engine.db[table_name])
+            except ShardUnavailableError:
+                self._demote(sid)
         for e in list(self.engine.index.entries()):
             if e.query.join is not None and e.query.join.right == table_name:
                 self.engine.index.remove(e)
@@ -684,16 +834,20 @@ class ShardedEngine:
             e.reg_id = self._reg_counter
             self._reg_counter += 1
         fact_new = [e for e in new if e.query.table == self.table_name]
+        down: Set[int] = set()
         if any(self._group_local(e.query) for e in fact_new):
-            self._catch_up_all()
+            _, down = self._catch_up_all()
         for e in fact_new:
             group_local = self._group_local(e.query)
             if group_local:
                 for sid, shard in enumerate(self.shards):
-                    if self.health[sid] != "healthy":
-                        continue  # registered when it is healthy again
-                    self._shard_call(sid, "register", functools.partial(
-                        shard.register, e.reg_id, e.query, e.sketch.ranges))
+                    if sid in down or (self.health_tracking and self.health[sid] != "healthy"):
+                        continue  # registered at recovery (_reregister_shard)
+                    try:
+                        self._shard_call(sid, "register", functools.partial(
+                            shard.register, e.reg_id, e.query, e.sketch.ranges))
+                    except ShardUnavailableError:
+                        pass
             self._registered[e.reg_id] = _Registered(e, e.sketch.ranges, group_local)
         if self.max_registered is not None:
             self.prune(self.max_registered)
@@ -727,41 +881,72 @@ class ShardedEngine:
     def restore_selection_state(self, state: Mapping) -> None:
         self.engine.restore_selection_state(state)
 
-    # -- health ----------------------------------------------------------------
+    # -- health, recovery, rebalance ---------------------------------------------
+    def _demote(self, sid: int) -> None:
+        """One hard failure of shard ``sid``: healthy -> suspect, suspect
+        -> dead."""
+        if self.health_tracking:
+            self.health[sid] = "dead" if self.health[sid] == "suspect" else "suspect"
+
     def _shard_call(self, sid: int, op: str, fn):
-        """One timed shard op and its health transition: past
-        ``OP_DEADLINE_S`` it demotes the shard to suspect once the op's
-        timing baseline has formed (so the first calls, which build kernels
-        and caches, never demote); an op in time promotes it back."""
+        """One guarded shard op: bounded retries with backoff and a deadline
+        (``with_retries`` against ``ShardUnavailableError``), a per-(shard,
+        op) straggler baseline, and the health transitions.  A failure that
+        outlasts the retries demotes the shard (healthy -> suspect -> dead);
+        an op past ``op_deadline_s`` demotes it to suspect once the op's
+        baseline has formed (so the first calls, which build kernels and
+        caches, never demote); an op in time promotes suspect or recovering
+        back to healthy."""
+        if not self.health_tracking:
+            return fn()
+        if self.health[sid] == "dead":
+            raise ShardUnavailableError(f"shard {sid} marked dead")
+        retries = 0
+
+        def count(_attempt: int, _e: Exception) -> None:
+            nonlocal retries
+            retries += 1
+
         t0 = time.perf_counter()
-        out = fn()
+        try:
+            out = with_retries(fn, self._retry_policy, on_retry=count)
+        except ShardUnavailableError:
+            self._route_retries += retries
+            self._demote(sid)
+            raise
         dt = time.perf_counter() - t0
+        self._route_retries += retries
         mon = self._monitors.get((sid, op))
         if mon is None:
             mon = self._monitors[(sid, op)] = StragglerMonitor()
         mon.observe(dt)
-        if dt > OP_DEADLINE_S and mon.median() is not None:
+        if dt > self.op_deadline_s and mon.median() is not None:
             self.health[sid] = "suspect"
-        else:
+        elif self.health[sid] in ("suspect", "recovering"):
             self.health[sid] = "healthy"
         return out
 
     def _checkpoint(self, sid: int) -> None:
         """Advance one shard's recovery point (it is at the watermark) and
         prune its log; a version compare when already there."""
-        if self._ckpt[sid].version == self.version:
+        cur = self._ckpt[sid]
+        if cur is not None and cur.version == self.version:
             return
-        ckpt = self.shards[sid].make_checkpoint()
+        ckpt = self.shards[sid].make_checkpoint(self.db[self.table_name], self.version)
         self._ckpt[sid] = ckpt
         v = ckpt.version
         if self._log[sid] and self._log[sid][0][0] <= v:
             self._log[sid] = [e for e in self._log[sid] if e[0] > v]
         self._emit("ckpt", (sid, v))
 
+    def _dims(self) -> Dict[str, ColumnTable]:
+        return {k: v for k, v in self.engine.db.tables.items() if k != self.table_name}
+
     def _sync_shard(self, sid: int) -> int:
         """Bring one shard to the watermark: refresh drifted dimension
         replicas, drain the inbox, re-ship any log suffix the shard missed
-        (ships refused by backpressure)."""
+        (ships lost to a partition or refused by backpressure), and rebuild
+        it outright when the log cannot reach the watermark."""
         shard = self.shards[sid]
         for name, t in self.engine.db.tables.items():
             if name != self.table_name and shard.dim_token(name) != (t.uid, t.version):
@@ -782,14 +967,32 @@ class ShardedEngine:
                 return applied + self._rebuild_shard(sid)
         return applied
 
-    def _rebuild_shard(self, sid: int) -> int:
-        """Rebuild a shard the log cannot bring to the watermark: only after
-        a loss, so not in this slice."""
-        raise NotImplementedError(RECOVERY_SLICE)
+    def _recover_shard(self, sid: int) -> int:
+        """Recover a reachable-again shard: adopt its last checkpoint when
+        its state was lost, replay the delta log to the watermark,
+        re-register its maintainers by counting its local rows.  Never a
+        re-capture: the sketch bits come back through the counting that
+        produced them."""
+        shard = self.shards[sid]
+        self.health[sid] = "recovering"
+        if shard.state_lost:
+            if self._ckpt[sid] is None:
+                # No coherent checkpoint (the placement changed while it was
+                # gone): rebuild from the coordinator's table.
+                self._rebuild_shard(sid)
+                self.health[sid] = "healthy"
+                return 0
+            shard.restore_checkpoint(self._ckpt[sid], self._dims(), self.plan, self.ranges)
+        applied = self._sync_shard(sid)
+        self._reregister_shard(sid)
+        self._checkpoint(sid)
+        self.health[sid] = "healthy"
+        return applied
 
     def _reregister_shard(self, sid: int) -> None:
-        """Register every routed group-local entry the shard lacks (it sat
-        out a registration wave while suspect)."""
+        """Register every routed group-local entry the shard lacks (its
+        maintainers were lost or rebuilt, or it sat out a registration wave
+        while suspect)."""
         shard = self.shards[sid]
         for key, reg in self._registered.items():
             if not reg.group_local or not self.engine.index.contains(reg.entry):
@@ -797,40 +1000,148 @@ class ShardedEngine:
             if not shard.has_maintainer(key):
                 shard.register(key, reg.entry.query, reg.ranges)
 
-    def _catch_up_all(self) -> int:
-        """The watermark gate: every shard drains its inbox up to the
-        coordinator's mutation count before serving; returns the deltas
-        applied."""
-        applied = 0
-        for sid in range(self.n_shards):
-            applied += self._shard_call(sid, "catch_up", functools.partial(self._sync_shard, sid))
-            self._checkpoint(sid)
-            if self.health[sid] == "healthy":
-                self._reregister_shard(sid)
-        return applied
+    def _rebuild_shard(self, sid: int) -> int:
+        """Rebuild one shard outright from the coordinator's table under the
+        current plan (a gather of its local rows): ``rebalance``'s path, and
+        recovery's when the log cannot reach the watermark.  Still no
+        re-capture: maintainers re-register by local counting."""
+        dead = [s for s, h in enumerate(self.health) if h == "dead"]
+        self._devices[sid] = failover_device(self._devices, sid, dead)
+        self.shards[sid].rebuild(self.plan, self.ranges, self.db[self.table_name], self._dims(),
+                                 self._devices[sid], self._inbox_cap, self.version)
+        self._log[sid] = []
+        self._reregister_shard(sid)
+        self._checkpoint(sid)
+        return 0
 
-    def _degraded_set(self) -> Set[int]:
-        """The shards served coordinator-side this route: the suspect ones
-        that own fragments."""
-        return {s for s in range(self.n_shards)
-                if self.health[s] == "suspect" and self.plan.fragments_of(s).size > 0}
+    def _rebuild_row_maps(self) -> None:
+        """Recompute the global row -> (shard, local row) maps from the
+        coordinator's table and the current plan (after a re-placement).
+        Tail rows are bucketized by ``RangeSet.bucketize`` (float32), as
+        ``append_rows`` routed them."""
+        ctable = self.db[self.table_name]
+        lay = ctable.layout
+        n = ctable.num_rows
+        frag_prefix = np.searchsorted(lay.offsets, np.arange(n - lay.tail), side="right") - 1
+        if lay.tail:
+            tail_frag = to_host(self.ranges.bucketize(ctable[self.attr][n - lay.tail:]))
+            row_frag = np.concatenate([frag_prefix, tail_frag])
+        else:
+            row_frag = frag_prefix
+        self._row_shard = self.plan.owner[row_frag]
+        self._row_local = np.empty(n, dtype=np.int64)
+        self._shard_rows = np.zeros(self.n_shards, dtype=np.int64)
+        for s in range(self.n_shards):
+            sel = self._row_shard == s
+            self._shard_rows[s] = int(sel.sum())
+            self._row_local[sel] = np.arange(self._shard_rows[s])
+
+    def rebalance(self, dead: Optional[Sequence[int]] = None) -> List[int]:
+        """Re-place the fragments of ``dead`` shards (default: every shard
+        marked dead) onto the survivors by ``plan_replacement``, and rebuild
+        the survivors whose fragment set changed; returns their ids."""
+        if dead is None:
+            dead = [s for s in range(self.n_shards) if self.health[s] == "dead"]
+        dead_set = {int(d) for d in dead}
+        if not dead_set:
+            return []
+        sizes = np.diff(self.db[self.table_name].layout.offsets)
+        new_owner = plan_replacement(sizes, self.plan.owner, self.n_shards, sorted(dead_set))
+        changed = [s for s in range(self.n_shards)
+                   if not np.array_equal(np.nonzero(new_owner == s)[0], self.plan.fragments_of(s))]
+        self.plan = ShardPlan(n_shards=self.n_shards, owner=new_owner)
+        self._rebuild_row_maps()
+        rebuilt, voided = [], []
+        for sid in changed:
+            if sid in dead_set:
+                # The lost shard owns nothing now; its checkpoint and log
+                # speak the old placement, so a rejoin rebuilds, never replays.
+                self._ckpt[sid] = None
+                self._log[sid] = []
+                voided.append(sid)
+                continue
+            self._rebuild_shard(sid)
+            self.health[sid] = "healthy"
+            rebuilt.append(sid)
+        self._emit("plan", (new_owner, voided))
+        # The plan changed identity: every stacked cache key is dead.
+        self.engine.catalog.drop_stacked(("stacked",))
+        self.engine.catalog.drop_stacked(("stacked_batch",))
+        return rebuilt
+
+    def _catch_up_all(self) -> Tuple[int, Set[int]]:
+        """The watermark gate: every reachable shard drains its inbox up to
+        the coordinator's mutation count before serving; returns the deltas
+        applied and the shards that could not be brought current
+        (``down``: their slices serve from the coordinator's table this
+        route).  A dead or killed shard that is reachable again recovers on
+        the spot."""
+        applied = 0
+        down: Set[int] = set()
+        for sid, shard in enumerate(self.shards):
+            if (self.health_tracking and self.health[sid] == "dead") or (
+                    shard.state_lost and shard.reachable):
+                if shard.reachable:
+                    try:
+                        applied += self._recover_shard(sid)
+                    except (ShardUnavailableError, BackpressureError):
+                        self.health[sid] = "dead"
+                        down.add(sid)
+                else:
+                    down.add(sid)
+                continue
+            try:
+                applied += self._shard_call(
+                    sid, "catch_up", functools.partial(self._sync_shard, sid))
+            except (ShardUnavailableError, BackpressureError):
+                down.add(sid)
+                continue
+            self._checkpoint(sid)
+            if self.health_tracking and self.health[sid] == "healthy":
+                # A shard that sat out a registration wave (suspect then)
+                # picks up its maintainers on its first healthy read.
+                try:
+                    self._reregister_shard(sid)
+                except (ShardUnavailableError, BackpressureError):
+                    down.add(sid)
+        return applied, down
+
+    def _degraded_set(self, down: Set[int]) -> Set[int]:
+        """The shards served coordinator-side this route: ``down`` plus the
+        suspect and dead ones, less those owning no fragment (re-placed away
+        by a rebalance: nothing to stand in for)."""
+        degraded = set(down)
+        if self.health_tracking:
+            degraded |= {s for s in range(self.n_shards) if self.health[s] in ("suspect", "dead")}
+        return {s for s in degraded if self.plan.fragments_of(s).size > 0}
 
     def _resolve_bits(self, key: int, reg: _Registered, degraded: Set[int]) -> Optional[np.ndarray]:
         """The logical sketch bits of one registered entry, or ``None`` when a
         shard maintainer was lost (the caller falls back to the miss path).
         Group-local entries OR their shards' maintained bits; the others, or
         any with a degraded shard, take the coordinator's maintained sketch,
-        which for a group-local entry is the same bits."""
-        owning = [sid for sid in range(self.n_shards) if self.plan.fragments_of(sid).size > 0]
-        if reg.group_local and not degraded.intersection(owning):
-            bits_parts = []
-            for sid in owning:
-                b = self._shard_call(sid, "bits_for", functools.partial(self.shards[sid].bits_for, key))
+        which for a group-local entry is the same bits.  A shard that fails
+        here joins ``degraded``."""
+        if reg.group_local:
+            bits_parts: Optional[List[np.ndarray]] = []
+            for sid, shard in enumerate(self.shards):
+                if self.plan.fragments_of(sid).size == 0:
+                    continue  # owns nothing (re-placed away)
+                if sid in degraded:
+                    bits_parts = None
+                    break
+                try:
+                    b = self._shard_call(sid, "bits_for", functools.partial(shard.bits_for, key))
+                except ShardUnavailableError:
+                    degraded.add(sid)
+                    bits_parts = None
+                    break
                 if b is None:  # maintainer dropped
                     self._unregister(key)
                     return None
                 bits_parts.append(b)
-            return np.logical_or.reduce(bits_parts)
+            if bits_parts is not None:
+                return np.logical_or.reduce(bits_parts)
         sketch, _ = self.engine._current_sketch(reg.entry)
         return sketch.bits
 
@@ -864,11 +1175,19 @@ class ShardedEngine:
     def _stacked_token(self, degraded: Set[int], bits: np.ndarray) -> Tuple:
         """Freshness token of the stacked tensors: each live shard's table
         (uid, version), the coordinator table's for degraded ones, and the
-        sketch bits."""
+        sketch bits.  A kill, heal, rebuild or rebalance changes it (a lost
+        shard outside the degraded set owns no fragment, and any sentinel
+        does for it)."""
         ctable = self.db[self.table_name]
         per = tuple(("coord", ctable.uid, ctable.version) if sid in degraded
-                    else s.state_token() for sid, s in enumerate(self.shards))
+                    else (s.state_token() or ("lost",)) for sid, s in enumerate(self.shards))
         return (per, bits.tobytes())
+
+    def _degraded_arrays(self, sid: int, q: Query, reg: _Registered, bits: np.ndarray):
+        """Coordinator-side stand-in for a shard's ``block_arrays``."""
+        catalog = self.engine.catalog
+        return inner_block_arrays(
+            q, _joined(q, self._degraded_flat(sid, reg, bits), self.db.tables, catalog), catalog)
 
     def _contacted(self, reg: _Registered, bits: np.ndarray) -> List[int]:
         """The shards a route contacts: those owning fragments, less those
@@ -891,7 +1210,10 @@ class ShardedEngine:
         Cached under the registration and plan, guarded by the freshness
         token, so any delta a shard applies or any maintained bit that flips
         rebuilds the stack and the steady state costs one dictionary probe.
-        The shard axis covers the contacted shards only.
+        The shard axis covers the contacted shards only; a degraded shard's
+        slice is cut from the coordinator's table (the launch does not care
+        where a slice came from), and a shard that fails mid-build joins
+        ``degraded``.
         """
         catalog = self.engine.catalog
         ckey = ("stacked", key, self.db[self.table_name].uid, id(self.plan))
@@ -904,13 +1226,14 @@ class ShardedEngine:
         per_shard: List[Tuple] = []
         contacted_ids = self._contacted(reg, bits)
         for sid in contacted_ids:
-            if sid in degraded:
-                per_shard.append(inner_block_arrays(
-                    q, _joined(q, self._degraded_flat(sid, reg, bits), self.db.tables,
-                               catalog), catalog))
-            else:
-                per_shard.append(self._shard_call(sid, "instance", functools.partial(
-                    self.shards[sid].block_arrays, key, reg.ranges, bits, q)))
+            if sid not in degraded:
+                try:
+                    per_shard.append(self._shard_call(sid, "instance", functools.partial(
+                        self.shards[sid].block_arrays, key, reg.ranges, bits, q)))
+                    continue
+                except ShardUnavailableError:
+                    degraded.add(sid)
+            per_shard.append(self._degraded_arrays(sid, q, reg, bits))
 
         # The coordinator's global group dictionary: np.unique over the
         # contacted shards' group keys, the construction the host-loop merge
@@ -950,13 +1273,15 @@ class ShardedEngine:
             if n == 0:
                 continue
             gmap = global_of_local[i]
-            g = enc.gid_dev.to(torch.int32)
+            g = enc.gid_dev.to(dev, torch.int32)  # a pinned shard's slice moves here
             if gmap is not None:
                 g = torch.from_numpy(gmap.astype(np.int32)).to(dev)[g.long()]
             gid[0, i, :n] = g
-            vals[0, i, :n] = v.to(torch.float32)
-            weights[0, i, :n] = where_mask.to(torch.float32)
+            vals[0, i, :n] = v.to(dev, torch.float32)
+            weights[0, i, :n] = where_mask.to(dev, torch.float32)
 
+        # Keyed on how the stack was built: a shard may have failed mid-build.
+        token = self._stacked_token(degraded, bits)
         st = StackedInstances(
             vals=vals, gid=gid, weights=weights, n_groups=n_groups, g_pad=g_pad,
             group_values=group_values, contacted_ids=tuple(contacted_ids), token=token,
@@ -997,6 +1322,12 @@ class ShardedEngine:
         agg = _finalize(q.agg.fn, sums64, counts64)
         return result_from_group_state(q, st.group_values, agg, counts64 > 0, self.device)
 
+    def _degraded_report(self, degraded: Set[int]) -> dict:
+        """``RouteInfo``'s degraded-mode fields for this route."""
+        return dict(degraded=bool(degraded), failed_shards=tuple(sorted(degraded)),
+                    n_retries=self._route_retries,
+                    stale_checkpoints=sum(self.stale_checkpoints))
+
     def _partials(self, q: Query, key: int, reg: _Registered, bits: np.ndarray,
                   degraded: Set[int]) -> Tuple[List, Dict[int, float]]:
         """Host loop: each contacted shard's ``partial()`` and its seconds."""
@@ -1004,11 +1335,14 @@ class ShardedEngine:
         partials = []
         for sid in self._contacted(reg, bits):
             ts = time.perf_counter()
+            if sid not in degraded:
+                try:
+                    partials.append(self._shard_call(sid, "partial", functools.partial(
+                        self.shards[sid].partial, q, key, reg.ranges, bits)))
+                except ShardUnavailableError:
+                    degraded.add(sid)
             if sid in degraded:
                 partials.append(self._degraded_partial(sid, q, reg, bits))
-            else:
-                partials.append(self._shard_call(sid, "partial", functools.partial(
-                    self.shards[sid].partial, q, key, reg.ranges, bits)))
             per_shard_s[sid] = time.perf_counter() - ts
         return partials, per_shard_s
 
@@ -1019,8 +1353,9 @@ class ShardedEngine:
         reg = self._registered.get(key)
         if reg is None:
             return None
-        applied = self._catch_up_all()
-        degraded = self._degraded_set()
+        self._route_retries = 0
+        applied, down = self._catch_up_all()
+        degraded = self._degraded_set(down)
         bits = self._resolve_bits(key, reg, degraded)
         if bits is None:
             return None
@@ -1047,7 +1382,7 @@ class ShardedEngine:
             contacted=contacted, skipped=self.n_shards - contacted,
             watermark=self.version, deltas_applied=applied, per_shard_s=per_shard_s,
             t_merge_s=t_merge, t_launch_s=t_launch, fused=self.fused,
-            degraded=bool(degraded),
+            **self._degraded_report(degraded),
         )
         info = RunInfo(
             reused=True, created=False, attr=reg.ranges.attr,
@@ -1105,8 +1440,9 @@ class ShardedEngine:
         out: List[Optional[Tuple[QueryResult, RunInfo]]],
     ) -> None:
         """Serve one wave's index hits routed: all entries, one launch."""
-        applied = self._catch_up_all()
-        degraded = self._degraded_set()
+        self._route_retries = 0
+        applied, down = self._catch_up_all()
+        degraded = self._degraded_set(down)
         serving: List[Tuple[int, List, StackedInstances]] = []
         loop_stats: List[Tuple[Tuple[int, ...], Dict[int, float], float, int]] = []
         for key, members in groups:
@@ -1135,7 +1471,7 @@ class ShardedEngine:
                 t_merge_s=sum(m for _, _, m, _ in loop_stats),
                 t_launch_s=sum(per_shard_s.values()), fused=False,
                 n_queries=sum(n for _, _, _, n in loop_stats),
-                degraded=bool(degraded),
+                **self._degraded_report(degraded),
             )
         if not serving:
             return
@@ -1169,7 +1505,7 @@ class ShardedEngine:
             contacted=len(union_contacted), skipped=self.n_shards - len(union_contacted),
             watermark=self.version, deltas_applied=applied, per_shard_s={},
             t_merge_s=t1 - tm, t_launch_s=tm - tl, fused=True, n_queries=n_served,
-            degraded=bool(degraded),
+            **self._degraded_report(degraded),
         )
 
     def _assemble_batch(self, serving: List[Tuple[int, List, StackedInstances]]):

@@ -193,10 +193,11 @@ def test_mask_branch_does_not_compact_on_the_host(dbs, workloads, monkeypatch):
     assert int(inst[PAD_VALID].sum()) == int(keep.sum())
 
 
-def test_deferred_paths_name_their_slice(dbs, workloads):
-    """What later slices bring still refuses: the subprocess and fault half
-    of sharded serving.  The random strategies, once deferred, now run in
-    ``run`` and ``run_batch``."""
+def test_random_strategies_and_shard_faults_run(dbs, workloads):
+    """Paths once deferred to later slices now run: the random strategies in
+    ``run`` and ``run_batch``, and a shard kill and a rebalance in the
+    sharded engine.  Subprocess shards still refuse, naming their slice
+    (ROADMAP A6)."""
     _, tdb = dbs
     _, tq = workloads
     rand = T.PBDSEngine(tdb, strategy="RAND-GB")
@@ -205,13 +206,14 @@ def test_deferred_paths_name_their_slice(dbs, workloads):
     assert info.attr is None or info.attr in tq[0].groupby
     assert [r.canonical() for r, _ in rand.run_batch(tq[:2])] == [
         T.execute(q, tdb).canonical() for q in tq[:2]]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
     se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)
-    with pytest.raises(NotImplementedError):
-        se.shards[0].inject("kill")
-    with pytest.raises(NotImplementedError):
-        se.rebalance([0])
+    se.shards[0].inject("kill")
+    assert se.shards[0].state_lost and not se.shards[0].reachable
+    assert se.rebalance([0]) == [1] and not (se.plan.owner == 0).any()
+    res, _ = se.run(tq[0])
+    assert res.canonical() == T.execute(tq[0], tdb).canonical()
 
 
 def test_engine_runs_on_its_tables_device(dbs):

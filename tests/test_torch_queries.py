@@ -140,8 +140,8 @@ def test_capture_and_sketch_instance_match_reference(dbs, attr):
     assert tcat.stats["encode_groups_instance"] == 1
 
 
-def test_join_templates_wait_for_their_slice(dbs):
-    """The join templates no longer wait: Q-AJGH and Q-AAJGH over crimes
+def test_join_templates_match_the_reference(dbs):
+    """The join templates: Q-AJGH and Q-AAJGH over crimes
     joined with a real dimension (one row per district, some districts
     missing, so some crimes have no partner) equal the reference's, results
     and provenance masks alike."""

@@ -2,12 +2,13 @@
 
 Twins of ``tests/test_shard.py`` and ``tests/test_shard_batch.py`` on the
 four templates (the join ones against the shards' replicas of ``orders``),
-and of the dimension mutation that evicts join sketches.  Each runs
+of the dimension mutation that evicts join sketches (also while the shards
+lag and one is partitioned), and of the placement glue.  Each runs
 the same seeded data through ``repro.core.ShardedEngine`` and
 ``repro_torch.core.ShardedEngine`` and holds, with no tolerance: results
 (group values and values, bit for bit, which inside the integral envelope
 also equals single-node execution), ``RunInfo`` and ``RouteInfo`` shards
-contacted and skipped, and the engines' state (index sketch bits, each
+contacted and skipped and their degraded-mode fields, and the engines' state (index sketch bits, each
 shard's maintainer bits, registrations, watermark).  The twin of the
 reference's recompile test counts distinct stacked shape classes instead of
 XLA compiles; the multi-device ``shard_map`` mesh test has no one-card
@@ -55,11 +56,10 @@ def _having(mod, db, gb, quantiles, agg=("sum", "records"), where=None):
             for qt in quantiles]
 
 
-def _engines(rdb, tdb, table="crimes", attr="district", n_shards=4, ref_kw=(), **kw):
-    """The reference's and the port's engine; ``ref_kw`` are settings that
-    only the reference takes as arguments (the port's are module constants)."""
+def _engines(rdb, tdb, table="crimes", attr="district", n_shards=4, **kw):
+    """The reference's and the port's engine, with the same settings."""
     args = dict(ARGS, **kw)
-    return (R.ShardedEngine(rdb, table, attr, n_shards=n_shards, **args, **dict(ref_kw)),
+    return (R.ShardedEngine(rdb, table, attr, n_shards=n_shards, **args),
             T.ShardedEngine(tdb, table, attr, n_shards=n_shards, **args))
 
 
@@ -93,8 +93,9 @@ def _assert_routes(tse, rse, ctx=""):
     assert (t is None) == (r is None), ctx
     if r is not None:
         assert (t.contacted, t.skipped, t.watermark, t.deltas_applied, t.fused, t.n_queries,
-                t.degraded) == (r.contacted, r.skipped, r.watermark, r.deltas_applied,
-                                r.fused, r.n_queries, r.degraded), ctx
+                t.degraded, t.failed_shards, t.n_retries, t.stale_checkpoints) == (
+            r.contacted, r.skipped, r.watermark, r.deltas_applied, r.fused, r.n_queries,
+            r.degraded, r.failed_shards, r.n_retries, r.stale_checkpoints), ctx
 
 
 def _run_both(rse, tse, rq, tq, ctx=""):
@@ -349,15 +350,13 @@ def test_single_shard_degenerates_to_full_routing():
     assert res.canonical() == T.execute(tq, tse.db).canonical()
 
 
-def test_inbox_cap_backpressure_and_resync(monkeypatch):
+def test_inbox_cap_backpressure_and_resync():
     """Twin of ``tests/test_chaos.py``'s: deltas past the inbox cap are
     refused, and the next read drains the inbox and re-ships the logged
     suffix, to the reference's results."""
-    monkeypatch.setattr(tshard, "INBOX_CAP", 2)
     rdb, tdb = _crimes(3_000, 6)
     rq, tq = _having(R, rdb, ("district",), [0.8])[0], _having(T, tdb, ("district",), [0.8])[0]
-    rse, tse = _engines(rdb, tdb, n_shards=2, n_ranges=16,
-                        ref_kw={"inbox_cap": 2})
+    rse, tse = _engines(rdb, tdb, n_shards=2, n_ranges=16, inbox_cap=2)
     _run_both(rse, tse, rq, tq)
     rng = np.random.default_rng(13)
     for _ in range(5):
@@ -375,16 +374,15 @@ def test_inbox_cap_backpressure_and_resync(monkeypatch):
     assert _snapshot(tse) == _snapshot(rse)
 
 
-def test_shard_past_the_deadline_is_served_coordinator_side(monkeypatch):
+def test_shard_past_the_deadline_is_served_coordinator_side():
     """With a deadline of 0 every shard op is late: once each op's timing
     baseline has formed, the shards are demoted and their slices served from
     the coordinator's table, as the reference serves them (results, routes
     and the ``degraded`` flags alike); an op in time promotes them back."""
-    monkeypatch.setattr(tshard, "OP_DEADLINE_S", 0.0)
     rdb, tdb = _crimes(N_ROWS, 7)
     rqs = _having(R, rdb, ("district", "year"), [0.8]) + _having(R, rdb, ("year",), [0.8])
     tqs = _having(T, tdb, ("district", "year"), [0.8]) + _having(T, tdb, ("year",), [0.8])
-    rse, tse = _engines(rdb, tdb, n_shards=3, ref_kw={"op_deadline_s": 0.0})
+    rse, tse = _engines(rdb, tdb, n_shards=3, op_deadline_s=0.0)
     n_degraded = 0
     for step in range(12):
         for fused in (True, False):
@@ -395,22 +393,19 @@ def test_shard_past_the_deadline_is_served_coordinator_side(monkeypatch):
                 n_degraded += info.degraded
         assert tse.health == rse.health, step
     assert n_degraded > 0 and tse.health == ["suspect"] * 3
-    monkeypatch.setattr(tshard, "OP_DEADLINE_S", 5.0)
-    rse.op_deadline_s = 5.0
+    rse.op_deadline_s = tse.op_deadline_s = 5.0
     res, info = _run_both(rse, tse, rqs[0], tqs[0], "in time again")
     assert not info.degraded and tse.health == ["healthy"] * 3
     assert _snapshot(tse) == _snapshot(rse)
 
 
-def test_shard_past_the_deadline_serves_joins_coordinator_side(tpch, monkeypatch):
+def test_shard_past_the_deadline_serves_joins_coordinator_side(tpch):
     """A join query's degraded slices are joined through the coordinator's
     catalog, as the reference's ``_degraded_flat`` joins them: results,
     routes and ``degraded`` flags equal, on the fused and host-loop paths."""
-    monkeypatch.setattr(tshard, "OP_DEADLINE_S", 0.0)
     rdb, tdb = tpch
     rq, tq = _tpch_templates(R, rdb)["Q-AJGH"], _tpch_templates(T, tdb)["Q-AJGH"]
-    rse, tse = _engines(rdb, tdb, "lineitem", "l_suppkey", 3, ref_kw={"op_deadline_s": 0.0},
-                        n_ranges=32)
+    rse, tse = _engines(rdb, tdb, "lineitem", "l_suppkey", 3, op_deadline_s=0.0, n_ranges=32)
     n_degraded = 0
     for step in range(4):
         for fused in (True, False):
@@ -463,19 +458,127 @@ def test_fused_launch_path_has_no_host_sync():
 
 
 def test_sharded_engine_refuses_what_this_slice_lacks():
+    """Coordinator-permuting keywords raise; subprocess shards and standby
+    replication (ROADMAP A6) raise ``NotImplementedError`` naming their
+    slice; a shard kill and a rebalance, once refused, now work: the killed
+    shard loses its state, and the rebalanced engine serves exactly."""
     rdb, tdb = _crimes(2_000, 1)
     with pytest.raises(ValueError):
         T.ShardedEngine(tdb, "crimes", "district", n_shards=2, cluster_tables=True)
     with pytest.raises(ValueError):
         T.ShardedEngine(tdb, "crimes", "district", n_shards=2, compact_tail_frac=0.5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
     se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)
-    for call in (lambda: se.rebalance([0]), lambda: se.attach_replica(None),
-                 lambda: se.shards[0].inject("kill"),
+    for call in (lambda: se.attach_replica(None),
                  lambda: T.ShardedEngine.from_replica(None, epoch=1)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             call()
+    se.shards[0].inject("kill")
+    assert se.shards[0].state_lost and se.shards[0].version == -1
+    assert not se.shards[0].reachable and not se.shards[0].maintainers
+    assert se.rebalance([0]) == [1]
+    assert not (se.plan.owner == 0).any()
+    assert se.shards[1].table.num_rows == tdb["crimes"].num_rows
+    q = _having(T, tdb, ("district",), [0.7])[0]
+    for _ in range(2):
+        res, info = se.run(q)
+        assert res.canonical() == T.execute(q, tdb).canonical() and not info.degraded
+
+
+def test_dim_mutation_while_shards_lag_recaptures():
+    """``tests/test_shard.py::test_dim_mutation_while_shards_lag_recaptures``:
+    a dimension append lands while fact deltas are in flight and one shard
+    is partitioned; the join sketch is evicted everywhere, the next read
+    drains the lag, refreshes the partitioned shard's stale replica and
+    re-captures; a shard whose local replica drifted drops its maintainer in
+    ``catch_up``.  Results, routes, health and state equal the reference's."""
+    rdb, tdb = _pair_tpch(N_ROWS, 21)
+    rq, tq = (dataclasses.replace(q, having=mod.Having(">", _threshold(mod, q, db, 0.8)))
+              for mod, db, q in (
+                  (m, d, m.Query("lineitem", ("l_suppkey",), m.Aggregate("sum", "l_quantity"),
+                                 join=m.JoinSpec("orders", "l_orderkey", "o_orderkey")))
+                  for m, d in ((R, rdb), (T, tdb))))
+    rse, tse = _engines(rdb, tdb, "lineitem", "l_suppkey", 3, n_ranges=32)
+    _run_both(rse, tse, rq, tq, "cold")
+    _, info = _run_both(rse, tse, rq, tq, "warm")
+    assert info.reused and all(len(s.maintainers) == 1 for s in tse.shards)
+
+    rng = np.random.default_rng(0)
+    fact = tse.db["lineitem"]
+    sel = rng.integers(0, fact.num_rows, 500)
+    rows = {a: fact[a].numpy()[sel] for a in fact.schema}
+    rse.append_rows("lineitem", rows)
+    tse.append_rows("lineitem", rows)
+    assert tse.min_watermark() < tse.version
+
+    rse.shards[0].inject("partition")
+    tse.shards[0].inject("partition")
+    n = tse.db["orders"].num_rows
+    dim_batch = {
+        "o_orderkey": np.arange(n + 1, n + 51, dtype=np.int64),
+        "o_custkey": np.ones(50, dtype=np.int64),
+        "o_totalprice": np.full(50, 1000.0, dtype=np.float32),
+        "o_orderdate": np.full(50, 9000, dtype=np.int32),
+        "o_shippriority": np.zeros(50, dtype=np.int32),
+    }
+    rse.append_rows("orders", dim_batch)
+    tse.append_rows("orders", dim_batch)
+    assert all(not s.maintainers for s in tse.shards)
+    assert tse.health == rse.health == ["suspect", "healthy", "healthy"]
+    assert tse.shards[0].dims["orders"] is not tse.db["orders"]  # unreachable: stale
+
+    rse.shards[0].heal()
+    tse.shards[0].heal()
+    res, info = _run_both(rse, tse, rq, tq, "after heal")
+    assert info.created and not info.reused
+    assert res.canonical() == T.execute(tq, tse.db).canonical()
+    assert tse.min_watermark() == tse.version and tse.health == ["healthy"] * 3
+    assert tse.shards[0].dim_token("orders") == (tse.db["orders"].uid, tse.db["orders"].version)
+    res, info = _run_both(rse, tse, rq, tq, "warm after heal")
+    assert info.reused and res.canonical() == T.execute(tq, tse.db).canonical()
+
+    # A local replica drift the coordinator has not reconciled: catch_up
+    # drops the join maintainer, bits_for asks for re-registration.
+    rs, ts = rse.shards[1], tse.shards[1]
+    key = next(iter(ts.maintainers))
+    rs.dims["orders"] = rs.dims["orders"].append(dim_batch)
+    ts.dims["orders"] = ts.dims["orders"].append(dim_batch)
+    fact = tse.db["lineitem"]
+    sel = rng.integers(0, fact.num_rows, 100)
+    rows = {a: fact[a].numpy()[sel] for a in fact.schema}
+    rse.append_rows("lineitem", rows)
+    tse.append_rows("lineitem", rows)
+    rs.catch_up(rse.version)
+    ts.catch_up(tse.version)
+    assert key not in ts.maintainers and ts.bits_for(key) is None
+    res, _ = _run_both(rse, tse, rq, tq, "after the drift")
+    assert res.canonical() == T.execute(tq, tse.db).canonical()
+    assert _snapshot(tse) == _snapshot(rse)
+
+
+def test_placement_glue_single_device():
+    """``tests/test_shard.py::test_placement_glue_single_device``: no pins
+    without several CUDA devices, ``place_table`` an identity for ``None``
+    and a move that keeps (uid, version) otherwise, ``failover_device``
+    the reference's choice on the same pin lists."""
+    from repro.parallel import placement as rplace
+    from repro_torch.parallel import placement as tplace
+
+    devs = tplace.shard_devices(3)
+    assert devs == [None, None, None]  # no card here: no pinning
+    assert tplace.shard_devices(3, use_devices=False) == [None, None, None]
+    _, tdb = _crimes(100, 0)
+    t = tdb["crimes"]
+    assert tplace.place_table(t, None) is t
+    moved = tplace.place_table(t, torch.device("cpu"))
+    assert moved is not t and (moved.uid, moved.version) == (t.uid, t.version)
+    assert all(torch.equal(moved[a], t[a]) for a in t.schema)
+    cases = [([None, None, None], 1, [1, 2]), (["d0", "d1", "d0"], 1, [1]),
+             (["d0", "d1", "d0"], 2, [0, 2]), (["d0", "d0"], 1, [0, 1]),
+             (["d0", "d1", "d2", "d1"], 3, [1, 3]), (["d0", "d1", "d2", "d0"], 0, [0, 3])]
+    for pins, sid, dead in cases:
+        assert tplace.failover_device(pins, sid, dead) == rplace.failover_device(pins, sid, dead)
 
 
 # ---------------------------------------------------------------------------

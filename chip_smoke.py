@@ -45,7 +45,21 @@ with ``rebalance`` replayed fused and through the host loop; every result
 is checked against a plain group-by of its version, the recovered shard's
 maintainers against fresh captures of its rows, the route's
 ``degraded``/``failed_shards``/``n_retries`` against the fault, and no
-step may re-capture.  Phase 7 drives the join templates at TPC-H
+step may re-capture.  Phase 10 drives phase 5's configuration again with
+its shards as server processes on the card: a ``FailoverCoordinator``
+around ``ShardedEngine(..., transport="subprocess")`` (4 shard servers, a
+standby process), on phase 3's table and phase 5's first burst: the burst,
+fused replays (stacks built over RPC, then cached) and a host-loop one;
+phase 5's 1% append and one-year delete with a replay each (peer mirrors
+advance); a SIGKILL of the server owning the most sketch bits, a degraded
+replay and its heal (recovery from the peer's mirror, timed by part);
+``coord_kill`` and ``coord_partition`` (standby takeovers); shutdown.  Every
+result must equal phase 5's loopback result of its version bit for bit and
+a plain group-by; the recovered maintainers must equal fresh captures, the
+zombie coordinator be fenced, the promoted one run on the card and launch
+the fused kernel, each server run on the card and launch sketch_filter,
+and no server or standby outlive the phase (``nvidia-smi``'s compute
+apps); the servers' launches count in the kernels line.  Phase 7 drives the join templates at TPC-H
 scale factor 1 (lineitem 6,001,215 rows, orders 1,500,303, part 1,000,202,
 from ``make_tpch``'s distributions): ``run`` over three generated Q-AJGH and
 a Q-AAJGH, replayed; ``run_batch`` of six Q-AJGH differing in their HAVING
@@ -70,7 +84,7 @@ through ``select_composite_gb``, ``capture_composite`` and
 execution, every random pick against its candidate pool and a second
 engine's, the batch against the sequential runs, each composite sketch
 against the single sketches of its parts and the plain bitmap, and that
-kernels 1-4 each launch.  Phases run in the order 1-5, 9, 7, 8, 6.  Phase 6 serves ``stablelm-1.6b`` at full
+kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -1199,7 +1213,9 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
     replay through the host loop, replay fused again, append 1% and burst,
     delete one year and burst.  Without phase 3's table, workload and full-table results it
     makes its own.  Returns the launches, the engine and its last burst
-    (phase 9 drives its faults on them)."""
+    (phase 9 drives its faults on them), and what phase 10 repeats over
+    subprocess shards: the first burst, each step's results and wall, the
+    build's wall, the appended rows and the deleted year."""
     import numpy as np
     import torch
 
@@ -1229,12 +1245,14 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
     se = ShardedEngine(db, "crimes", SHARD_ATTR, n_shards=N_SHARDS, n_ranges=100,
                        strategy="CB-OPT-GB", theta=0.05, seed=seed)
     torch.cuda.synchronize()
-    log(f"[shard] ShardedEngine built in {time.perf_counter() - t0:.2f} s: "
+    t_build = time.perf_counter() - t0
+    log(f"[shard] ShardedEngine built in {t_build:.2f} s: "
         f"{se.ranges.n_ranges} fragments on {SHARD_ATTR}, shard rows "
         f"{[int(s.table.num_rows) for s in se.shards]}, fragments per shard "
         f"{[int(se.plan.fragments_of(s).size) for s in range(N_SHARDS)]}")
 
     steps = []  # (label, table version, its needed columns on the host, queries, outputs)
+    walls = {}
     needed = {a for q in burst for a in q.groupby} | {q.agg.attr for q in burst if q.agg.attr}
     launch_log = {}
 
@@ -1279,6 +1297,7 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
             require(all(info.repaired == expect_repaired for _, info in out),
                     f"{label}: repaired is not {expect_repaired} everywhere")
         steps.append((label, se.db["crimes"], host_cols(), queries, out))
+        walls[label] = wall
         return out, wall
 
     for name in (*BUILT, "fused_partials", ROWS_COUNTER):
@@ -1414,7 +1433,10 @@ def phase_shard(n_rows: int, seed: int, db=None, workload=None, full_values=None
                         .canonical(), f"{q}: differs from the executor over the full table")
     log(f"[shard] {sum(outcomes.values())} results vs full-table group-by {outcomes}")
     log(f"[shard] phase done in {time.perf_counter() - t_phase:.1f} s")
-    return launches, se, fresh
+    record = dict(burst=burst, build_s=t_build, walls=walls, rows=rows, year=year,
+                  outputs={label: [res for res, _ in out]
+                           for label, _, _, queries, out in steps if queries is burst})
+    return launches, se, fresh, record
 
 
 # ---------------------------------------------------------------------------
@@ -1662,6 +1684,472 @@ def phase_faults(se, burst, seed: int) -> dict:
     log(f"[faults] launches {launches}; {sum(outcomes.values())} results vs full-table "
         f"group-by {outcomes}")
     log(f"[faults] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: process-boundary shards and standby failover
+# ---------------------------------------------------------------------------
+
+# Kernels the coordinator launches in phase 10 (captures of the burst's
+# misses in one wave, the fused waves) and each shard server (instances;
+# partials on the host loop).
+RPC_KERNELS = ("segment_aggregate", "fragment_bitmap_batch", "segment_aggregate_batch")
+RPC_SERVER_KERNELS = ("sketch_filter", "segment_aggregate")
+RPC_SETTLE_S = 30.0  # how long the card may take to drop a killed server's context
+
+
+def compute_apps() -> list:
+    """``nvidia-smi``'s compute processes on the card: ``[(pid, used memory)]``
+    (empty when it lists none)."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi --query-compute-apps failed: {smi.stderr}")
+    return [tuple(part.strip() for part in line.split(",", 1))
+            for line in smi.stdout.strip().splitlines() if line.strip()]
+
+
+def _pid_alive(pid: int) -> bool:
+    import os
+
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+def phase_rpc(db, record: dict, seed: int) -> dict:
+    """Phase 5's configuration again, its shards now server processes: a
+    ``FailoverCoordinator`` around ``ShardedEngine(..., transport=
+    "subprocess")`` over ``N_SHARDS`` shard servers on the card, with a
+    standby process (``SubprocessReplica``).  On phase 3's table and phase
+    5's first burst (``record``, from ``phase_shard``): the burst through
+    ``run_batch``, a fused replay (stacks built over RPC), a steady one and
+    one through the host loop; phase 5's 1% append and one-year delete, each
+    with a replay; a socket drop, two flaky responses and a stall past a
+    lowered RPC deadline, each across a replay; a SIGKILL of the server
+    owning the most sketch bits and a degraded replay; its heal (recovery
+    from the peer's mirror, timed by part); ``coord_kill`` (the takeover
+    timed by part, against this phase's own build and burst) and
+    ``coord_partition`` (standby takeovers); and shutdown.  Every result must equal phase 5's loopback result of the same
+    version bit for bit and a plain group-by of the full table; no replay
+    may re-capture; peer mirrors advance without a stale checkpoint; the
+    recovered maintainers must equal fresh captures; the zombie coordinator
+    is fenced; the promoted one is on the card and launches the fused
+    kernel; each server runs on the card and launches the instance kernel;
+    no server or standby outlives the phase.  Returns the launches of the
+    coordinator and of every server."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        FailoverCoordinator,
+        ShardedEngine,
+        StaleEpochError,
+        SubprocessReplica,
+        execute_and_provenance,
+    )
+    from repro_torch.core import shard_rpc
+    from repro_torch.device import to_host
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    t_phase = time.perf_counter()
+    on_card = db["crimes"].device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    burst = record["burst"]
+    needed = {a for q in burst for a in q.groupby} | {q.agg.attr for q in burst if q.agg.attr}
+    cols_cache: dict = {}
+    outcomes: dict = {}
+    apps_before = compute_apps() if on_card else []
+    log(f"[rpc] compute apps on the card before the phase: {apps_before}")
+
+    pool = shard_rpc.POOL
+    t0 = time.perf_counter()
+    pool.prewarm(N_SHARDS)
+    for sp in list(pool._spares):
+        sp.connect()
+        require(sp.request({"op": "ping", "args": (), "ctl": True}, deadline_s=60.0)["ok"],
+                "a shard server did not answer")
+    t_spawn = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    se = ShardedEngine(db, "crimes", SHARD_ATTR, n_shards=N_SHARDS, n_ranges=100,
+                       strategy="CB-OPT-GB", theta=0.05, seed=seed, transport="subprocess")
+    sync()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fc = FailoverCoordinator(se, make_replica=SubprocessReplica)
+    t_attach = time.perf_counter() - t0
+    require(not se.replica_degraded, "the standby's bootstrap failed (replica degraded)")
+    standby_pids = [fc.replica.proc.pid]
+    server_pids = {c.pid for c in se.shards}
+    del se  # from here the coordinator is whichever engine ``fc`` holds
+    log(f"[rpc] {N_SHARDS} shard servers spawned and answering in {t_spawn:.2f} s; the "
+        f"subprocess ShardedEngine built in {t_build:.2f} s (phase 5's loopback engine "
+        f"{record['build_s']:.2f} s; each server got the {db['crimes'].num_rows}-row clustered "
+        f"table); the standby attached (bootstrap) in {t_attach * 1e3:.1f} ms; server pids "
+        f"{sorted(server_pids)}, standby pid {standby_pids[0]}")
+
+    expect_device = f"cuda:{torch.cuda.current_device()}" if on_card else "cpu"
+    servers: dict = {}  # pid -> (device, last launch counts read)
+
+    def read_servers():
+        for c in fc.engine.shards:
+            if c.pid is not None and c.reachable:
+                got = c.launch_counts()
+                servers[got["pid"]] = (got["device"], got["launch_counts"])
+
+    read_servers()
+    require(all(dev == expect_device for dev, _ in servers.values()),
+            f"server devices {[d for d, _ in servers.values()]}, expected {expect_device}")
+    require(all(not counts for _, counts in servers.values()),
+            "a server launched a kernel before the path was driven")
+
+    def host_cols():
+        crimes = fc.db["crimes"]
+        if cols_cache.get("table") is not crimes:
+            cols_cache.clear()
+            cols_cache["table"] = crimes
+            cols_cache["cols"] = {a: to_host(crimes[a]) for a in needed}
+        return cols_cache["cols"]
+
+    def run(label, *, want, hits=True, degraded=False, one_launch=False, repaired=None):
+        eng = fc.engine
+        before = {k: LAUNCH_COUNTS[k] for k in (*BUILT, "fused_partials")}
+        misses = eng.index.misses
+        sync()
+        t0 = time.perf_counter()
+        out = fc.run_batch(burst)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCH_COUNTS[k] - v for k, v in before.items() if LAUNCH_COUNTS[k] != v}
+        # A wave with no hit leaves an earlier wave's route behind.
+        route = eng.last_route if any(info.reused for _, info in out) else None
+        log(f"[rpc] {label}: {len(burst)} queries in {wall * 1e3:.1f} ms wall (phase 5's "
+            f"loopback: {record['walls'][want] * 1e3:.1f} ms); coordinator launches "
+            f"{launches}; "
+            + (f"route fused={route.fused} degraded={route.degraded} "
+               f"failed_shards={route.failed_shards} retries={route.n_retries} "
+               f"stale_checkpoints={route.stale_checkpoints} "
+               f"launch={route.t_launch_s * 1e3:.3f}ms merge={route.t_merge_s * 1e3:.3f}ms; "
+               if route is not None else "no hit; ")
+            + f"health {eng.health}; misses {eng.index.misses}")
+        if hits:
+            require(all(info.reused for _, info in out), f"{label}: a query missed")
+            require(eng.index.misses == misses, f"{label}: the index missed (a re-capture)")
+            require(route.degraded == degraded
+                    and all(info.degraded == degraded for _, info in out),
+                    f"{label}: degraded is not {degraded} (route {route.failed_shards})")
+        if repaired is not None:
+            require(all(info.repaired == repaired for _, info in out),
+                    f"{label}: repaired is not {repaired} everywhere")
+        if one_launch and on_card:
+            require(launches.get("fused_partials") == 1
+                    and launches.get("segment_aggregate_batch") == 1,
+                    f"{label}: {launches} launches, not one fused launch")
+        cols, cache = host_cols(), {}
+        for i, (q, (res, _), loop) in enumerate(zip(burst, out, record["outputs"][want])):
+            sig = q.inner_signature()
+            if sig not in cache:
+                cache[sig] = _plain_groups(q, cols)
+            outcome = check_result(q, res, _plain_result(q, cache[sig]), cache[sig][2])
+            outcomes[outcome] = outcomes.get(outcome, 0) + 1
+            require(cache[sig][2] or _same_result(res, loop),
+                    f"{label} q{i:02d}: differs from phase 5's loopback result ({want})")
+        return out, route, wall
+
+    for name in (*BUILT, "fused_partials", ROWS_COUNTER):
+        LAUNCH_COUNTS[name] = 0
+
+    # 1. The burst (misses captured on the coordinator in one wave), fused
+    # replays (stacks built over RPC, then cached), the host loop.
+    _, _, t_burst = run("burst", want="burst", hits=False)
+    _, _, t_replay = run("replay", want="replay", one_launch=True)
+    _, _, t_steady = run("replay, fused again", want="replay, fused again", one_launch=True)
+    fc.engine.fused = False
+    run("replay, host loop", want="replay, host loop")
+    fc.engine.fused = True
+    log(f"[rpc] RPC overhead of a fused replay: first {t_replay * 1e3:.1f} ms against the "
+        f"loopback's {record['walls']['replay'] * 1e3:.1f} ms; steady {t_steady * 1e3:.1f} ms "
+        f"against {record['walls']['replay, fused again'] * 1e3:.1f} ms")
+
+    # 2. Phase 5's 1% append and one-year delete: peer mirrors advance.
+    for label, mutate in (
+            ("after append", lambda: fc.append_rows("crimes", record["rows"])),
+            ("after delete", lambda: fc.delete_rows(
+                "crimes", to_host(fc.db["crimes"]["year"] == record["year"])))):
+        t0 = time.perf_counter()
+        mutate()
+        t_mut = time.perf_counter() - t0
+        run(label, want=label, repaired=True)
+        log(f"[rpc] {label.split()[1]}: {t_mut * 1e3:.1f} ms wall (shipped to the servers and "
+            f"to the peer mirrors); mirrors current {fc.engine._peer_ok}, stale checkpoints "
+            f"{fc.engine.stale_checkpoints}")
+        require(all(fc.engine._peer_ok) and sum(fc.engine.stale_checkpoints) == 0,
+                f"{label}: a peer mirror fell behind")
+
+    # The burst's set sketch bits by owning shard: the SIGKILL lands on the
+    # one owning most, the other faults on the rest (a replay contacts every
+    # shard: the burst's pid/ward queries are sketched on another partition).
+    eng = fc.engine
+    entries = {e.reg_id: e for e in map(eng.index.lookup_entry, burst)
+               if e.sketch.ranges.key() == eng.ranges.key()}.values()
+    owned_bits = [sum(int(e.sketch.bits[eng.plan.fragments_of(s)].sum()) for e in entries)
+                  for s in range(N_SHARDS)]
+    victim, cut, flaky, stalled = (int(s) for s in np.argsort(owned_bits, kind="stable")[::-1])
+
+    # 3. A socket drop (the client's; the server and its state stay), two
+    # flaky responses (the server's), a stall past a lowered RPC deadline (a
+    # real RpcTimeout, retried, then the shard demoted), each across a replay.
+    pid_cut, restores = eng.shards[cut].pid, eng.peer_restores
+    eng.shards[cut].inject("partition")
+    require(_pid_alive(pid_cut), f"shard server {pid_cut} did not survive its partition")
+    _, route, _ = run("partitioned", want="after delete", degraded=True)
+    require(cut in route.failed_shards, f"the route names {route.failed_shards}, not {cut}")
+    eng.shards[cut].heal()
+    run("partition healed", want="after delete")
+    require(eng.shards[cut].pid == pid_cut and eng.peer_restores == restores
+            and eng.health[cut] == "healthy",
+            f"the partitioned shard {cut} was rebuilt or is {eng.health[cut]}")
+    eng.shards[flaky].inject("flaky", 2)
+    _, route, _ = run("flaky x2", want="after delete")
+    require(route.n_retries >= 2, f"{route.n_retries} retries for two flaky responses")
+    stalled_client = eng.shards[stalled]
+    rpc_deadline = stalled_client._deadline_s
+    stalled_client._deadline_s = FAULT_DEADLINE_S
+    stalled_client.inject("stall", FAULT_STALL_S)
+    try:
+        _, route, wall = run("stalled", want="after delete", degraded=True)
+    finally:
+        stalled_client._deadline_s = rpc_deadline
+        stalled_client.heal()
+    require(stalled in route.failed_shards,
+            f"the stalled shard {stalled} was not routed around ({route.failed_shards})")
+    run("stall healed", want="after delete")
+    require(eng.health == ["healthy"] * N_SHARDS and eng.peer_restores == restores,
+            f"health {eng.health}, peer restores {eng.peer_restores} after the heals")
+    log(f"[rpc] faults over RPC: shard {cut} partitioned and healed (server {pid_cut} kept), "
+        f"shard {flaky} flaky x2, shard {stalled} stalled {FAULT_STALL_S} s past an RPC "
+        f"deadline of {FAULT_DEADLINE_S} s ({wall * 1e3:.1f} ms degraded replay); all exact")
+
+    # 4. SIGKILL of the server owning the most set bits of the burst's sketches.
+    client = eng.shards[victim]
+    read_servers()
+    pid0 = client.pid
+    client.inject("kill")
+    require(not _pid_alive(pid0), f"shard server {pid0} survived its SIGKILL")
+    log(f"[rpc] set bits by shard {owned_bits}: SIGKILLed shard {victim}'s server {pid0}")
+    _, route, _ = run("killed", want="after delete", degraded=True, one_launch=True)
+    require(victim in route.failed_shards, f"the route names {route.failed_shards}, not {victim}")
+
+    # 5. Heal: recovery from the peer's mirror, timed by part; no reship.
+    split = collections.defaultdict(float)
+    reships = []
+    peer = eng.shards[(victim + 1) % N_SHARDS]
+
+    def timed(obj, name, part, only_victim=False):
+        fn = getattr(obj, name)
+
+        def wrapper(*args, **kwargs):
+            if only_victim and args[0] != victim:
+                return fn(*args, **kwargs)
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync()
+                split[part] += time.perf_counter() - t0
+        setattr(obj, name, wrapper)
+
+    def count_reship(name):
+        fn = getattr(client, name)
+
+        def wrapper(*args, **kwargs):
+            reships.append(name)
+            return fn(*args, **kwargs)
+        setattr(client, name, wrapper)
+
+    patched = ((peer, "peer_fetch", "peer fetch", False), (client, "build_local", "build_local", False),
+               (eng, "_sync_shard", "log replay", True),
+               (eng, "_reregister_shard", "re-registration", True),
+               (eng, "_recover_shard", "recovery", True))
+    for obj, name, part, only in patched:
+        timed(obj, name, part, only)
+    for name in ("restore_checkpoint", "rebuild"):
+        count_reship(name)
+    restores = eng.peer_restores
+    client.heal()
+    try:
+        _, _, wall = run("healed", want="after delete", one_launch=True)
+    finally:
+        for obj, name, _, _ in patched:
+            delattr(obj, name)
+        for name in ("restore_checkpoint", "rebuild"):
+            delattr(client, name)
+    server_pids.add(client.pid)
+    log(f"[rpc] recovery of shard {victim} into server {client.pid}: "
+        f"{split['recovery'] * 1e3:.1f} ms = peer fetch {split['peer fetch'] * 1e3:.1f} + "
+        f"build_local {split['build_local'] * 1e3:.1f} + log replay "
+        f"{split['log replay'] * 1e3:.1f} + re-registration "
+        f"{split['re-registration'] * 1e3:.1f} + checkpoint, of the {wall * 1e3:.1f} ms read")
+    require(eng.peer_restores == restores + 1, "the shard did not recover from its peer's mirror")
+    require(not reships, f"recovery reshipped the coordinator's table ({reships})")
+    require(eng.health[victim] == "healthy" and client.version == eng.version,
+            f"shard {victim} is {eng.health[victim]} at version {client.version}")
+    counts_before = dict(LAUNCH_COUNTS)
+    on_victim, ctable = eng._row_shard == victim, eng.db["crimes"]
+    n_checked = 0
+    for key, reg in eng._registered.items():
+        if not reg.group_local or not eng.index.contains(reg.entry):
+            continue
+        require(client.has_maintainer(key), f"shard {victim} lacks the maintainer of entry {key}")
+        _, prov = execute_and_provenance(reg.entry.query, eng.db, catalog=eng.engine.catalog)
+        bucket = to_host(eng.engine.catalog.bucketize(ctable, reg.ranges))
+        want = np.zeros(reg.ranges.n_ranges, dtype=bool)
+        want[bucket[prov & on_victim]] = True
+        require(np.array_equal(client.bits_for(key), want),
+                f"shard {victim}'s maintained bits of entry {key} differ from a fresh capture")
+        n_checked += 1
+    LAUNCH_COUNTS.clear()
+    LAUNCH_COUNTS.update(counts_before)
+    require(n_checked > 0, "no group-local entry to check on the recovered shard")
+    log(f"[rpc] the recovered server's {n_checked} maintainers equal fresh captures")
+
+    # 6. coord_kill: the standby takes over, timed by part: the promotion
+    # (snapshot, replay onto the device, catch-up) and the re-arm (a fresh
+    # standby spawned and bootstrapped).
+    read_servers()
+    old_epoch, old_standby = eng.epoch, standby_pids[-1]
+    split.clear()
+
+    def timed_call(fn, part):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync()
+                split[part] += time.perf_counter() - t0
+        return wrapper
+
+    saved = {name: ShardedEngine.__dict__[name]
+             for name in ("from_replica", "_catch_up_all", "attach_replica")}
+    make_replica = fc._make_replica
+    ShardedEngine.from_replica = staticmethod(timed_call(ShardedEngine.from_replica, "replay"))
+    ShardedEngine._catch_up_all = timed_call(ShardedEngine._catch_up_all, "catch-up")
+    ShardedEngine.attach_replica = timed_call(ShardedEngine.attach_replica, "standby bootstrap")
+    fc.replica.snapshot = timed_call(fc.replica.snapshot, "snapshot")
+    fc._make_replica = timed_call(make_replica, "standby spawn")
+    t0 = time.perf_counter()
+    try:
+        promoted = fc.inject_coord("coord_kill")
+        sync()
+    finally:
+        for name, attr in saved.items():
+            setattr(ShardedEngine, name, attr)
+        fc._make_replica = make_replica
+    t_takeover = time.perf_counter() - t0
+    standby_pids.append(fc.replica.proc.pid)
+    del eng, entries, client, peer
+    require(not _pid_alive(old_standby), "the used standby process survived the takeover")
+    require(promoted.epoch == old_epoch + 1 and fc.zombie is None,
+            f"epoch {promoted.epoch} after {old_epoch}")
+    require(promoted.device.type == ("cuda" if on_card else "cpu"),
+            f"the promoted coordinator runs on {promoted.device}")
+    require(not promoted.replica_degraded, "the re-armed standby's bootstrap failed")
+    k5 = LAUNCH_COUNTS["segment_aggregate_batch"]
+    run("after coord_kill", want="after delete", one_launch=True)
+    require(not on_card or LAUNCH_COUNTS["segment_aggregate_batch"] > k5,
+            "the promoted coordinator did not launch the fused kernel")
+    t_promote = split["snapshot"] + split["replay"] + split["catch-up"]
+    t_rearm = split["standby spawn"] + split["standby bootstrap"]
+    log(f"[rpc] coord_kill: takeover {t_takeover * 1e3:.1f} ms = promotion "
+        f"{t_promote * 1e3:.1f} ms (snapshot {split['snapshot'] * 1e3:.1f} + replay onto "
+        f"{promoted.device} adopting the live servers {split['replay'] * 1e3:.1f} + catch-up "
+        f"{split['catch-up'] * 1e3:.1f}) + re-arm {t_rearm * 1e3:.1f} ms (standby spawn "
+        f"{split['standby spawn'] * 1e3:.1f} + bootstrap "
+        f"{split['standby bootstrap'] * 1e3:.1f}) + the rest; against a cold rebuild of this "
+        f"configuration {(t_build + t_burst) * 1e3:.1f} ms (this phase's subprocess build "
+        f"{t_build * 1e3:.1f} + its burst of misses {t_burst * 1e3:.1f}); epoch {promoted.epoch}")
+
+    # 7. coord_partition: the zombie is fenced at the shard.
+    t0 = time.perf_counter()
+    fc.inject_coord("coord_partition")
+    t_takeover2 = time.perf_counter() - t0
+    standby_pids.append(fc.replica.proc.pid)
+    zombie = fc.zombie
+    try:
+        zombie.shards[0].catch_up(zombie.version)
+        fenced = False
+    except StaleEpochError:
+        fenced = True
+    require(fenced, "an op of the partitioned coordinator was not fenced")
+    run("after coord_partition", want="after delete", one_launch=True)
+    log(f"[rpc] coord_partition: takeover {t_takeover2 * 1e3:.1f} ms, epoch "
+        f"{fc.engine.epoch}; the zombie's catch_up raised StaleEpochError")
+    del zombie, promoted
+
+    # 8. Shutdown: every server and standby gone, nothing left on the card.
+    read_servers()
+    apps_during = compute_apps() if on_card else []
+    log(f"[rpc] compute apps during the phase: {apps_during}")
+    # Inside a container ``nvidia-smi`` may list pids of another namespace,
+    # so the processes are also counted: the coordinator's and one a live
+    # server, none for the standby (it never initializes CUDA).
+    n_live = sum(c.pid is not None for c in fc.engine.shards)
+    require(not any(a[0] == str(p) for a in apps_during for p in standby_pids)
+            and (not apps_before or len(apps_during) <= len(apps_before) + n_live),
+            f"{len(apps_during)} compute apps with {n_live} servers alive: the standby "
+            f"or a spare holds a CUDA context")
+    t_route = time.perf_counter() - t_phase
+    fc.shutdown()
+    with pool._lock:
+        spares = {sp.proc.pid for sp in pool._all}
+    pool.shutdown_all()
+    seen = sorted(server_pids | set(servers) | set(standby_pids) | spares)
+    alive = [p for p in seen if _pid_alive(p)]
+    require(not alive, f"processes {alive} outlived the phase")
+    apps_after = compute_apps() if on_card else []
+    t0 = time.perf_counter()
+    while len(apps_after) > len(apps_before) and time.perf_counter() - t0 < RPC_SETTLE_S:
+        time.sleep(0.5)
+        apps_after = compute_apps()
+    log(f"[rpc] compute apps after shutdown ({time.perf_counter() - t0:.1f} s later): "
+        f"{apps_after}")
+    require(len(apps_after) <= len(apps_before)
+            and not any(a[0] == str(p) for a in apps_after for p in seen),
+            f"a process of the phase still holds the card: {apps_after}")
+
+    launches = {name: LAUNCH_COUNTS[name] for name in (*BUILT, "fused_partials")}
+    require_compacted("rpc", launches["sketch_filter"], LAUNCH_COUNTS[ROWS_COUNTER])
+    for pid, (dev, counts) in sorted(servers.items()):
+        log(f"[rpc] server {pid} on {dev}: launches {counts}")
+        require(dev == expect_device, f"server {pid} ran on {dev}, not {expect_device}")
+        require(not on_card or counts.get("sketch_filter", 0) > 0,
+                f"server {pid} never launched sketch_filter")
+        require(counts.get("sketch_filter", 0) == counts.get(ROWS_COUNTER, 0),
+                f"server {pid}: a sketch_filter launch did not compact its rows")
+        for name in BUILT:
+            launches[name] += counts.get(name, 0)
+    if on_card:
+        for name in RPC_KERNELS:
+            require(LAUNCH_COUNTS[name] > 0, f"the coordinator never launched {name}")
+        for name in RPC_SERVER_KERNELS:
+            require(sum(c.get(name, 0) for _, c in servers.values()) > 0,
+                    f"no server launched {name}")
+    log(f"[rpc] launches, coordinator and servers {launches}; {sum(outcomes.values())} results "
+        f"vs full-table group-by {outcomes}; driven in {t_route:.1f} s")
+    log(f"[rpc] phase done in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2805,12 +3293,17 @@ def main() -> int:
     launches, db, workload, full_values = phase_engine(ROWS, UNIQUE, REPLAYS, SEED)
     batch_launches = phase_batch(ROWS, SEED, db, workload, full_values)
     launches["fragment_bitmap_batch"] = batch_launches["fragment_bitmap_batch"]
-    shard_launches, sharded, burst = phase_shard(ROWS, SEED, db, workload, full_values)
+    shard_launches, sharded, burst, shard_record = phase_shard(ROWS, SEED, db, workload,
+                                                               full_values)
     launches["segment_aggregate_batch"] = shard_launches["segment_aggregate_batch"]
     fault_launches = phase_faults(sharded, burst, SEED)
     for name in FAULT_KERNELS:
         launches[name] += fault_launches[name]
-    del workload, full_values, sharded, burst
+    del sharded, burst
+    rpc_launches = phase_rpc(db, shard_record, SEED)
+    for name, _, _ in KERNELS:
+        launches[name] = launches.get(name, 0) + rpc_launches.get(name, 0)
+    del workload, full_values, shard_record
     t1 = time.perf_counter()
     tpch = make_tpch(TPCH_SF1_LINEITEM, seed=SEED, device="cuda")  # phases 7 and 8
     torch.cuda.synchronize()

@@ -65,6 +65,13 @@ from repro_torch.core.table import (
     from_numpy,
 )
 from repro_torch.core.workload import WorkloadLog
+from repro_torch.core.replication import (
+    InProcessReplica,
+    MetadataStore,
+    ReplicationError,
+    ReplicationRecord,
+    SubprocessReplica,
+)
 from repro_torch.core.shard import (
     BackpressureError,
     FragmentShard,
@@ -78,3 +85,4 @@ from repro_torch.core.shard import (
     merge_partials_state,
     plan_fragments,
 )
+from repro_torch.core.standby import FailoverCoordinator, replica_factory

@@ -39,10 +39,16 @@ one fused launch too); a lost shard recovers by adopting its checkpoint,
 replaying the coordinator's delta log and re-registering its maintainers by
 local counting, never by re-capture; ``rebalance`` re-places a dead shard's
 fragments onto the survivors.  Faults are injected in-process
-(``FragmentShard.inject``, driven by ``runtime/chaos.py``).  Subprocess
-shards, peer-mirrored checkpoints and metadata replication to a standby
-coordinator belong to the process-boundary slice (ROADMAP A6) and raise
-``NotImplementedError`` here.
+(``FragmentShard.inject``, driven by ``runtime/chaos.py``) or, with
+``transport="subprocess"``, into real shard server processes
+(``core/shard_rpc.py``), whose local tables are also mirrored on a peer
+server so a killed one recovers from its peer instead of a reship of the
+coordinator's table.
+
+Every metadata mutation of the coordinator streams as a sequenced record to
+an attached replica (``attach_replica``, ``core/replication.py``), from
+which a standby rebuilds a serving coordinator (``from_replica``,
+``core/standby.py``) that adopts the live shards behind a bumped epoch.
 """
 from __future__ import annotations
 
@@ -67,17 +73,13 @@ from repro_torch.core.queries import (
     result_from_group_state,
 )
 from repro_torch.core.ranges import RangeSet, equi_depth_ranges
+from repro_torch.core.replication import ReplicationRecord
 from repro_torch.core.table import ColumnTable, Database, FragmentLayout, unique_rows
-from repro_torch.device import to_host
+from repro_torch.device import resolve_device, to_host
 from repro_torch.parallel.placement import failover_device, place_table, shard_devices
 from repro_torch.runtime.elastic import plan_replacement
 from repro_torch.runtime.guards import LAUNCH_COUNTS, SHAPE_CLASSES, hot_path
 from repro_torch.runtime.resilience import RetryPolicy, StragglerMonitor, with_retries
-
-REPLICATION_SLICE = (
-    "subprocess shards and metadata replication to a standby coordinator come "
-    "with the process-boundary slice (ROADMAP A6)")
-
 
 class ShardUnavailableError(RuntimeError):
     """A shard could not be reached: dead, partitioned or mid-failure.  The
@@ -195,6 +197,7 @@ class FragmentShard:
         device: Optional[torch.device] = None,
         inbox_cap: Optional[int] = None,
         version: int = 0,
+        local_table: Optional[ColumnTable] = None,
     ):
         self.shard_id = shard_id
         self.ranges = ranges
@@ -202,10 +205,11 @@ class FragmentShard:
         # global fragment id -> local fragment position (-1 = not owned).
         self._local_of_global = np.full(ranges.n_ranges, -1, dtype=np.int64)
         self._local_of_global[self.owned] = np.arange(self.owned.shape[0])
-        # On the shard's pin, else the coordinator's device.
+        if local_table is None:
+            local_table = local_table_for(shard_id, plan, ranges, clustered, version=version)
+        # On the shard's pin (a server's own device), else the coordinator's.
         self.device = device
-        self.table: Optional[ColumnTable] = place_table(
-            local_table_for(shard_id, plan, ranges, clustered, version=version), device)
+        self.table: Optional[ColumnTable] = place_table(local_table, device)
         self.dims: Dict[str, ColumnTable] = {k: place_table(v, device) for k, v in dims.items()}
         self.catalog = Catalog()
         self.maintainers: Dict[int, SketchMaintainer] = {}
@@ -224,6 +228,22 @@ class FragmentShard:
         # shard's identity, not its table state, so it survives a kill and a
         # rebuild and a fenced-out coordinator stays fenced out.
         self.epoch = 0
+
+    @classmethod
+    def from_local(
+        cls,
+        shard_id: int,
+        plan: ShardPlan,
+        ranges: RangeSet,
+        local_table: ColumnTable,
+        dims: Mapping[str, ColumnTable],
+        device: Optional[torch.device] = None,
+        inbox_cap: Optional[int] = None,
+    ) -> "FragmentShard":
+        """A shard built from an already-local table (recovery from a peer's
+        mirror): no cut of the coordinator's table, no reship of it."""
+        return cls(shard_id, plan, ranges, None, dims, device=device, inbox_cap=inbox_cap,
+                   local_table=local_table)
 
     # -- epoch fence and faults ------------------------------------------------
     def fence(self, epoch: int, op: str = "") -> None:
@@ -550,7 +570,7 @@ class RouteInfo:
     # unreachable or past the op deadline), ``n_retries`` the transient shard
     # op failures that retries absorbed, ``stale_checkpoints`` the
     # cumulative peer-mirrored checkpoints that could not advance (peer
-    # mirrors come with subprocess shards, ROADMAP A6, so 0 here).
+    # mirrors exist with subprocess shards only, so 0 on loopback).
     degraded: bool = False
     failed_shards: Tuple[int, ...] = ()
     n_retries: int = 0
@@ -593,6 +613,7 @@ class ShardedEngine:
         retry_policy: Optional[RetryPolicy] = None,
         transport: str = "loopback",
         epoch: int = 0,
+        _boot: Optional[Mapping] = None,
         **engine_kwargs,
     ):
         for k in ("cluster_tables", "compact_tail_frac"):
@@ -600,35 +621,64 @@ class ShardedEngine:
                 # Re-permuting the coordinator table would desync the
                 # global-row -> shard-row map that delete routing needs.
                 raise ValueError(f"{k} is coordinator-managed in ShardedEngine")
-        if transport == "subprocess":
-            raise NotImplementedError(REPLICATION_SLICE)
-        if transport != "loopback":
+        if transport not in ("loopback", "subprocess"):
             raise ValueError(f"unknown transport {transport!r}")
         from repro_torch.core import shard_rpc  # deferred: shard_rpc imports us
 
+        boot = dict(_boot or {})
         self.table_name = table
         self.attr = attr
         self.n_shards = n_shards
-        self.ranges = equi_depth_ranges(db[table], attr, n_ranges)
-        clustered = db[table].cluster_by(self.ranges)
+        if "ranges" in boot:
+            # Takeover (``from_replica``): the partition, clustering and
+            # placement are adopted from the replicated bootstrap, never
+            # derived again (on the mutated table that would re-fragment and
+            # orphan every registered sketch).
+            self.ranges = boot["ranges"]
+            clustered = boot["clustered"]
+        else:
+            self.ranges = equi_depth_ranges(db[table], attr, n_ranges)
+            clustered = db[table].cluster_by(self.ranges)
         self.engine = PBDSEngine(db.with_table(clustered), strategy=strategy,
                                  n_ranges=n_ranges, **engine_kwargs)
         self.device = self.engine.device
         # The serving partition is the engine's partition for ``attr``, so a
         # sketch selected on it routes as fragment slices on every shard.
         self.engine._ranges_cache[(table, attr)] = self.ranges
-        self.plan = plan_fragments(np.diff(clustered.layout.offsets), n_shards, policy=policy)
+        if "owner" in boot:
+            self.plan = ShardPlan(n_shards=n_shards, owner=np.asarray(boot["owner"]))
+        else:
+            self.plan = plan_fragments(np.diff(clustered.layout.offsets), n_shards,
+                                       policy=policy)
+        # Construction arguments a standby's bootstrap carries.
+        self.policy = policy
+        self.use_devices = use_devices
+        self._engine_kwargs = dict(engine_kwargs)
+        self._n_ranges = n_ranges
+        self.transport = transport
         dims = self._dims()
         # Shards are pinned round-robin only when the engine itself is on a
         # CUDA device and several exist.
         self._devices = shard_devices(n_shards, use_devices and self.device.type == "cuda")
         self._inbox_cap = inbox_cap
-        self.shards = [
-            shard_rpc.LoopbackShardClient(
-                FragmentShard(s, self.plan, self.ranges, clustered, dims, self._devices[s],
-                              inbox_cap=inbox_cap))
-            for s in range(n_shards)
-        ]
+        if boot.get("attach") is not None:
+            # Takeover: the live shards (in-process shards, server sockets)
+            # in fresh clients of this coordinator; no shard state moves.
+            self.shards = [c.clone_for_takeover() for c in boot["attach"]]
+        elif transport == "loopback":
+            self.shards = [
+                shard_rpc.LoopbackShardClient(
+                    FragmentShard(s, self.plan, self.ranges, clustered, dims, self._devices[s],
+                                  inbox_cap=inbox_cap))
+                for s in range(n_shards)
+            ]
+        else:
+            self.shards = [
+                shard_rpc.SubprocessShardClient(
+                    s, self.plan, self.ranges, clustered, dims, inbox_cap=inbox_cap,
+                    op_deadline_s=op_deadline_s, device=self._server_device(s))
+                for s in range(n_shards)
+            ]
         # Coordinator epoch, stamped on every fenced shard op: a shard
         # refuses any lower epoch, so a superseded coordinator cannot land
         # mutations after a takeover.
@@ -637,19 +687,40 @@ class ShardedEngine:
             c.epoch = self.epoch
         # Global row -> (shard, local row), kept across mutations so that
         # coordinator delete masks translate to shard-local masks.
-        n = clustered.num_rows
-        frag_of_row = np.searchsorted(clustered.layout.offsets, np.arange(n), side="right") - 1
-        self._row_shard = self.plan.owner[frag_of_row]
-        self._row_local = np.empty(n, dtype=np.int64)
-        self._shard_rows = np.zeros(n_shards, dtype=np.int64)
-        for s in range(n_shards):
-            sel = self._row_shard == s
-            self._shard_rows[s] = int(sel.sum())
-            self._row_local[sel] = np.arange(self._shard_rows[s])
+        if boot:
+            # The adopted table may carry an append tail: the full recompute
+            # routes it by ownership as ``append_rows`` did.
+            self._rebuild_row_maps()
+        else:
+            n = clustered.num_rows
+            frag_of_row = np.searchsorted(clustered.layout.offsets, np.arange(n),
+                                          side="right") - 1
+            self._row_shard = self.plan.owner[frag_of_row]
+            self._row_local = np.empty(n, dtype=np.int64)
+            self._shard_rows = np.zeros(n_shards, dtype=np.int64)
+            for s in range(n_shards):
+                sel = self._row_shard == s
+                self._shard_rows[s] = int(sel.sum())
+                self._row_local[sel] = np.arange(self._shard_rows[s])
         # Coordinator mutation count == the read watermark.
-        self.version = 0
+        self.version = int(boot.get("version", 0))
         self._registered: Dict[int, _Registered] = {}
-        self._reg_counter = 1
+        # Registration ids are replicated, so a standby keeps minting ids
+        # the shards have never seen.
+        self._reg_counter = int(boot.get("reg_counter", 1))
+        # Metadata replication: every metadata mutation streams as a
+        # sequenced record to the attached replica (None: not replicating);
+        # a failed publish drops the replica, never serving.
+        self._replica = None
+        self._rep_seq = 0
+        self.replica_degraded = False
+        # Peer-mirrored checkpoints (subprocess shards): shard ``sid``'s
+        # local table is mirrored on shard ``(sid + 1) % S``'s server and
+        # kept current by the deltas ``_ship`` sends, so a killed server
+        # recovers shard-sized state from its peer.
+        self._peer_mirroring = transport == "subprocess" and n_shards > 1
+        self._peer_ok = [False] * n_shards
+        self.peer_restores = 0
         self.last_route: Optional[RouteInfo] = None
         self.fused = fused
         # Registrations beyond this are pruned by recency after each pass.
@@ -666,24 +737,192 @@ class ShardedEngine:
         self.health: List[str] = ["healthy"] * n_shards
         self._monitors: Dict[Tuple[int, str], StragglerMonitor] = {}
         self._route_retries = 0
+        # Checkpoints or peer mirrors that could not advance past a failure,
+        # counted per shard (``RouteInfo.stale_checkpoints`` is the total).
         self.stale_checkpoints = [0] * n_shards
         # Recovery state held by the coordinator: per shard a checkpoint (a
-        # reference to its immutable local table at its last drained read)
-        # and the log of every delta shipped past it.  A lost shard recovers
-        # by checkpoint adopt + log replay + maintainer re-registration.
-        self._ckpt = [c.make_checkpoint(clustered, 0) for c in self.shards]
-        self._log: List[List[Tuple[int, str, object]]] = [[] for _ in range(n_shards)]
+        # reference to its immutable local table at its last drained read,
+        # or to the coordinator's table for a subprocess shard) and the log
+        # of every delta shipped past it.  A lost shard recovers by
+        # checkpoint + log replay + maintainer re-registration.
+        if boot.get("attach") is not None:
+            # Live shards keep their state; the replicated log suffix covers
+            # whatever a shard has not drained or never received.
+            self._ckpt = []
+            for c in self.shards:
+                try:
+                    self._ckpt.append(None if c.state_lost
+                                      else c.make_checkpoint(self.db[table], self.version))
+                except ShardUnavailableError:
+                    self._ckpt.append(None)
+            logs = boot.get("log") or [[] for _ in range(n_shards)]
+            self._log = [list(entries) for entries in logs]
+        else:
+            self._ckpt = [c.make_checkpoint(clustered, 0) for c in self.shards]
+            self._log = [[] for _ in range(n_shards)]
 
+    def _server_device(self, sid: int) -> str:
+        """The device a subprocess shard's server keeps its state on: the
+        shard's pin, else the coordinator's device."""
+        return str(self._devices[sid] or self.device)
+
+    # -- metadata replication / standby takeover -------------------------------
     def _emit(self, kind: str, payload) -> None:
-        """Stream one metadata record to an attached standby: a no-op until
-        replication lands (ROADMAP A6)."""
+        """Stream one metadata record to the attached replica.  Losing the
+        replica degrades replication (``replica_degraded``), never serving."""
+        if self._replica is None:
+            return
+        self._rep_seq += 1
+        try:
+            self._replica.publish(ReplicationRecord(self._rep_seq, kind, payload))
+        except Exception:
+            self._replica = None
+            self.replica_degraded = True
+
+    def _plan_token(self) -> int:
+        """Fingerprint of the current placement; stamps peer mirrors so a
+        mirror built under a plan before a rebalance is never adopted under
+        the new one.  Python's ``hash`` of bytes is salted per process: this
+        holds because every coordinator that compares tokens (a takeover
+        included) runs in the process that stamped them, as in the
+        reference."""
+        return hash((self.n_shards, self.plan.owner.tobytes()))
+
+    def _reg_payloads(self, entries: Sequence[IndexEntry]) -> List[dict]:
+        out = []
+        for e in entries:
+            reg = self._registered.get(e.reg_id)
+            m = e.maintainer
+            out.append({
+                "reg_id": e.reg_id,
+                "query": e.query,
+                "ranges": reg.ranges if reg is not None else e.sketch.ranges,
+                "registered": reg is not None,
+                "group_local": reg.group_local if reg is not None else False,
+                # Counter state rides along, so a takeover restores the
+                # maintainer instead of encoding the groups again.
+                "state": m.state_dict() if isinstance(m, SketchMaintainer) else None,
+            })
+        return out
+
+    def _boot_payload(self) -> dict:
+        dims = {k: v.collapse() for k, v in self._dims().items()}
+        return {
+            "table": self.table_name,
+            "attr": self.attr,
+            "n_shards": self.n_shards,
+            "n_ranges": self._n_ranges,
+            "strategy": self.engine.strategy,
+            "policy": self.policy,
+            "use_devices": self.use_devices,
+            "fused": self.fused,
+            "max_registered": self.max_registered,
+            "health": self.health_tracking,
+            "op_deadline_s": self.op_deadline_s,
+            "inbox_cap": self._inbox_cap,
+            "transport": self.transport,
+            "engine_kwargs": dict(self._engine_kwargs),
+            "ranges": self.ranges,
+            "owner": np.asarray(self.plan.owner),
+            "clustered": self.db[self.table_name].collapse(),
+            "dims": dims,
+            "version": self.version,
+            "log": [list(entries) for entries in self._log],
+            "ckpt_versions": [None if c is None else c.version for c in self._ckpt],
+            "reg_counter": self._reg_counter,
+            "selection": self.selection_state(),
+            "epoch": self.epoch,
+            # Tables cross the boundary as CPU tensors: a promoted
+            # coordinator moves them back onto this device.
+            "device": str(self.device),
+        }
 
     def attach_replica(self, replica) -> None:
-        raise NotImplementedError(REPLICATION_SLICE)
+        """Stream metadata mutations to ``replica`` (a warm standby): a full
+        bootstrap (base state, delta logs, every live registration, the
+        selection snapshot), then one sequenced record per mutation."""
+        self._replica = replica
+        self._rep_seq = 0
+        self.replica_degraded = False
+        self._emit("bootstrap", self._boot_payload())
+        regs = self._reg_payloads([e for e in self.engine.index.entries() if e.reg_id > 0])
+        if regs:
+            self._emit("register", regs)
 
     @classmethod
-    def from_replica(cls, store, *, epoch: int, attach=None) -> "ShardedEngine":
-        raise NotImplementedError(REPLICATION_SLICE)
+    def from_replica(cls, store, *, epoch: int,
+                     attach: Optional[Sequence] = None) -> "ShardedEngine":
+        """Standby takeover: a serving coordinator from replicated metadata
+        alone.
+
+        The clustered base table and the replicated mutation log replay to
+        the coordinator's table (same rows, order and (uid, version), so the
+        shards' freshness tokens keep matching), on the device the bootstrap
+        names (tables arrive as CPU tensors).
+        Partition, placement and log suffixes are adopted.  Index entries
+        are rebuilt locally under their replicated ``reg_id``s (replicated
+        counter state restored and replayed, else a counting pass), which
+        the shards' maintainers are still keyed by: hits stay hits and
+        ``index.misses`` stays flat.  ``attach`` re-wraps the live shard
+        clients.  The caller fences: construct with a bumped ``epoch``; the
+        first catch-up stamps it on every shard.
+        """
+        b = store.boot
+        if b is None:
+            raise RuntimeError("replica has no bootstrap record")
+        dev = resolve_device(b["device"])
+        table_name = b["table"]
+        fact = place_table(b["clustered"], dev)
+        dims = {k: place_table(v, dev) for k, v in b["dims"].items()}
+        for mkind, tname, payload, _v in store.muts:
+            if tname == table_name:
+                fact = fact.append(payload) if mkind == "append" else fact.delete(payload)
+                if fact.delta_depth() >= 64:
+                    fact = fact.collapse()
+            else:
+                t = dims[tname]
+                dims[tname] = t.append(payload) if mkind == "append" else t.delete(payload)
+        db = Database({table_name: fact, **dims})
+        self = cls(
+            db, table_name, b["attr"], b["n_shards"], n_ranges=b["n_ranges"],
+            strategy=b["strategy"], policy=b["policy"], use_devices=b["use_devices"],
+            fused=b["fused"], max_registered=b["max_registered"], health=b["health"],
+            op_deadline_s=b["op_deadline_s"], inbox_cap=b["inbox_cap"],
+            transport=b["transport"], epoch=epoch,
+            _boot=dict(ranges=b["ranges"], clustered=fact, owner=store.owner, attach=attach,
+                       version=store.version, log=store.ship_logs(b["n_shards"]),
+                       reg_counter=store.reg_counter),
+            **b["engine_kwargs"],
+        )
+        if store.selection:
+            self.restore_selection_state(store.selection)
+        catalog = self.engine.catalog
+        pool: List[SketchMaintainer] = []
+        for rid, p in store.regs.items():
+            q, ranges = p["query"], p["ranges"]
+            m = None
+            state = p.get("state")
+            if state is not None:
+                # Resurrect the replicated counter state and replay it to the
+                # current version, skipping the group encode.
+                try:
+                    m = SketchMaintainer.from_state(q, self.engine.db, ranges, state)
+                    m.apply(self.engine.db[q.table], self.engine.db)
+                except MaintenanceError:
+                    m = None  # stale or unwalkable state: count anew below
+            try:
+                if m is None:
+                    m = maintainer_for(q, self.engine.db, ranges, catalog, pool)
+                sketch = m.to_sketch(self.engine.db[q.table], catalog)
+            except MaintenanceError:
+                continue  # not rebuildable under the current tables: dropped
+            pool.append(m)
+            e = self.engine.index.insert(q, sketch, maintainer=m)
+            e.reg_id = rid
+            self.engine._ranges_cache.setdefault((q.table, ranges.attr), ranges)
+            if p["registered"]:
+                self._registered[rid] = _Registered(e, ranges, p["group_local"])
+        return self
 
     # -- convenience -----------------------------------------------------------
     @property
@@ -715,7 +954,8 @@ class ShardedEngine:
         (every shard gets one, possibly empty, so versions stay aligned)."""
         if table_name != self.table_name:
             self.engine.append_rows(table_name, rows)
-            self._emit("mutation", ("append", table_name))
+            self._emit("mutation", ("append", table_name,
+                                    {k: np.asarray(v) for k, v in rows.items()}, None, None))
             self._replicate_dim(table_name)
             return
         rows_np = {k: np.asarray(v) for k, v in rows.items()}
@@ -727,30 +967,36 @@ class ShardedEngine:
         counts = np.bincount(shard_of, minlength=self.n_shards)
         new_local = np.empty(shard_of.shape[0], dtype=np.int64)
         version = self.version + 1
+        ships = []
         for s in range(self.n_shards):
             sel = shard_of == s
-            self._ship(s, version, "append", {k: v[sel] for k, v in rows_np.items()})
+            payload = {k: v[sel] for k, v in rows_np.items()}
+            self._ship(s, version, "append", payload)
+            ships.append(payload)
             new_local[sel] = self._shard_rows[s] + np.arange(counts[s])
         self._shard_rows += counts
         self._row_shard = np.concatenate([self._row_shard, shard_of])
         self._row_local = np.concatenate([self._row_local, new_local])
         self.engine.append_rows(table_name, rows)
         self.version += 1
-        self._emit("mutation", ("append", table_name, version))
+        self._emit("mutation", ("append", table_name, rows_np, version, ships))
 
     def delete_rows(self, table_name: str, mask: np.ndarray) -> None:
         """Translate the coordinator-row mask into per-shard local masks."""
         if table_name != self.table_name:
             self.engine.delete_rows(table_name, mask)
-            self._emit("mutation", ("delete", table_name))
+            self._emit("mutation", ("delete", table_name, np.asarray(mask, dtype=bool), None,
+                                    None))
             self._replicate_dim(table_name)
             return
         mask = np.asarray(mask, dtype=bool)
         version = self.version + 1
+        ships = []
         for s in range(self.n_shards):
             local_mask = np.zeros(self._shard_rows[s], dtype=bool)
             local_mask[self._row_local[mask & (self._row_shard == s)]] = True
             self._ship(s, version, "delete", local_mask)
+            ships.append(local_mask)
         keep = ~mask
         self._row_shard = self._row_shard[keep]
         self._row_local = self._row_local[keep]
@@ -760,13 +1006,15 @@ class ShardedEngine:
             self._row_local[sel] = np.arange(self._shard_rows[s])
         self.engine.delete_rows(table_name, mask)
         self.version += 1
-        self._emit("mutation", ("delete", table_name, version))
+        self._emit("mutation", ("delete", table_name, mask, version, ships))
 
     def _ship(self, sid: int, version: int, kind: str, payload) -> None:
         """Best-effort delivery of one delta: the coordinator's per-shard log
         is the authoritative copy, so a refused ship leaves the shard lagging
         until the next read resyncs it from the log."""
         self._log[sid].append((version, kind, payload))
+        if self._peer_mirroring:
+            self._peer_ship(sid, version, kind, payload)
         if self.health_tracking and self.health[sid] == "dead":
             return  # known dead: recovery replays the log
         try:
@@ -775,6 +1023,21 @@ class ShardedEngine:
             pass  # inbox full; the log carries it
         except ShardUnavailableError:
             self._demote(sid)
+
+    def _peer_ship(self, sid: int, version: int, kind: str, payload) -> None:
+        """Keep shard ``sid``'s peer mirror current with the same delta.  A
+        failed or refused peer ship marks the mirror stale (counted, not
+        silent); the next checkpoint re-seeds it."""
+        if not self._peer_ok[sid]:
+            return
+        peer = (sid + 1) % self.n_shards
+        try:
+            ok = self.shards[peer].peer_ship(sid, version, kind, payload)
+        except (ShardUnavailableError, BackpressureError):
+            ok = False
+        if not ok:
+            self._peer_ok[sid] = False
+            self.stale_checkpoints[sid] += 1
 
     def _replicate_dim(self, table_name: str) -> None:
         """Replicate a mutated dimension table and evict the sketches whose
@@ -849,6 +1112,9 @@ class ShardedEngine:
                     except ShardUnavailableError:
                         pass
             self._registered[e.reg_id] = _Registered(e, e.sketch.ranges, group_local)
+        if self._replica is not None:
+            self._emit("register", self._reg_payloads(new))
+            self._emit("selection", self.selection_state())
         if self.max_registered is not None:
             self.prune(self.max_registered)
 
@@ -861,18 +1127,26 @@ class ShardedEngine:
     def prune(self, max_entries: int) -> int:
         """Evict the least recently hit sketches from the index, and their
         shard maintainers, instances and stacked tensors; returns the count."""
+        before = ({e.reg_id for e in self.engine.index.entries() if e.reg_id}
+                  if self._replica is not None else set())
         evicted = self.engine.index.prune(max_entries)
         if evicted:
             alive = {e.reg_id for e in self.engine.index.entries()}
             for key in [k for k in self._registered if k not in alive]:
                 self._unregister(key)
-                self._emit("evict", key)
+            for rid in sorted(before - alive):
+                self._emit("evict", rid)
         return evicted
 
     def shutdown(self) -> None:
-        """Release shard resources (loopback clients hold none)."""
+        """Release shard resources: loopback clients hold none, subprocess
+        clients hand their servers back to the warm pool (or reap them).
+        Safe to call more than once."""
         for c in self.shards:
-            c.close_client()
+            try:
+                c.close_client()
+            except Exception:
+                pass
 
     def selection_state(self) -> dict:
         """The coordinator's reuse-aware selection state (shards never see it)."""
@@ -931,6 +1205,7 @@ class ShardedEngine:
         prune its log; a version compare when already there."""
         cur = self._ckpt[sid]
         if cur is not None and cur.version == self.version:
+            self._mirror_ckpt(sid)
             return
         ckpt = self.shards[sid].make_checkpoint(self.db[self.table_name], self.version)
         self._ckpt[sid] = ckpt
@@ -938,6 +1213,51 @@ class ShardedEngine:
         if self._log[sid] and self._log[sid][0][0] <= v:
             self._log[sid] = [e for e in self._log[sid] if e[0] > v]
         self._emit("ckpt", (sid, v))
+        self._mirror_ckpt(sid)
+
+    def _mirror_ckpt(self, sid: int) -> None:
+        """(Re)seed shard ``sid``'s peer mirror when it is stale: cut the
+        shard's local table coordinator-side (``local_table_for``, the gather
+        a shard is built by) and put it on the peer; ``_peer_ship`` keeps it
+        current after that."""
+        if not self._peer_mirroring or self._peer_ok[sid]:
+            return
+        peer = (sid + 1) % self.n_shards
+        if self.health_tracking and self.health[peer] == "dead":
+            self.stale_checkpoints[sid] += 1
+            return
+        try:
+            local = local_table_for(sid, self.plan, self.ranges,
+                                    self.db[self.table_name].collapse(), version=self.version)
+            self.shards[peer].peer_put(sid, local, self._plan_token())
+            self._peer_ok[sid] = True
+        except (ShardUnavailableError, BackpressureError):
+            self.stale_checkpoints[sid] += 1
+
+    def _restore_from_peer(self, sid: int) -> bool:
+        """Recovery's fast path: seed a killed shard from its peer's mirror
+        of its local table instead of reshipping the coordinator's
+        checkpoint (shard-sized state, held by the peer's process).  Tried
+        whatever ``_peer_ok`` says: mirrors live in shard processes and
+        outlive a coordinator, so a promoted one asks first and trusts the
+        plan token to refuse a stale placement."""
+        if not self._peer_mirroring:
+            return False
+        peer = (sid + 1) % self.n_shards
+        if self.health_tracking and self.health[peer] == "dead":
+            return False
+        try:
+            got = self.shards[peer].peer_fetch(sid, self._plan_token())
+            if got is None:
+                return False
+            local, _version = got
+            self.shards[sid].build_local(self.plan, self.ranges, local, self._dims(),
+                                         self._inbox_cap)
+        except (ShardUnavailableError, BackpressureError):
+            return False
+        self.peer_restores += 1
+        self._peer_ok[sid] = True
+        return True
 
     def _dims(self) -> Dict[str, ColumnTable]:
         return {k: v for k, v in self.engine.db.tables.items() if k != self.table_name}
@@ -975,7 +1295,7 @@ class ShardedEngine:
         produced them."""
         shard = self.shards[sid]
         self.health[sid] = "recovering"
-        if shard.state_lost:
+        if shard.state_lost and not self._restore_from_peer(sid):
             if self._ckpt[sid] is None:
                 # No coherent checkpoint (the placement changed while it was
                 # gone): rebuild from the coordinator's table.
@@ -1051,6 +1371,9 @@ class ShardedEngine:
                    if not np.array_equal(np.nonzero(new_owner == s)[0], self.plan.fragments_of(s))]
         self.plan = ShardPlan(n_shards=self.n_shards, owner=new_owner)
         self._rebuild_row_maps()
+        # Every peer mirror speaks the old placement (its plan token no
+        # longer matches): the next checkpoint round re-seeds them.
+        self._peer_ok = [False] * self.n_shards
         rebuilt, voided = [], []
         for sid in changed:
             if sid in dead_set:

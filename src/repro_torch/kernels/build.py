@@ -5,14 +5,19 @@ into ``build/repro_torch/<name>-<hash>.so`` at the repository root (a
 directory ``.gitignore`` lists), the first time one of its kernels is
 launched.  The hash covers the source, the local files it includes and the
 flags, so an edited source builds anew.  :func:`build_all` starts one ``nvcc`` per source at once, so
-building every kernel takes as long as the slowest one.
+building every kernel takes as long as the slowest one.  It holds an
+exclusive lock on the build directory while it compiles, so processes that
+start together (the shard servers of one coordinator) compile a missing
+library once: the others wait, then load it.
 
 Nothing here runs at import: the CPU test suite imports every module on a
 machine with neither ``nvcc`` nor a card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -101,6 +106,18 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive ``flock`` on the build directory's lock file."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named source that has no library yet, all at once.
 
@@ -108,6 +125,16 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     each kernel's registers and shared memory); raises
     :class:`KernelBuildError` with that output if any build fails.
     """
+    names = list(names)
+    if all(library_path(name).exists() for name in names):
+        return {}
+    with _build_lock():
+        return _build_missing(names)
+
+
+def _build_missing(names: List[str]) -> Dict[str, str]:
+    """``build_all``'s compile, under the lock (a library another process
+    built while this one waited is not built again)."""
     jobs = []
     for name in names:
         so = library_path(name)

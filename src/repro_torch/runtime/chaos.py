@@ -184,8 +184,10 @@ class ChaosHarness:
 
     The harness pokes faults through the engine's shard clients
     (``inject``/``heal`` on a loopback client flips the shard's in-process
-    fault flags) and otherwise drives the engine through its public serving
-    API only.
+    fault flags; on a subprocess client it delivers the real mechanism:
+    ``kill`` SIGKILLs the shard server, ``stall`` makes it sleep per op,
+    ``partition`` drops the socket, ``flaky`` injects error responses) and
+    otherwise drives the engine through its public serving API only.
     """
 
     def __init__(self, events: Sequence[ChaosEvent]):
@@ -198,7 +200,7 @@ class ChaosHarness:
         for e in self._by_step.get(step, []):
             if e.shard == COORD or e.kind in COORD_FAULT_KINDS:
                 # Coordinator-level fault: the engine must be failover-
-                # capable (a standby coordinator, ROADMAP A6).
+                # capable (``core.standby.FailoverCoordinator``).
                 engine.inject_coord(e.kind)
                 continue
             shard = engine.shards[e.shard]
@@ -228,8 +230,10 @@ def differential(
     shard's, so chaos may change *routing* but never *results*.
 
     ``make_clean`` lets the fault-free reference come from a different
-    engine configuration than the chaotic run.  Engines exposing
-    ``shutdown()`` are shut down before returning.
+    engine configuration than the chaotic run (subprocess shards under real
+    kills, stalls and socket drops against fault-free in-process serving).
+    Engines exposing ``shutdown()`` are shut down before returning, so
+    replays over subprocess shards never leak servers.
     """
 
     def _run(factory, trace_fn):

@@ -13,6 +13,7 @@ from repro.core.workload import CRIMES_SPEC as R_SPEC, generate_workload as r_ge
 import repro_torch.core as T
 from repro_torch.convert import sketch_from_numpy
 from repro_torch.core import datasets as tdata
+from repro_torch.core import shard_rpc
 from repro_torch.core.table import PAD_VALID
 from repro_torch.core.workload import CRIMES_SPEC as T_SPEC, generate_workload as t_generate
 
@@ -195,9 +196,9 @@ def test_mask_branch_does_not_compact_on_the_host(dbs, workloads, monkeypatch):
 
 def test_random_strategies_and_shard_faults_run(dbs, workloads):
     """Paths once deferred to later slices now run: the random strategies in
-    ``run`` and ``run_batch``, and a shard kill and a rebalance in the
-    sharded engine.  Subprocess shards still refuse, naming their slice
-    (ROADMAP A6)."""
+    ``run`` and ``run_batch``, a shard kill and a rebalance in the sharded
+    engine, and subprocess shards, which serve the loopback engine's result
+    and hand their servers back at shutdown."""
     _, tdb = dbs
     _, tq = workloads
     rand = T.PBDSEngine(tdb, strategy="RAND-GB")
@@ -206,8 +207,16 @@ def test_random_strategies_and_shard_faults_run(dbs, workloads):
     assert info.attr is None or info.attr in tq[0].groupby
     assert [r.canonical() for r, _ in rand.run_batch(tq[:2])] == [
         T.execute(q, tdb).canonical() for q in tq[:2]]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
+    se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)
+    sub = T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
+    try:
+        assert sub.run(tq[0])[0].canonical() == se.run(tq[0])[0].canonical()
+        pids = [c.pid for c in sub.shards]
+        assert all(pids)
+    finally:
+        sub.shutdown()
+        shard_rpc.POOL.shutdown_all()
+    assert all(c.pid is None for c in sub.shards)
     se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)
     se.shards[0].inject("kill")
     assert se.shards[0].state_lost and not se.shards[0].reachable

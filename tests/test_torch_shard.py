@@ -458,29 +458,47 @@ def test_fused_launch_path_has_no_host_sync():
 
 
 def test_sharded_engine_refuses_what_this_slice_lacks():
-    """Coordinator-permuting keywords raise; subprocess shards and standby
-    replication (ROADMAP A6) raise ``NotImplementedError`` naming their
-    slice; a shard kill and a rebalance, once refused, now work: the killed
-    shard loses its state, and the rebalanced engine serves exactly."""
+    """Coordinator-permuting keywords and an unknown transport raise; the
+    paths once refused now work: subprocess shards serve what the loopback
+    engine serves (and hand their servers back at shutdown), a replica
+    attaches and a standby built from it serves the same hits without a
+    capture, a killed shard loses its state, and the rebalanced engine
+    serves exactly."""
+    from repro_torch.core import shard_rpc as tshard_rpc
+
     rdb, tdb = _crimes(2_000, 1)
     with pytest.raises(ValueError):
         T.ShardedEngine(tdb, "crimes", "district", n_shards=2, cluster_tables=True)
     with pytest.raises(ValueError):
         T.ShardedEngine(tdb, "crimes", "district", n_shards=2, compact_tail_frac=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
+    with pytest.raises(ValueError, match="unknown transport"):
+        T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="carrier pigeon")
+    q = _having(T, tdb, ("district",), [0.7])[0]
     se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)
-    for call in (lambda: se.attach_replica(None),
-                 lambda: T.ShardedEngine.from_replica(None, epoch=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            call()
+    sub = T.ShardedEngine(tdb, "crimes", "district", n_shards=2, transport="subprocess")
+    try:
+        for _ in range(2):
+            assert sub.run(q)[0].canonical() == se.run(q)[0].canonical()
+        assert sub.last_route is not None and not sub.last_route.degraded
+    finally:
+        sub.shutdown()
+        tshard_rpc.POOL.shutdown_all()
+    replica = T.InProcessReplica()
+    se.attach_replica(replica)
+    assert replica.records >= 2 and not se.replica_degraded  # a bootstrap and the registration
+    with pytest.raises(RuntimeError, match="no bootstrap"):
+        T.ShardedEngine.from_replica(T.MetadataStore(), epoch=1)
+    standby = T.ShardedEngine.from_replica(replica.snapshot(), epoch=se.epoch + 1, attach=se.shards)
+    res, info = standby.run(q)
+    assert res.canonical() == T.execute(q, tdb).canonical() and info.reused
+    assert standby.index.misses == 0 and standby.device == se.device
+    se = T.ShardedEngine(tdb, "crimes", "district", n_shards=2)
     se.shards[0].inject("kill")
     assert se.shards[0].state_lost and se.shards[0].version == -1
     assert not se.shards[0].reachable and not se.shards[0].maintainers
     assert se.rebalance([0]) == [1]
     assert not (se.plan.owner == 0).any()
     assert se.shards[1].table.num_rows == tdb["crimes"].num_rows
-    q = _having(T, tdb, ("district",), [0.7])[0]
     for _ in range(2):
         res, info = se.run(q)
         assert res.canonical() == T.execute(q, tdb).canonical() and not info.degraded

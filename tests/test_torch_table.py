@@ -2,6 +2,7 @@
 casts, the same float32 bucketization, the same group encodings and
 equi-depth bounds, and dataset generators yielding identical arrays."""
 import ast
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -184,7 +185,17 @@ def test_port_imports_neither_jax_nor_the_reference():
             "configs"} <= scanned, scanned
     for sub in ("models", "data", "launch", "configs"):
         assert (ROOT / "src" / "repro_torch" / sub / "__init__.py") in files, sub
+    # The process-boundary modules are scanned, and so is the code they hand
+    # to child processes as strings (``python -c "..."``).
+    for mod in ("runtime/transport.py", "core/shard_rpc.py", "core/replication.py",
+                "core/standby.py"):
+        assert ROOT / "src" / "repro_torch" / mod in files, mod
+    code_import = re.compile(r"\b(?:from|import)\s+(jax|jaxlib|repro)(?:[.\s;]|$)")
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{path.relative_to(ROOT)} imports {mod}"
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                hit = code_import.search(node.value)
+                assert hit is None, f"{path.relative_to(ROOT)} holds {hit.group(0)!r} in a string"

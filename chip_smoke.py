@@ -11,8 +11,11 @@ both, the bandwidth bound and one PyTorch library call as a yardstick
 kept, fragment_bitmap also at 32,768 ranges and as one kernel a call,
 fragment_bitmap_batch as one kernel a call, segment_aggregate at the group
 pads 16 to 16,384, with sorted gids beside random ones up to 1,024 groups,
-each beside its device time from ``torch.profiler`` by kernel; and the f32
-flash-attention kernel and SDPA in turns on the same shapes).
+each beside its device time from ``torch.profiler`` by kernel; the f32
+flash-attention kernel and SDPA in turns on the same shapes; and the
+flash-attention backward at the training micro-batch, internlm2-20b's GQA
+and gemma3's window shapes against its plain version, with equal bits on a
+rerun, beside SDPA's backward).
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
@@ -84,7 +87,7 @@ through ``select_composite_gb``, ``capture_composite`` and
 execution, every random pick against its candidate pool and a second
 engine's, the batch against the sequential runs, each composite sketch
 against the single sketches of its parts and the plain bitmap, and that
-kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6.  Phase 6 serves ``stablelm-1.6b`` at full
+kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6, 11.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -94,7 +97,18 @@ the curation query, each layer's attention through the kernel against the
 plain chunked loop (float32 copies of the weights, where decode is also
 held against prefill, and the bf16 weights themselves at both prompts),
 that every bf16 prefill ran the tensor-core kernel, and a 2,048-token
-prompt.  Any failed check raises, so the exit code is not 0.
+prompt.  Phase 11 trains ``stablelm-1.6b`` at full width and depth (bf16,
+``remat="full"``, batch 8 of 2,048 tokens in 2 microbatches, AdamW with an
+f32 master, 6 steps): curation of 20,000 docs as ``launch/train.py`` runs
+it, checked against the CPU pipeline and a plain numpy evaluation; every
+layer's attention gradients through the forward and backward kernels
+against the plain chunked loop's on that layer's input (bf16 weights and
+f32 copies); steps 0-5 with an async checkpoint after step 2 (26.3 GB),
+then a restore of it and steps 3-5 again, whose losses, grad norms and
+final parameters and moments must equal the straight run's bit for bit;
+the launch counts of both kernels per step; and the training CLI fresh and
+resumed as processes on the card.  Any failed check raises, so the exit
+code is not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as ``nvidia-smi`` reports them, and last
@@ -137,6 +151,9 @@ KERNELS = (
      "src/repro/kernels/segment_aggregate.py:74"),
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:89"),
+    # No Pallas kernel: the gradient XLA derives for the reference's chunk loop.
+    ("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/models/layers.py:91"),
 )
 N_SHARDS = 4
 SHARD_ATTR = "community"  # the partition phase 4's waves chose
@@ -428,6 +445,7 @@ def phase_kernels(n: int, seed: int) -> dict:
     rows["segment_aggregate_batch"] = _kernel_segment_aggregate_batch(n, gen, rows)
     rows["flash_attention"] = _kernel_flash_attention(seed)
     _flash_f32_pairs(seed)
+    rows["flash_attention_bwd"] = _kernel_flash_attention_bwd(seed)
     return rows
 
 
@@ -661,6 +679,107 @@ def _flash_f32_pairs(seed: int) -> None:
                 f"{who} " + ", ".join(f"({e:.4f}, {d_:.4f})" for e, d_ in vals)
                 for who, vals in times.items()) + f"; SM clock, power: {card_state()}")
         del q, k, v, qh, kh, vh, got, want
+
+
+# flash_attention_bwd in phase 2: (B, S, T, Hq, Hkv, D, causal, window), bf16.
+# Phase 11's training micro-batch (stablelm-1.6b, B=4 of its batch of 8 at
+# 2,048 tokens), phase 2's internlm2-20b GQA shape and gemma3's window
+# shape.  The JSON row is the training micro-batch.
+FLASH_BWD_SHAPES = ((4, 2048, 2048, 32, 32, 64, True, 0),
+                    (4, 2048, 2048, 48, 8, 128, True, 0),
+                    (1, 4096, 4096, 32, 16, 168, True, 1024))
+FLASH_BWD_REPORTED = FLASH_BWD_SHAPES[0]
+
+
+def _kernel_flash_attention_bwd(seed: int) -> dict:
+    """flash_attention_bwd against flash_attention_bwd_ref at
+    FLASH_BWD_SHAPES (bf16, the (B, S, H, D) layout of the training path,
+    from the forward kernel's o and lse), within FLASH_TOL; a rerun gives
+    equal bits.  Timed beside the plain version and SDPA's backward (the
+    library yardstick: ``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention``, the backward alone), with the
+    device ms of one call by kernel and the bound: 10 B H D flops a live
+    query-key pair at 989 TFLOP/s against q, k, v, o, dO, lse in and dq,
+    dk, dv out."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import measure, ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    out, worst = None, 0.0
+    tol = FLASH_TOL["bfloat16"]
+    for shape in FLASH_BWD_SHAPES:
+        b, s, t, hq, hkv, d, causal, window = shape
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, t, hkv, d), generator=gen, device=dev).bfloat16()
+                for _ in "kv")
+        do = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+        o, lse = flash_attention(q, k, v, causal=causal, window=window, layout="bshd",
+                                 return_lse=True)
+
+        def kernel():
+            return flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window,
+                                       layout="bshd")
+
+        qh, kh, vh, oh, doh = (x.transpose(1, 2) for x in (q, k, v, o, do))
+
+        def plain():
+            return ref.flash_attention_bwd_ref(qh, kh, vh, oh, doh, causal, window)
+
+        got, again = kernel(), kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+            w = w.transpose(1, 2).float()
+            require(torch.equal(g, g2), f"flash_attention_bwd {shape}: {name} of a rerun "
+                                        f"differs")
+            diff = (g.float() - w).abs()
+            require(bool(torch.isfinite(g).all()) and not bool((diff > tol + tol * w.abs()).any()),
+                    f"flash_attention_bwd {shape}: {name} disagrees with its plain version "
+                    f"(max err {float(diff.max()):.3e})")
+            err = max(err, float(diff.max()))
+        worst = max(worst, err)
+        del got, again, want
+        torch.cuda.empty_cache()
+        mask = None
+        if window > 0 or s != t:
+            pos = torch.arange(s, device=dev)[:, None] + (t - s)
+            kpos = torch.arange(t, device=dev)[None, :]
+            mask = (kpos <= pos) & (kpos > pos - window) if window > 0 else kpos <= pos
+        sq, sk, sv = (x.detach().requires_grad_() for x in (qh, kh, vh))
+        sdpa = F.scaled_dot_product_attention(
+            sq, sk, sv, enable_gqa=hkv != hq,
+            **(dict(is_causal=True) if mask is None else dict(attn_mask=mask)))
+
+        def library():
+            return torch.autograd.grad(sdpa, (sq, sk, sv), doh, retain_graph=True)
+
+        pairs = live_pairs(s, t, causal, window)
+        item = q.element_size()
+        n_bytes = (item * (3 * b * hq * s * d + 2 * b * hkv * t * d) + 4 * b * hq * s
+                   + item * (b * hq * s * d + 2 * b * hkv * t * d))
+        b_ms, b_by = bound(n_bytes, 10 * b * hq * d * pairs, BF16_OPS_PER_S)
+        ms = time_ms(kernel, reps=10)
+        card = card_state()
+        per = {k_: round(v_, 4) for k_, v_ in measure.device_ms(torch, kernel, calls=5).items()}
+        row = dict(max_abs_err=err, ms=ms, plain_ms=time_ms(plain, reps=5, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, reps=10))
+        log(f"[kernels] flash_attention_bwd B={b} S={s} T={t} Hq={hq} Hkv={hkv} D={d} "
+            f"causal={causal} window={window} bf16: live pairs {pairs}, within {tol} of plain, "
+            f"rerun bit-equal; kernel {ms:.4f} ms, device {sum(per.values()):.4f} ms {per} "
+            f"(bound {b_ms:.4f} ms, {b_by}; SDPA backward {row['library_ms']:.4f} ms; SM clock, "
+            f"power after it: {card}); {row}")
+        if shape == FLASH_BWD_REPORTED:
+            out = row
+        del q, k, v, do, o, lse, qh, kh, vh, oh, doh, sq, sk, sv, sdpa, mask
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3271,6 +3390,351 @@ def phase_serve(seed: int = 0) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training stablelm-1.6b at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_SAVE = 8, LONG_PROMPT, 2, 6, 3
+TRAIN_DOCS, TRAIN_QUALITY = 20_000, 0.55  # launch/train.py's curation
+TRAIN_PARAMS = 1.645e9  # stablelm-1.6b, for mfu = 6 N tokens / (wall * 989 TFLOP/s)
+# Per layer, relative to the gradient's scale: the kernels' gradients against
+# the plain chunked loop's autograd on the same input (FLASH_TOL's bounds).
+TRAIN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Check (f): the CLI fresh for 4 steps with a checkpoint every 2, then resumed to 6.
+TRAIN_CLI = {"fresh": ("--smoke", "--steps", "4", "--ckpt-every", "2"),
+             "resume": ("--smoke", "--steps", "6", "--ckpt-every", "2", "--resume")}
+
+
+def _layer_grads(cfg, p, h, dy, window: int):
+    """Gradients of ``attention_train(p, h)`` against ``dy``, w.r.t. h and
+    every attention parameter, through whatever ``gqa_chunked`` is bound to."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    leaves_ = {"x": h.detach().requires_grad_(), "ln": p["ln"]["scale"].detach().requires_grad_()}
+    leaves_.update({k: v.detach().requires_grad_() for k, v in p.items() if k != "ln"})
+    tree = {**{k: v for k, v in leaves_.items() if k not in ("x", "ln")},
+            "ln": {"scale": leaves_["ln"]}}
+    with torch.enable_grad():
+        y = L.attention_train(tree, cfg, leaves_["x"], window=window)
+        grads = torch.autograd.grad(y, list(leaves_.values()), dy)
+    return dict(zip(leaves_, grads))
+
+
+def _train_layerwise_check(cfg, params, tokens) -> dict:
+    """Check (b): at every layer, on that layer's own input, the gradients of
+    its attention (w.r.t. the input and the attention parameters) through the
+    kernels against the plain chunked loop, within TRAIN_TOL of each
+    gradient's scale: the bf16 weights, then float32 copies.  The random
+    model is chaotic, so each layer is held on its own input."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import BWD_NAME
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    worst = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        ps = params if dtype == cfg.dtype else params.map(lambda x: x.to(torch.float32))
+        gen = torch.Generator(device=tokens.device).manual_seed(11)
+        before = LAUNCH_COUNTS[BWD_NAME]
+        worst[dtype] = 0.0
+        with torch.no_grad():
+            h = lm._embed(c, ps, tokens)
+        for i, pp in enumerate(lm._period_slices(ps["periods"], c.n_periods)):
+            for j, (mixer, _) in enumerate(c.pattern):
+                p = pp[f"b{j}"]
+                window = c.sliding_window if mixer == "swa" else 0
+                dy = torch.randn(h.shape, generator=gen, device=h.device).to(h.dtype)
+                got = _layer_grads(c, p["mixer"], h, dy, window)
+                want = _plain_attention(lambda: _layer_grads(c, p["mixer"], h, dy, window))
+                for name, g in got.items():
+                    w = want[name].float()
+                    scale = float(w.abs().max())
+                    err = float((g.float() - w).abs().max())
+                    worst[dtype] = max(worst[dtype], err / scale)
+                    require(bool(torch.isfinite(g).all()) and err <= TRAIN_TOL[dtype] * scale,
+                            f"layer {i}.{j} {dtype} attention gradient {name}: max |diff| "
+                            f"{err:.3e} at scale {scale:.3e}")
+                with torch.no_grad():
+                    h = L.mlp(p["ffn"], c, L.attention_train(p["mixer"], c, h, window=window))
+        require(LAUNCH_COUNTS[BWD_NAME] - before == c.n_layers,
+                f"{dtype}: the layer check ran the backward kernel "
+                f"{LAUNCH_COUNTS[BWD_NAME] - before} times, expected {c.n_layers}")
+        del ps
+        torch.cuda.empty_cache()
+    log(f"[train] attention gradients layer by layer ({cfg.n_layers} layers, "
+        f"B={tokens.shape[0]}, S={tokens.shape[1]}): max |diff| / scale kernels vs plain "
+        f"{worst['bfloat16']:.2e} (bf16 weights), {worst['float32']:.2e} (f32 copies); "
+        f"tolerances {TRAIN_TOL}")
+    return worst
+
+
+def _cli(args, ckpt: str, device: str) -> "subprocess.Popen":
+    """``python -m repro_torch.launch.train`` on ``device``, as a process."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args,
+                             "--ckpt", ckpt, "--device", device], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _cli_chain(ckpt: str, device: str) -> dict:
+    """Check (f), run beside the checkpoint's IO: TRAIN_CLI's runs in turn;
+    returns each run's exit code, output and wall."""
+    out = {}
+    for label, args in TRAIN_CLI.items():
+        t0 = time.perf_counter()
+        proc = _cli(args, ckpt, device)
+        text, _ = proc.communicate(timeout=600)
+        out[label] = (proc.returncode, text, time.perf_counter() - t0)
+    return out
+
+
+def _check_cli(runs: dict) -> None:
+    for label, (rc, text, wall) in runs.items():
+        lines = [ln for ln in text.splitlines() if ln.startswith("[train]")]
+        log(f"[train] CLI {label} (exit {rc}, {wall:.1f} s): " + " | ".join(lines))
+        require(rc == 0, f"the training CLI ({label}) exited {rc}:\n{text[-3000:]}")
+        require(len(lines) >= 4 and lines[0].startswith("[train] arch=stablelm-1.6b-smoke params=")
+                and lines[1].startswith("[train] curation: strategy=")
+                and lines[-1].startswith("[train] done: loss "),
+                f"the training CLI ({label}) printed other lines than the reference's")
+    fresh = [ln for ln in runs["fresh"][1].splitlines() if ln.startswith("[train]")]
+    resumed = [ln for ln in runs["resume"][1].splitlines() if ln.startswith("[train]")]
+    require(any(ln.startswith("[train] step=0 ") for ln in fresh)
+            and fresh[-1].endswith("ckpts=[2, 4]"), "the fresh CLI run's steps or checkpoints")
+    require(resumed[2] == "[train] resumed from step 4"
+            and any(ln.startswith("[train] step=5 ") for ln in resumed)
+            and resumed[-1].endswith("ckpts=[2, 4, 6]"), "the resumed CLI run did not resume")
+
+
+def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                device: str = "cuda") -> dict:
+    """Train stablelm-1.6b at full width and depth on the card (checks (a)-(f)
+    of the phase); returns the training path's launches: the straight run's
+    six steps and the curation before them.  ``cfg``, ``batch``, ``seq`` and
+    ``device`` serve a rehearsal on the CPU at a small size (``cuda``
+    calls stubbed, launch checks lenient: no kernel launches off the card)."""
+    import dataclasses
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import host_copy
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.device import to_host
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.kernels.flash_attention import BWD_NAME, NAME as FWD_NAME
+    from repro_torch.launch.train import make_batch_for
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves, tree_leaves, tree_unflatten
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+    from repro_torch.train.step import (TrainSpec, init_train_state, make_train_step,
+                                        microbatch_reshape)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or get_config(SERVE_ARCH)
+    dev = torch.device(device)
+    ckpt_dir = ROOT / "build" / "phase11_ckpt"
+    cli_dir = ROOT / "build" / "phase11_cli_ckpt"
+    for d in (ckpt_dir, cli_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # (a) Curation as launch/train.py runs it, on the card.
+    for name in BUILT:
+        LAUNCH_COUNTS[name] = 0
+    t0 = time.perf_counter()
+    meta = pipeline.make_corpus_metadata(n_docs=TRAIN_DOCS, seed=seed, device=dev)
+    spec_c = pipeline.CurationSpec(having_value=TRAIN_QUALITY)
+    pipe = pipeline.SketchedDataPipeline(meta, spec_c, batch, seq, cfg.vocab_size, seed=seed,
+                                         device=dev)
+    t_cur = time.perf_counter() - t0
+    curation = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    ri = pipe.run_info
+    log(f"[train] curation: strategy={ri.strategy} attr={ri.attr} created={ri.created} "
+        f"skipped={pipe.skipped_fraction:.1%} of {TRAIN_DOCS} docs "
+        f"({len(pipe.selected_docs)} admitted) in {t_cur:.2f} s; launches {curation}")
+    # The corpus is clustered (fragment-major), so the load is a slice of
+    # the surviving fragments: sketch_filter runs only on unclustered tables.
+    for name in ("segment_aggregate", "fragment_bitmap"):
+        require(curation[name] > 0, f"curation did not launch {name}")
+    cpu_meta = pipeline.make_corpus_metadata(n_docs=TRAIN_DOCS, seed=seed, device="cpu")
+    cpu_pipe = pipeline.SketchedDataPipeline(cpu_meta, spec_c, batch, seq, cfg.vocab_size,
+                                             seed=seed, device="cpu")
+    plain = _plain_admitted({a: to_host(cpu_meta[a]) for a in cpu_meta.schema}, spec_c)
+    require(np.array_equal(pipe.selected_docs, cpu_pipe.selected_docs),
+            "the card admitted other docs than the CPU pipeline")
+    require(bool(np.isin(plain, pipe.selected_docs).all()),
+            "the sketch dropped docs the curation query selects")
+    log(f"[train] (a) admitted docs equal the CPU pipeline's and contain all {len(plain)} "
+        f"of the plain query's")
+
+    # The state: bf16 parameters, f32 master, m and v.
+    spec = TrainSpec(microbatch=TRAIN_MICRO, opt=OptConfig(total_steps=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, spec, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    state_gb = sum(x.numel() * x.element_size() for x in tree_leaves(state)) / 1e9
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat}, loss_chunk "
+        f"{cfg.loss_chunk}; state {state_gb:.2f} GB made in {time.perf_counter() - t0:.2f} s; "
+        f"batch {batch} x {seq} tokens in {TRAIN_MICRO} microbatches")
+
+    it = iter(pipe)
+
+    def next_batch():
+        raw = next(it)
+        return microbatch_reshape(make_batch_for(cfg, raw, seq, dev), TRAIN_MICRO)
+
+    # (b) Attention gradients layer by layer, on the first microbatch.
+    t0 = time.perf_counter()
+    first = next_batch()
+    pipe.restore({"cursor": 0, "epoch": 0})
+    it = iter(pipe)
+    _train_layerwise_check(cfg, state["params"], first["tokens"][0])
+    log(f"[train] (b) done in {time.perf_counter() - t0:.1f} s")
+    # Where the random model's gradient norm comes from: the first
+    # microbatch's gradients through the kernels, through the plain loop
+    # (forward and backward, the recomputation included) and through the
+    # kernels on float32 copies of the weights.
+    def grad_norms(c, params):
+        flat = [x.detach().requires_grad_() for x in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = lm.loss_fn(tree_unflatten(params, flat, dicts=True), c,
+                              {"tokens": first["tokens"][0]})
+            grads = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), {"/".join(path): float(torch.linalg.vector_norm(g.float()))
+                                      for (path, _), g in zip(leaves(params), grads)}
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for label, run in (("kernels", lambda: grad_norms(cfg, state["params"])),
+                       ("plain loop", lambda: _plain_attention(
+                           lambda: grad_norms(cfg, state["params"]))),
+                       ("kernels, f32 copies", lambda: grad_norms(
+                           cfg32, state["params"].map(lambda x: x.to(torch.float32))))):
+        loss, per = run()
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+        log(f"[train] microbatch 0 through the {label}: loss {loss:.6f}, grad norm "
+            f"{float(np.sqrt(sum(v * v for v in per.values()))):.4e}; largest leaves "
+            + ", ".join(f"{k} {v:.3e}" for k, v in top))
+        torch.cuda.empty_cache()
+    del first
+
+    step_fn = make_train_step(cfg, spec)
+    tokens = batch * seq
+
+    def run_step(label, i, st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = next_batch()
+        st, met = step_fn(st, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        wall = time.perf_counter() - t
+        mfu = 6 * TRAIN_PARAMS * tokens / (wall * BF16_OPS_PER_S)
+        log(f"[train] {label} step {i}: wall {wall * 1e3:.1f} ms, {tokens / wall:.0f} tok/s, "
+            f"loss {loss:.6f}, grad_norm {gnorm:.6f}, lr {float(met['lr']):.3e}, mfu {mfu:.4f}")
+        return st, (loss, gnorm, wall)
+
+    # (c) The straight run, with the step-3 checkpoint saved async.
+    ckpt_bytes = sum(x.numel() * max(4, x.element_size()) for x in tree_leaves(state))
+    for name in BUILT:
+        LAUNCH_COUNTS[name] = 0
+    straight = []
+    ckpt = CheckpointManager(str(ckpt_dir), keep=2)
+    for i in range(TRAIN_STEPS):
+        state, rec = run_step("straight", i, state)
+        straight.append(rec)
+        if i + 1 == TRAIN_SAVE:
+            free = shutil.disk_usage(ckpt_dir).free
+            require(free >= 1.5 * ckpt_bytes, f"{free / 1e9:.1f} GB free for a "
+                                              f"{ckpt_bytes / 1e9:.1f} GB checkpoint")
+            ckpt.save(TRAIN_SAVE, state, extra={"step": TRAIN_SAVE, "pipeline": pipe.state()})
+            log(f"[train] save({TRAIN_SAVE}): host snapshot of {ckpt_bytes / 1e9:.2f} GB in "
+                f"{ckpt.last_snapshot_s:.2f} s ({free / 1e9:.1f} GB free); the IO runs behind "
+                f"the next steps")
+    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    per_step = {FWD_NAME: cfg.n_layers * TRAIN_MICRO * 2, BWD_NAME: cfg.n_layers * TRAIN_MICRO}
+    log(f"[train] (e) launches over {TRAIN_STEPS} steps {launches}; a step: forward "
+        f"{launches[FWD_NAME] / TRAIN_STEPS:g} (remat recompute included), backward "
+        f"{launches[BWD_NAME] / TRAIN_STEPS:g}")
+    for name, n in per_step.items():
+        require(launches[name] == n * TRAIN_STEPS,
+                f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, expected "
+                f"{n * TRAIN_STEPS}")
+
+    # (f) The CLI, beside the checkpoint's IO and the restore.
+    cli = {}
+    cli_thread = threading.Thread(target=lambda: cli.update(_cli_chain(str(cli_dir), device)))
+    cli_thread.start()
+
+    t = time.perf_counter()
+    ckpt.wait()
+    log(f"[train] save({TRAIN_SAVE}) IO: {ckpt.last_io_s:.2f} s ({time.perf_counter() - t:.2f} s "
+        f"of it waited for after step {TRAIN_STEPS - 1})")
+    t = time.perf_counter()
+    final = [host_copy(x) for x in tree_leaves(state)]
+    log(f"[train] the straight run's final state to the host in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    resumed, extra = ckpt.restore(state, step=TRAIN_SAVE)
+    del state
+    torch.cuda.synchronize()
+    log(f"[train] restore({TRAIN_SAVE}) into the live structure in {time.perf_counter() - t:.2f} s")
+    require(extra["step"] == TRAIN_SAVE, f"the checkpoint's extra says step {extra['step']}")
+    pipe.restore(extra["pipeline"])
+    it = iter(pipe)
+    cli_thread.join()
+    _check_cli(cli)
+
+    again = []
+    for i in range(TRAIN_SAVE, TRAIN_STEPS):
+        resumed, rec = run_step("resumed", i, resumed)
+        again.append(rec)
+    for i, (a, b) in enumerate(zip(straight[TRAIN_SAVE:], again)):
+        require(a[:2] == b[:2], f"step {TRAIN_SAVE + i}: resumed loss/grad_norm {b[:2]} differ "
+                                f"from the straight run's {a[:2]}")
+    t = time.perf_counter()
+    leaves_ = tree_leaves(resumed)
+    for j, (want, got) in enumerate(zip(final, leaves_)):
+        w = torch.from_numpy(want).to(dev)
+        require(torch.equal(got.to(w.dtype), w), f"leaf {j} of the resumed state differs from "
+                                                 f"the straight run's")
+        del w
+    log(f"[train] (c) resumed steps {TRAIN_SAVE}-{TRAIN_STEPS - 1}: losses, grad norms and all "
+        f"{len(leaves_)} leaves (params, master, m, v, step) equal the straight run's bit for "
+        f"bit (compared in {time.perf_counter() - t:.2f} s)")
+    all_steps = straight + again
+    require(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in all_steps),
+            "a loss or grad norm is not finite")
+    require(int(resumed["opt"]["step"]) == TRAIN_STEPS, f"opt.step is "
+                                                        f"{int(resumed['opt']['step'])}")
+    log(f"[train] (d) every loss and grad norm finite, opt.step {TRAIN_STEPS}; losses "
+        f"{[round(r[0], 4) for r in straight]}")
+    warm = [r[2] for r in straight[1:]]
+    log(f"[train] warm step wall median {sorted(warm)[len(warm) // 2] * 1e3:.1f} ms "
+        f"({tokens / sorted(warm)[len(warm) // 2]:.0f} tok/s); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del resumed, final, leaves_
+    for d in (ckpt_dir, cli_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches.update({name: launches[name] + curation[name] for name in curation})
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a checkout of "
@@ -3316,6 +3780,9 @@ def main() -> int:
         launches[name] += strategy_launches[name]
     del db, tpch
     launches["flash_attention"] = phase_serve(SEED_SERVE)["flash_attention"]
+    train_launches = phase_train(SEED_SERVE)
+    for name, _, _ in KERNELS:
+        launches[name] = launches.get(name, 0) + train_launches[name]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -1,5 +1,5 @@
-"""Carry state across from the JAX reference: databases, sketches and LM
-weights.
+"""Carry state across from the JAX reference: databases, sketches, LM
+weights and training state.
 
 The engine's "weights" are its data and its captured sketches; the LM's
 are its parameter tree.  All travel as numpy arrays
@@ -10,7 +10,7 @@ compute the same thing.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +23,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.lm import build_param_spec
 from repro_torch.models.params import ParamTree, leaves
+
+if TYPE_CHECKING:
+    from repro_torch.train.step import TrainSpec
 
 TableSpec = Tuple[str, Mapping[str, np.ndarray], Iterable[str]]
 
@@ -65,6 +68,27 @@ def _leaf_to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _tree_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, dtype: torch.dtype,
+                     dev: torch.device, what: str) -> ParamTree:
+    """A tree shaped as ``cfg``'s parameters, of ``dtype``, from numpy leaves."""
+    want = dict(leaves(build_param_spec(cfg)))
+    have = dict(leaves(tree))
+    if set(want) != set(have):
+        raise ValueError(f"{what} does not match {cfg.name}: missing "
+                         f"{sorted(set(want) - set(have))}, extra {sorted(set(have) - set(want))}")
+    out: Dict[str, Any] = {}
+    for path, spec in want.items():
+        x = _leaf_to_tensor(np.asarray(have[path]), dev)
+        if tuple(x.shape) != spec.shape or x.dtype != dtype:
+            raise ValueError(f"{what} {'/'.join(path)}: {tuple(x.shape)} {x.dtype}, expected "
+                             f"{spec.shape} {dtype}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return ParamTree(out)
+
+
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                          device: DeviceLike = None) -> ParamTree:
     """The port's parameters from the reference's parameter tree (nested
@@ -72,24 +96,41 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     ``jax.tree_util.tree_map(np.asarray, params)``), bit for bit, on
     ``device`` (CUDA unless ``"cpu"``).  Raises when a leaf is missing,
     extra, or of another shape or dtype than ``cfg`` gives it."""
+    return _tree_from_numpy(tree, cfg, torch_dtype(cfg.dtype), resolve_device(device),
+                            "parameter tree")
+
+
+def train_state_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, spec: "TrainSpec",
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state (``train.step.init_train_state``'s structure)
+    from the reference's (``{"params", "opt": {"m", "v", "master", "step"}}``
+    with numpy leaves), bit for bit, on ``device``: the parameters through
+    :func:`lm_params_from_numpy`, the moments in ``spec.opt.opt_dtype``, the
+    master copy in float32 and ``step`` an int32 0-d tensor."""
     dev = resolve_device(device)
-    want = dict(leaves(build_param_spec(cfg)))
-    have = dict(leaves(tree))
-    if set(want) != set(have):
-        raise ValueError(f"parameter tree does not match {cfg.name}: missing "
-                         f"{sorted(set(want) - set(have))}, extra {sorted(set(have) - set(want))}")
-    dtype = torch_dtype(cfg.dtype)
-    out: Dict[str, Any] = {}
-    for path, spec in want.items():
-        x = _leaf_to_tensor(np.asarray(have[path]), dev)
-        if tuple(x.shape) != spec.shape or x.dtype != dtype:
-            raise ValueError(f"{'/'.join(path)}: {tuple(x.shape)} {x.dtype}, expected "
-                             f"{spec.shape} {dtype}")
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = x
-    return ParamTree(out)
+    opt = tree["opt"]
+    keys = {"m", "v", "step"} | ({"master"} if spec.opt.use_master else set())
+    if set(opt) != keys:
+        raise ValueError(f"optimizer state has {sorted(opt)}, expected {sorted(keys)}")
+    step = np.asarray(opt["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt/step: {step.shape} {step.dtype}, expected () int32")
+    moment = torch_dtype(spec.opt.opt_dtype)
+    state = {"m": _tree_from_numpy(opt["m"], cfg, moment, dev, "opt/m"),
+             "v": _tree_from_numpy(opt["v"], cfg, moment, dev, "opt/v"),
+             "step": torch.from_numpy(step.copy()).to(dev)}
+    if spec.opt.use_master:
+        state["master"] = _tree_from_numpy(opt["master"], cfg, torch.float32, dev, "opt/master")
+    return {"params": lm_params_from_numpy(tree["params"], cfg, dev), "opt": state}
+
+
+def train_state_to_numpy(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`train_state_from_numpy`: the reference's train
+    state as nested dicts of numpy arrays (bf16 as ml_dtypes' ``bfloat16``)."""
+    opt = state["opt"]
+    out = {k: lm_params_to_numpy(v) for k, v in opt.items() if k != "step"}
+    out["step"] = to_host(opt["step"])
+    return {"params": lm_params_to_numpy(state["params"]), "opt": out}
 
 
 def lm_params_to_numpy(params: ParamTree) -> Dict[str, Any]:

@@ -28,7 +28,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
                             "fragment_bitmap_batch", "segment_aggregate_batch",
-                            "flash_attention")
+                            "flash_attention", "flash_attention_bwd")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -68,9 +68,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "flash_attention_padded_dim": (_I, [_I, _I]),
         "flash_attention_max_head_dim": (_I, []),
         "flash_attention_f32_launch": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-                                       + [_LL] * 12 + [_I, _I, _F]),
+                                       + [_LL] * 12 + [_I, _I, _F, _P]),
         "flash_attention_bf16_launch": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                             _I, _LL, _LL, _LL, _I, _I, _F]),
+                                             _I, _LL, _LL, _LL, _I, _I, _F, _P]),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                            _I, _I, _I, _I, _I, _I, _P, _I, _I, _F]),
     },
 }
 

@@ -13,7 +13,11 @@
 // element strides for its B, H and S axes (D is contiguous), so callers pass
 // (B, H, S, D) or (B, S, H, D) views without a transposed copy.  Inputs f32
 // or bf16; all sums in f32; the output is divided by max(l, 1e-30) and cast
-// to q's type (bf16 by round-to-nearest-even, as JAX's astype).
+// to q's type (bf16 by round-to-nearest-even, as JAX's astype).  Given a
+// non-null `lse`, each kernel's epilogue also writes every real row's
+// log-sum-exp of its scaled logits, lse = m + log(l) in natural-log units,
+// f32 (B, H, S) contiguous: the backward (csrc/flash_attention_bwd.cu)
+// recomputes P = exp(scale q.k - lse) from it.  A null `lse` stores nothing.
 //
 // Bound on an H100: operations.  Serving prefill (B=16, H=32, D=64,
 // S=T=2048, causal) does 4*B*H*D*(live q-k pairs) = 2.75e11 flops against
@@ -122,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int n_heads, int kv_group,
                  int S, int T_len, int D, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int window, float scale) {
+                 int causal, int window, float scale, float* __restrict__ lse) {
   constexpr int pitch = DP + 1;  // odd row pitch: a column read hits 16 banks
   constexpr int NJ = DP / 16;    // accumulator columns per thread
   extern __shared__ float smem[];
@@ -245,13 +249,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = tx + 16 * jj;
       if (d < D) ob[row * os.s + d] = acc[i][jj] / denom;
     }
+    // m and l are the row's in every lane of the 16-lane group.
+    if (lse != nullptr && tx == 0) lse[(long long)bh * S + row] = m[i] + logf(l[i]);
   }
 }
 
 template <int DP>
 int launch_f32(cudaStream_t stream, const void* q, const void* k, const void* v, void* o,
                int batch, int n_heads, int kv_group, int S, int T_len, int D, Strides qs,
-               Strides ks, Strides vs, Strides os, int causal, int window, float scale) {
+               Strides ks, Strides vs, Strides os, int causal, int window, float scale,
+               float* lse) {
   const size_t smem = sizeof(float) * (2 * kBlockQ * (DP + 1) + kBlockQ * kPitchP);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -259,7 +266,7 @@ int launch_f32(cudaStream_t stream, const void* q, const void* k, const void* v,
   const dim3 grid(batch * n_heads, (S + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, n_heads, kv_group, S, T_len,
-      D, qs, ks, vs, os, causal, window, scale);
+      D, qs, ks, vs, os, causal, window, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -475,7 +482,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, int q_order, int k_order, int v_order,
              __nv_bfloat16* __restrict__ o, Strides os, int n_heads, int kv_group, int n_bh,
-             int n_qt, int S, int T_len, int D, int causal, int window, float scale_log2) {
+             int n_qt, int S, int T_len, int D, int causal, int window, float scale_log2,
+             float* __restrict__ lse) {
   using C = Tile<DP>;
   constexpr int BN = C::kN;
   extern __shared__ uint8_t smem_raw[];
@@ -680,6 +688,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
             store_pair(ob + row_b * os.s, col, D, pairs, div_rn(acc[c][4 * j + 2], den_b, inv_b),
                        div_rn(acc[c][4 * j + 3], den_b, inv_b));
         }
+      if (lse != nullptr && c_thr == 0) {  // the row's log-sum-exp, natural log
+        float* lb = lse + ((long long)x.b * n_heads + x.h) * S;
+        if (row_a < S) lb[row_a] = (row.m_a + log2f(l_a)) * 0.6931471805599453f;
+        if (row_b < S) lb[row_b] = (row.m_b + log2f(l_b)) * 0.6931471805599453f;
+      }
     }
   }
 }
@@ -736,7 +749,7 @@ bool g_smem_set[4][kDevices];
 template <int DP>
 int launch(cudaStream_t stream, int device, const void* q, const void* k, const void* v, void* o,
            const long long* axes, int batch, int n_heads, int kv_group, int S, int T_len, int D,
-           Strides os, int causal, int window, float scale_log2) {
+           Strides os, int causal, int window, float scale_log2, float* lse) {
   using C = Tile<DP>;
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, D, axes, kBlockM);
@@ -762,7 +775,7 @@ int launch(cudaStream_t stream, int device, const void* q, const void* k, const 
   const int blocks = (int)std::min<long long>((long long)n_qt * n_bh, sms);
   flash_fwd_tc<DP><<<blocks, kThreads, C::kSmem, stream>>>(
       tq, tk, tv, (int)axes[6], (int)axes[13], (int)axes[20], (__nv_bfloat16*)o, os, n_heads,
-      kv_group, n_bh, n_qt, S, T_len, D, causal, window, scale_log2);
+      kv_group, n_bh, n_qt, S, T_len, D, causal, window, scale_log2, lse);
   return (int)cudaGetLastError();
 }
 
@@ -782,8 +795,8 @@ extern "C" int flash_attention_max_head_dim() { return 256; }
 
 // float32 q, k, v and o.  Strides are in elements, for the B, H and S axes
 // of each tensor; D must be contiguous.  The caller checks shapes
-// (1 <= D <= 256, S <= T, n_heads % kv_group == 0, grid limits).  Returns
-// cudaGetLastError().
+// (1 <= D <= 256, S <= T, n_heads % kv_group == 0, grid limits).  `lse` is
+// null or f32 (B, H, S) contiguous.  Returns cudaGetLastError().
 extern "C" int flash_attention_f32_launch(int device, void* stream, const void* q, const void* k,
                                           const void* v, void* o, int batch, int n_heads,
                                           int kv_group, int S, int T_len, int D, long long q_sb,
@@ -791,7 +804,7 @@ extern "C" int flash_attention_f32_launch(int device, void* stream, const void* 
                                           long long k_sh, long long k_ss, long long v_sb,
                                           long long v_sh, long long v_ss, long long o_sb,
                                           long long o_sh, long long o_ss, int causal, int window,
-                                          float scale) {
+                                          float scale, float* lse) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
@@ -800,13 +813,13 @@ extern "C" int flash_attention_f32_launch(int device, void* stream, const void* 
   switch (f32_width(D)) {
     case 64:
       return launch_f32<64>(st, q, k, v, o, batch, n_heads, kv_group, S, T_len, D, qs, ks, vs,
-                            os, causal, window, scale);
+                            os, causal, window, scale, lse);
     case 128:
       return launch_f32<128>(st, q, k, v, o, batch, n_heads, kv_group, S, T_len, D, qs, ks, vs,
-                             os, causal, window, scale);
+                             os, causal, window, scale, lse);
     default:
       return launch_f32<256>(st, q, k, v, o, batch, n_heads, kv_group, S, T_len, D, qs, ks, vs,
-                             os, causal, window, scale);
+                             os, causal, window, scale, lse);
   }
 }
 
@@ -815,14 +828,16 @@ extern "C" int flash_attention_f32_launch(int device, void* stream, const void* 
 // and batch axes sorted by stride (kernels/flash_attention.py::tma_axes);
 // every stride of an axis longer than 1 and every base are 16-byte aligned
 // (the wrapper copies a view that is not).  o's strides are in elements.
-// scale_log2 = log2(e) / sqrt(D).  Returns cudaGetLastError(), or a
+// scale_log2 = log2(e) / sqrt(D); `lse` is null or f32 (B, H, S)
+// contiguous.  Returns cudaGetLastError(), or a
 // negative code when the tensor maps cannot be made.
 extern "C" int flash_attention_bf16_launch(int device, void* stream, const void* q,
                                            const void* k, const void* v, void* o,
                                            const long long* axes, int batch, int n_heads,
                                            int kv_group, int S, int T_len, int D,
                                            long long o_sb, long long o_sh, long long o_ss,
-                                           int causal, int window, float scale_log2) {
+                                           int causal, int window, float scale_log2,
+                                           float* lse) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Strides os{o_sb, o_sh, o_ss};
@@ -830,15 +845,15 @@ extern "C" int flash_attention_bf16_launch(int device, void* stream, const void*
   switch (tc::width(D)) {
     case 64:
       return tc::launch<64>(st, device, q, k, v, o, axes, batch, n_heads, kv_group, S,
-                            T_len, D, os, causal, window, scale_log2);
+                            T_len, D, os, causal, window, scale_log2, lse);
     case 128:
       return tc::launch<128>(st, device, q, k, v, o, axes, batch, n_heads, kv_group, S,
-                             T_len, D, os, causal, window, scale_log2);
+                             T_len, D, os, causal, window, scale_log2, lse);
     case 192:
       return tc::launch<192>(st, device, q, k, v, o, axes, batch, n_heads, kv_group, S,
-                             T_len, D, os, causal, window, scale_log2);
+                             T_len, D, os, causal, window, scale_log2, lse);
     default:
       return tc::launch<256>(st, device, q, k, v, o, axes, batch, n_heads, kv_group, S,
-                             T_len, D, os, causal, window, scale_log2);
+                             T_len, D, os, causal, window, scale_log2, lse);
   }
 }

@@ -1,13 +1,19 @@
-"""Flash attention forward: the wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention: the wrappers of ``csrc/flash_attention.cu`` (forward)
+and ``csrc/flash_attention_bwd.cu`` (backward), and the autograd function
+that joins them.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` and
-serves ``models/layers.py::gqa_chunked``'s prefill calls; the source says
-how the kernels are built and what bounds them.  A CPU tensor goes to the
-plain version (``ref.flash_attention_ref``); a CUDA tensor goes to a kernel,
-or the call raises.  The dtype picks the kernel: bfloat16 runs the
-tensor-core kernel (wgmma, TMA loads), float32 the SIMT kernel (the f32
-parity surface).  :func:`launch_plan` decides everything about a launch
-that does not need the card, so the CPU tests can check it.
+The forward replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
+and serves ``models/layers.py::gqa_chunked``'s prefill calls; the backward
+replaces no Pallas kernel (the reference differentiates its XLA chunk loop)
+and serves the training path through :func:`flash_attention_train`.  The
+sources say how the kernels are built and what bounds them.  A CPU tensor
+goes to the plain versions (``ref.flash_attention_ref``,
+``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``); a CUDA
+tensor goes to a kernel, or the call raises.  The dtype picks the forward
+kernel: bfloat16 runs the tensor-core kernel (wgmma, TMA loads), float32 the
+SIMT kernel (the f32 parity surface); the backward is one SIMT kernel for
+both.  :func:`launch_plan` decides everything about a forward launch that
+does not need the card, so the CPU tests can check it.
 """
 from __future__ import annotations
 
@@ -20,10 +26,12 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                                     flash_attention_ref)
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_bwd"
 TC_COUNTER = "flash_attention.tc"  # launches of the tensor-core (bf16) kernel
 COPY_COUNTER = "flash_attention.aligned_copy"  # q, k or v copied for TMA's alignment
 MAX_HEAD_DIM = 256
@@ -140,29 +148,13 @@ def _aligned_copy(x: torch.Tensor, layout: str) -> torch.Tensor:
     return buf[..., :d]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    layout: str = "bhsd") -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v, q rows end-aligned with k.
-
-    ``layout="bhsd"``: q (B, H, S, D), k/v (B, Hkv, T, D); ``"bshd"``: q
-    (B, S, H, D), k/v (B, T, Hkv, D).  ``H % Hkv == 0``; query head ``h``
-    reads kv head ``h // (H // Hkv)``.  Any strides with a contiguous D axis;
-    the output is a new tensor in q's layout and dtype (float32 or bfloat16).
-    A bfloat16 view whose base or strides are not 16-byte aligned (TMA's
-    rule) is first copied into a zero-padded contiguous tensor; each copy
-    adds one to ``LAUNCH_COUNTS["flash_attention.aligned_copy"]``.
-    """
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout: str, window: int):
+    """Validate a call's q, k and v: (B, H, S, D), their B/H/S strides, and
+    k's (B, Hkv, T, D) and strides.  Raises on what the kernels do not take."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if q.device.type == "cpu":
-        if layout == "bshd":
-            out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                      v.transpose(1, 2), causal, window)
-            return out.transpose(1, 2).contiguous()
-        return flash_attention_ref(q, k, v, causal, window)
     dev = q.device
     (b, h, s, d), q_st = _dims(q, layout)
     (bk, hkv, t, dk), k_st = _dims(k, layout)
@@ -185,6 +177,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q has {s} rows, more than k's {t}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
+    return (b, h, s, d), q_st, (hkv, t), k_st, v_st
+
+
+def _bhsd(fn, layout: str, *xs: torch.Tensor):
+    """``fn`` of (B, H, S, D) views of ``xs``, its tensor results in ``layout``."""
+    if layout == "bhsd":
+        return fn(*xs)
+    out = fn(*(x.transpose(1, 2) for x in xs))
+    return tuple(y.transpose(1, 2).contiguous() for y in out)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, layout: str = "bhsd",
+                    return_lse: bool = False):
+    """softmax(q k^T / sqrt(D)) v, q rows end-aligned with k.
+
+    ``layout="bhsd"``: q (B, H, S, D), k/v (B, Hkv, T, D); ``"bshd"``: q
+    (B, S, H, D), k/v (B, T, Hkv, D).  ``H % Hkv == 0``; query head ``h``
+    reads kv head ``h // (H // Hkv)``.  Any strides with a contiguous D axis;
+    the output is a new tensor in q's layout and dtype (float32 or bfloat16).
+    A bfloat16 view whose base or strides are not 16-byte aligned (TMA's
+    rule) is first copied into a zero-padded contiguous tensor; each copy
+    adds one to ``LAUNCH_COUNTS["flash_attention.aligned_copy"]``.  With
+    ``return_lse`` the result is ``(out, lse)``: lse (B, H, S) float32, each
+    query row's log-sum-exp of its scaled, masked logits, which
+    :func:`flash_attention_bwd` takes.
+    """
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.device.type == "cpu":
+        out = _bhsd(lambda *x: (flash_attention_ref(*x, causal, window),), layout, q, k, v)[0]
+        if not return_lse:
+            return out
+        qh, kh = (q, k) if layout == "bhsd" else (q.transpose(1, 2), k.transpose(1, 2))
+        return out, flash_attention_lse_ref(qh, kh, causal, window)
+    (b, h, s, d), q_st, (hkv, t), k_st, v_st = _check(q, k, v, layout, window)
+    dev = q.device
     tensors = {"q": q, "k": k, "v": v}
     if q.dtype == torch.bfloat16:
         views = tuple((size, st, x.data_ptr() % TMA_ALIGN == 0) for size, st, x in (
@@ -193,8 +224,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         plan = launch_plan(q.dtype, (b, h, s, d), hkv, t, {})
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
+    lse_ptr = None if lse is None else lse.data_ptr()
     _, o_st = _dims(out, layout)
     lib = build.library(NAME)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -207,14 +240,99 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention_bf16_launch(
             index, stream, tensors["q"].data_ptr(), tensors["k"].data_ptr(),
             tensors["v"].data_ptr(), out.data_ptr(), axes, b, h, h // hkv, s, t, d, *o_st,
-            int(causal), int(window), scale_log2)
+            int(causal), int(window), scale_log2, lse_ptr)
         build.check(err, NAME)
         LAUNCH_COUNTS[TC_COUNTER] += 1
     else:
         scale = ctypes.c_float(1.0 / math.sqrt(d))
         err = lib.flash_attention_f32_launch(
             index, stream, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            h // hkv, s, t, d, *q_st, *k_st, *v_st, *o_st, int(causal), int(window), scale)
+            h // hkv, s, t, d, *q_st, *k_st, *v_st, *o_st, int(causal), int(window), scale,
+            lse_ptr)
         build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, layout: str = "bhsd"):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = ``o`` for the output
+    gradient ``do``, from the forward's ``lse`` (``return_lse=True``).
+
+    Shapes and layouts as :func:`flash_attention` (``o`` and ``do`` like q;
+    any strides with a contiguous D axis); each gradient is a new
+    contiguous tensor in its input's layout and dtype.  dk and dv of a kv
+    head sum over the query heads that read it, in a fixed order (no
+    atomics: reruns give equal bits).  A CPU tensor takes
+    ``ref.flash_attention_bwd_ref``, which recomputes what lse carries.
+    """
+    (b, h, s, d), q_st, (hkv, t), k_st, v_st = _check(q, k, v, layout, window)
+    for name, x in (("o", o), ("do", do)):
+        if tuple(x.shape) != tuple(q.shape) or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} on {x.device} does not match q "
+                             f"{tuple(q.shape)} on {q.device}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {x.dtype}, q has {q.dtype}")
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(b, h, s)}, got {lse.dtype} {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return _bhsd(lambda *x: flash_attention_bwd_ref(*x, causal, window), layout,
+                     q, k, v, o, do)
+    dev = q.device
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    if o.stride(-1) != 1:
+        o = o.contiguous()
+    lse = lse.contiguous()
+    if -(-s // 32) > 65535 or -(-t // 32) > 65535:
+        raise ValueError(f"grid too large for S={s}, T={t}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=dev)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=dev)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    strides = (*q_st, *k_st, *v_st, *_dims(o, layout)[1], *_dims(do, layout)[1],
+               *_dims(dq, layout)[1], *_dims(dk, layout)[1], *_dims(dv, layout)[1])
+    lib = build.library(BWD_NAME)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = lib.flash_attention_bwd_launch(
+        index, build.stream_handle(dev), _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, h // hkv, s, t, d,
+        (ctypes.c_longlong * 24)(*strides), int(causal), int(window),
+        ctypes.c_float(1.0 / math.sqrt(d)))
+    build.check(err, BWD_NAME)
+    LAUNCH_COUNTS[BWD_NAME] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel with lse; backward kernel from q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                window: int, layout: str):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window, layout=layout,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, layout)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, layout = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.to(q.dtype), lse, causal=causal,
+                                         window=window, layout=layout)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int = 0,
+                          layout: str = "bhsd") -> torch.Tensor:
+    """:func:`flash_attention` with a gradient: the forward kernel (which
+    also stores lse) under autograd, and :func:`flash_attention_bwd` as its
+    backward.  On the CPU both run their plain versions."""
+    return _FlashAttention.apply(q, k, v, causal, window, layout)

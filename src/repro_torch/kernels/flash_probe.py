@@ -1,6 +1,6 @@
 """Where the bf16 flash-attention kernel spends its time, on the card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.flash_probe
+    PYTHONPATH=src python -m repro_torch.kernels.flash_probe [--paired DIR]
 
 Three probes, each at the serving prefill shape (B=16, S=T=2,048, H=32,
 D=64, causal) and internlm2-20b's (B=4, H=48 on 8 kv heads, D=128):
@@ -18,6 +18,12 @@ D=64, causal) and internlm2-20b's (B=4, H=48 on 8 kv heads, D=128):
   division instead of the reciprocal and Newton step, bit for bit, at both
   shapes and gemma3's (D=168, window 1,024).
 
+``--paired DIR`` instead times the forward at both shapes in this tree and
+in the checkout at ``DIR`` (e.g. the parent commit, unpacked with ``git
+archive``), each run a process of its own, in turns (this, DIR, DIR, this,
+twice): CUDA-event ms a call of the serving call (no lse) and, where the
+tree's wrapper has it, of the training call that also stores lse.
+
 A patch that no longer finds its text in the source raises; the CPU test
 ``tests/test_torch_models.py::test_flash_probe_patches_apply`` applies every
 patch without building.  The patched kernels compute wrong results on
@@ -26,9 +32,13 @@ purpose: nothing here is on any path.
 from __future__ import annotations
 
 import ctypes
+import json
+import os
 import subprocess
+import sys
 import time
-from typing import Callable, Dict
+from pathlib import Path
+from typing import Callable, Dict, List
 
 from repro_torch.kernels import build
 
@@ -163,13 +173,13 @@ def instrument(src: str) -> str:
                       "        MARK(5);\n        probe[12] += 1;\n")
     src = _mark_after(src, "      mbar_arrive(bar_ve(last));\n      it += x.n_tiles;\n",
                       "      MARK(8);\n")
-    src = _sub(src, """                       div_rn(acc[c][4 * j + 3], den_b, inv_b));
-        }
+    src = _sub(src, """        if (row_b < S) lb[row_b] = (row.m_b + log2f(l_b)) * 0.6931471805599453f;
+      }
     }
   }
 }
-""", """                       div_rn(acc[c][4 * j + 3], den_b, inv_b));
-        }
+""", """        if (row_b < S) lb[row_b] = (row.m_b + log2f(l_b)) * 0.6931471805599453f;
+      }
       MARK(9);
       probe[13] += 1;
     }
@@ -246,8 +256,54 @@ def _restore(name: str, kept) -> None:
         build._LIBS[name] = kept
 
 
+PAIRED_SCRIPT = """
+import inspect, json, torch
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.flash_probe import SHAPES, _event_ms, _inputs
+dev = torch.device("cuda")
+out = {}
+lse = "return_lse" in inspect.signature(FA.flash_attention).parameters
+for label, (q, k, v) in _inputs(torch, dev).items():
+    out[label] = _event_ms(torch, lambda: FA.flash_attention(q, k, v, layout="bshd"), reps=50)
+    if lse:
+        out[label + " +lse"] = _event_ms(
+            torch, lambda: FA.flash_attention(q, k, v, layout="bshd", return_lse=True), reps=50)
+print(json.dumps(out))
+"""
+
+
+def paired(trees: List[Path], rounds: int = 2) -> Dict[str, Dict[str, list]]:
+    """Each shape's forward ms in every tree (a checkout's root each, its
+    ``src`` first on the path), in turns: ``trees``, then reversed,
+    ``rounds`` times over, each run a process of its own."""
+    order: List[Path] = []
+    for _ in range(rounds):
+        order += list(trees) + list(trees)[::-1]
+    out: Dict[str, Dict[str, list]] = {str(t): {} for t in trees}
+    for tree in order:
+        env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+        proc = subprocess.run([sys.executable, "-c", PAIRED_SCRIPT], cwd=str(tree), env=env,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"paired run in {tree} failed:\n{proc.stderr[-4000:]}")
+        for label, ms in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            out[str(tree)].setdefault(label, []).append(round(ms, 4))
+    return out
+
+
 def main() -> int:
     import torch
+
+    if "--paired" in sys.argv:
+        other = Path(sys.argv[sys.argv.index("--paired") + 1]).resolve()
+        here = Path(__file__).resolve().parents[3]
+        for tree, times in paired([here, other]).items():
+            print(f"[paired] {tree}: {times}", flush=True)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        print(smi.stdout.strip())
+        return 0
 
     from repro_torch.kernels import flash_attention as FA
 

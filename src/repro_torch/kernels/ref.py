@@ -106,6 +106,33 @@ def segment_aggregate_batch_ref(
 NEG_INF = -1e30  # the masked logit of the reference (``kernels/flash_attention.py``)
 
 
+def _attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int):
+    """(masked f32 logits, f32 q, f32 k with kv heads expanded to q's, scale)
+    of the plain attention: float32 math on float32 casts of the inputs."""
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    group = qf.shape[1] // kf.shape[1]
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=1)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(qf.shape[-1]), dtype=torch.float32))
+    scale = scale.to(qf.device)
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    s, t = qf.shape[2], kf.shape[2]
+    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, torch.full_like(logits, NEG_INF))
+    return logits, qf, kf, scale
+
+
+def _expand_kv(x: torch.Tensor, group: int) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    return xf.repeat_interleave(group, dim=1) if group > 1 else xf
+
+
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
@@ -118,21 +145,44 @@ def flash_attention_ref(
     is cast before it is scaled, as the reference's promotion does); the
     output has q's dtype.
     """
-    qf, kf, vf = q.to(torch.float32), k.to(torch.float32), v.to(torch.float32)
-    group = qf.shape[1] // kf.shape[1]
-    if group > 1:
-        kf = kf.repeat_interleave(group, dim=1)
-        vf = vf.repeat_interleave(group, dim=1)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(qf.shape[-1]), dtype=torch.float32))
-    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale.to(qf.device)
-    s, t = qf.shape[2], kf.shape[2]
-    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window and window > 0:
-        mask &= kpos > qpos - window
-    logits = torch.where(mask[None, None], logits, torch.full_like(logits, NEG_INF))
+    logits, _, _, _ = _attention_probs(q, k, causal, window)
+    vf = _expand_kv(v, q.shape[1] // k.shape[1])
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, vf).to(q.dtype)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor, k: torch.Tensor, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """The log-sum-exp of each query row's masked, scaled logits, (B, H, S)
+    float32: what the forward kernel stores for the backward."""
+    logits, _, _, _ = _attention_probs(q, k, causal, window)
+    return torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+    causal: bool = True, window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of ``flash_attention_ref`` given its output ``o`` and the
+    output's gradient ``do``, by the flash-attention backward's formula in
+    float32: P = softmax(scale Q K^T) recomputed, D = rowsum(dO o O),
+    dV = P^T dO, dS = P o (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q.
+    Shapes as ``flash_attention_ref``; dK and dV of a kv head sum over the
+    query heads that read it.  Each gradient has its input's dtype."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    group = h // hkv
+    logits, qf, kf, scale = _attention_probs(q, k, causal, window)
+    vf = _expand_kv(v, group)
+    of, dof = o.to(torch.float32), do.to(torch.float32)
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    if group > 1:
+        dk = dk.reshape(b, hkv, group, t, d).sum(dim=2)
+        dv = dv.reshape(b, hkv, group, t, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

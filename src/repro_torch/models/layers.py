@@ -7,8 +7,12 @@ All forwards are plain functions over a parameter tree (``P`` specs, then a
 through :func:`gqa_chunked`: on a CUDA tensor it launches the hand-written
 flash-attention kernel (``kernels/csrc/flash_attention.cu``, the port of the
 Pallas kernel the reference names as the TPU-native version of the same
-schedule); on a CPU tensor it runs :func:`gqa_chunked_plain`, a line-by-line
-port of the reference's online-softmax, KV-chunked loop.  Decode attention
+schedule), and under autograd the kernel with its hand-written backward
+(``kernels/csrc/flash_attention_bwd.cu``, the gradient the reference gets by
+differentiating its chunk loop); on a CPU tensor it runs
+:func:`gqa_chunked_plain`, a line-by-line port of the reference's
+online-softmax, KV-chunked loop, which autograd differentiates as the
+reference's autodiff does.  Decode attention
 stays plain PyTorch on both devices, as the reference computes it with
 einsums outside any kernel.  The MoE FFN and cross-attention wait for their
 slice.
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import P
 
@@ -120,10 +124,13 @@ def gqa_chunked(
     """Online-softmax GQA; never materializes (S, T).
 
     A CUDA tensor launches the flash-attention kernel on the (B, S, H, D)
-    tensors as they are (no transposed copy, no expanded k/v).  The kernel
-    takes end-aligned positions and no validity mask: that is every prefill
-    call; explicit positions or ``k_valid`` come only from cross-attention,
-    which waits with the encoder-decoder configs, and raise on the card.
+    tensors as they are (no transposed copy, no expanded k/v); when grad is
+    enabled and an input requires it, through :func:`flash_attention_train`,
+    whose backward is the backward kernel, else the forward alone (prefill
+    and serving).  The kernels take end-aligned positions and no validity
+    mask: that is every prefill and training call; explicit positions or
+    ``k_valid`` come only from cross-attention, which waits with the
+    encoder-decoder configs, and raise on the card.
     """
     if q.device.type == "cpu":
         return gqa_chunked_plain(q, k, v, causal=causal, window=window,
@@ -133,6 +140,8 @@ def gqa_chunked(
         raise NotImplementedError(
             "gqa_chunked on the card takes end-aligned positions and no k_valid mask "
             "(cross-attention waits with the encoder-decoder configs, ROADMAP A7)")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attention_train(q, k, v, causal=causal, window=window, layout="bshd")
     return flash_attention(q, k, v, causal=causal, window=window, layout="bshd")
 
 

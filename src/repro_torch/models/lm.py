@@ -1,5 +1,6 @@
 """Model assembly for decoder-only dense LMs (the port of
-``repro/models/lm.py``): the parameter tree, prefill and cached decode.
+``repro/models/lm.py``): the parameter tree, the training loss, prefill and
+cached decode.
 
 The parameter tree keeps the reference's layout: one period of the layer
 pattern (``cfg.pattern``) stacked over ``n_periods`` (leaves carry a leading
@@ -8,21 +9,27 @@ stacked periods with ``lax.scan``; here a Python loop walks them, indexing
 each leaf at its period.
 
 Entry points:
+  loss_fn(params, cfg, batch)                -- training loss (next-token xent)
   prefill(params, cfg, batch)                -- full-seq forward -> last logits
   decode_step(params, cfg, cache, token, pos) -- one token against the cache
 
-This slice ports the mixers ``attn``/``swa`` and the FFN ``mlp``; the MoE
-FFN, the SSM/xLSTM mixers, the vision front end and encoder-decoder configs
-raise ``NotImplementedError`` (ROADMAP A7), as does training (``loss_fn``).
-The reference's ``parallel/context.py`` sharding constraints are identities
-on one card and are not called.
+Training differentiates ``loss_fn`` with autograd; ``remat="full"``
+recomputes each period in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` around its scan body).  This slice ports the
+mixers ``attn``/``swa`` and the FFN ``mlp``; the MoE FFN, the SSM/xLSTM
+mixers, the vision front end and encoder-decoder configs raise
+``NotImplementedError`` (ROADMAP A7).  The reference's
+``parallel/context.py`` sharding constraints are identities on one card and
+are not called.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -96,6 +103,33 @@ def _apply_block_train(cfg: ModelConfig, block: Block, p, h: torch.Tensor) -> to
     return L.mlp(p["ffn"], cfg, h)
 
 
+def _period(cfg: ModelConfig, pp, h: torch.Tensor) -> torch.Tensor:
+    """One period of the layer pattern (the reference's scan body)."""
+    for j, blk in enumerate(cfg.pattern):
+        h = _apply_block_train(cfg, blk, pp[f"b{j}"], h)
+    return h
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` recomputed in the backward under ``remat="full"`` (its
+    activations are not kept); as it is under ``"none"``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise _unsupported(f"{cfg.name}: remat='dots' (a policy that keeps the matmul "
+                           f"outputs)")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _period_slices(tree, n: int):
+    """The ``n`` periods' parameters out of the stacked tree, as views
+    (``torch.unbind``: under autograd their gradients are stacked once)."""
+    if isinstance(tree, torch.Tensor):
+        return torch.unbind(tree, 0)
+    parts = {k: _period_slices(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _period_slice(tree, i: int):
     """Period ``i``'s parameters (or cache) out of the stacked tree: every
     leaf indexed at ``i`` on its leading axis (views, no copies)."""
@@ -104,22 +138,70 @@ def _period_slice(tree, i: int):
     return {k: _period_slice(v, i) for k, v in tree.items()}
 
 
-def _run_stack(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
-    """Run the periods in order, then the remainder blocks."""
-    for i in range(cfg.n_periods):
-        pp = _period_slice(params["periods"], i)
-        for j, blk in enumerate(cfg.pattern):
-            h = _apply_block_train(cfg, blk, pp[f"b{j}"], h)
+def _run_stack(cfg: ModelConfig, params, h: torch.Tensor, period: Callable = _period
+               ) -> torch.Tensor:
+    """Run the periods in order (each through ``period``), then the
+    remainder blocks."""
+    for pp in _period_slices(params["periods"], cfg.n_periods):
+        h = period(cfg, pp, h)
     for j, blk in enumerate(cfg.remainder):
         h = _apply_block_train(cfg, blk, params["rem"][f"r{j}"], h)
     return h
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    emb = params["embed"][tokens.long()]
+    # F.embedding's backward on the card sums each token's rows in a fixed
+    # order (sorted indices), so a training step's gradients repeat bit for bit.
+    emb = F.embedding(tokens.long(), params["embed"])
     # A Python float keeps the residual stream in the model's dtype, as the
     # reference's weak-typed scale does.
     return emb * float(np.sqrt(cfg.d_model))
+
+
+def chunked_xent(cfg: ModelConfig, h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy with the vocab projection applied in sequence chunks of
+    ``cfg.loss_chunk``, so the (B, S, V) logits never exist; V can be 262k.
+    Logits in float32, padded vocab entries at -1e30, ``lse - gold`` masked
+    by ``mask``, the sum over chunks in order, divided by the mask's count."""
+    b, s, d = h.shape
+    chunk = min(cfg.loss_chunk, s)
+    pad = -s % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    pad_v = None
+    if cfg.vocab_p > cfg.vocab_size:
+        pad_v = torch.arange(cfg.vocab_p, device=h.device) >= cfg.vocab_size
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    n = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s + pad, chunk):
+        hh, ll, mm = h[:, c:c + chunk], labels[:, c:c + chunk], mask[:, c:c + chunk]
+        logits = torch.einsum("bsd,dv->bsv", hh, head).to(torch.float32)
+        if pad_v is not None:
+            logits = torch.where(pad_v, torch.full_like(logits, -1e30), logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ll.long()[..., None])[..., 0]
+        loss_sum = loss_sum + ((lse - gold) * mm).sum()
+        n = n + mm.sum()
+    return loss_sum / torch.clamp(n, min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S), float32 0-d.
+    ``params`` is the parameter tree (a ``ParamTree`` or nested dicts of
+    tensors, e.g. leaves that require grad).  Dense blocks add no MoE
+    auxiliary loss, so the reference's ``xent + 0.01 * aux`` is ``xent``."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    h = _embed(cfg, params, tokens)
+    h = _run_stack(cfg, params, h, period=_remat(_period, cfg))
+    h = L.rmsnorm(params["final_norm"], h)
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = F.pad(torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=tokens.device),
+                 (0, 1))
+    return chunked_xent(cfg, h, params["lm_head"], labels, mask)
 
 
 # -- caches -----------------------------------------------------------------

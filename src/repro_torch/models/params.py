@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -52,6 +52,31 @@ def leaves(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str,
         yield from leaves(tree[k], prefix + (k,))
 
 
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested mapping (dicts, ``ParamTree``s) in
+    :func:`leaves`' order, jax's flatten order for the same dicts."""
+    return [x for _, x in leaves(tree)]
+
+
+def tree_unflatten(like: Any, flat: Sequence[Any], dicts: bool = False) -> Any:
+    """``like``'s structure with ``flat`` (in :func:`tree_leaves` order) as
+    its leaves: a ``ParamTree`` where ``like`` has one, else dicts.  With
+    ``dicts`` only dicts, whose leaves are ``flat``'s tensors themselves (a
+    ``ParamTree`` makes each leaf a new ``nn.Parameter``)."""
+    it = iter(flat)
+
+    def build(node):
+        if not isinstance(node, (Mapping, ParamTree)):
+            return next(it)
+        out = {k: build(node[k]) for k in sorted(node.keys())}
+        return ParamTree(out) if isinstance(node, ParamTree) and not dicts else out
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure has")
+    return out
+
+
 def stack(tree: Any, n: int, axis_name: str = "layers") -> Any:
     """Add a leading stacked-layers dim to every leaf (one entry per period)."""
     return tree_map_p(
@@ -65,7 +90,8 @@ def n_params(tree: Any) -> int:
 
 class ParamTree(nn.Module):
     """Nested parameters: a child ``ParamTree`` per dict level, an
-    ``nn.Parameter`` (no gradient: this slice serves) per leaf.  Indexes like
+    ``nn.Parameter`` per leaf, without ``requires_grad`` (the train step
+    differentiates detached copies of the leaves, ``train/step.py``).  Indexes like
     the reference's dict tree (``tree[key]``, ``key in tree``)."""
 
     def __init__(self, tree: Mapping[str, Any]):
@@ -75,6 +101,8 @@ class ParamTree(nn.Module):
             v = tree[k]
             if isinstance(v, torch.Tensor):
                 self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            elif isinstance(v, ParamTree):
+                self.add_module(k, v)
             else:
                 self.add_module(k, ParamTree(v))
 

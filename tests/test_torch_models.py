@@ -599,7 +599,7 @@ UNPORTED = ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "jamba-1.5-large-398b", "xls
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_configs_raise(arch):
     """MoE, SSM/xLSTM, vision and encoder-decoder configs wait for their
-    slice."""
+    slice: parameters, caches, prefill and the training loss raise."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tlm.concrete_params(cfg, device="cpu")
@@ -607,6 +607,8 @@ def test_unported_configs_raise(arch):
         tlm.init_cache(cfg, 1, 4, device="cpu")
     with pytest.raises(NotImplementedError):
         tlm.prefill({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        tlm.loss_fn({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 def test_every_arch_is_either_ported_or_refused():

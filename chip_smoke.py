@@ -62,9 +62,9 @@ a plain group-by; the recovered maintainers must equal fresh captures, the
 zombie coordinator be fenced, the promoted one run on the card and launch
 the fused kernel, each server run on the card and launch sketch_filter,
 and no server or standby outlive the phase (``nvidia-smi``'s compute
-apps); the servers' launches count in the kernels line.  Phase 7 drives the join templates at TPC-H
-scale factor 1 (lineitem 6,001,215 rows, orders 1,500,303, part 1,000,202,
-from ``make_tpch``'s distributions): ``run`` over three generated Q-AJGH and
+apps); the servers' launches count in the kernels line.  Phase 7 drives the join templates over
+``make_tpch`` at the reference benchmarks' full scale (lineitem 1,000,000
+rows, orders 250,000, part 166,666): ``run`` over three generated Q-AJGH and
 a Q-AAJGH, replayed; ``run_batch`` of six Q-AJGH differing in their HAVING
 thresholds, a replay, a 1% append, a one-year delete, a one-year delete of
 orders (a dimension: the sketches stay, as the reference keeps them), a
@@ -705,7 +705,9 @@ def _kernel_flash_attention_bwd(seed: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import measure, ref
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (BWD_COPY_COUNTER, BWD_TC_COUNTER,
+                                                     flash_attention, flash_attention_bwd)
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -730,7 +732,12 @@ def _kernel_flash_attention_bwd(seed: int) -> dict:
         def plain():
             return ref.flash_attention_bwd_ref(qh, kh, vh, oh, doh, causal, window)
 
+        before_tc, before_copies = LAUNCH_COUNTS[BWD_TC_COUNTER], LAUNCH_COUNTS[BWD_COPY_COUNTER]
         got, again = kernel(), kernel()
+        require(LAUNCH_COUNTS[BWD_TC_COUNTER] - before_tc == 2
+                and LAUNCH_COUNTS[BWD_COPY_COUNTER] == before_copies,
+                f"flash_attention_bwd {shape}: bf16 calls did not run the tensor-core kernels "
+                f"alone, without copies")
         want = plain()
         torch.cuda.synchronize()
         err = 0.0
@@ -2273,10 +2280,14 @@ def phase_rpc(db, record: dict, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the join templates at TPC-H scale factor 1
+# Phase 7: the join templates over TPC-H lineitem, orders and part
 # ---------------------------------------------------------------------------
 
-TPCH_SF1_LINEITEM = 6_001_215  # lineitem rows at scale factor 1 (TPC-H specification)
+# Phases 7 and 8b: benchmarks/common.py's "full" scale (ROWS["full"], the
+# lineitem rows its make_tpch gets).  Scale factor 1 (6,001,215 rows) took
+# 197-216 s in phase 7 and 270-289 s in 8b's TPC-H mix (most of the latter
+# in the maintainer's host build) and put the script past its time limit.
+TPCH_LINEITEM = 1_000_000
 JOIN_UNIQUE, JOIN_REPLAYS = 3, 2
 # The burst: six thresholds halfway between the seven largest distinct
 # lineitem counts of a shipdate, highest first, so that each sketch holds
@@ -2846,7 +2857,7 @@ def _strategy_line(label: str, out, eng, wall: float) -> None:
 
 
 def phase_strategies(n_rows: int, seed: int, crimes_db=None, tpch_db=None,
-                     n_lineitem: int = TPCH_SF1_LINEITEM, stars_rows: int = STARS_ROWS,
+                     n_lineitem: int = TPCH_LINEITEM, stars_rows: int = STARS_ROWS,
                      n_queries: int = STRATEGY_QUERIES, device: str = "cuda") -> dict:
     """Every selection strategy of the paper end to end.  8a: a fresh
     ``PBDSEngine`` (100 ranges, theta 0.05) for NO-PS and each of
@@ -3535,7 +3546,8 @@ def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TR
     from repro_torch.data import pipeline
     from repro_torch.device import to_host
     from repro_torch.kernels.build import KERNELS as BUILT
-    from repro_torch.kernels.flash_attention import BWD_NAME, NAME as FWD_NAME
+    from repro_torch.kernels.flash_attention import (BWD_COPY_COUNTER, BWD_NAME, BWD_TC_COUNTER,
+                                                     COPY_COUNTER, NAME as FWD_NAME, TC_COUNTER)
     from repro_torch.launch.train import make_batch_for
     from repro_torch.models import lm
     from repro_torch.models.params import leaves, tree_leaves, tree_unflatten
@@ -3650,7 +3662,8 @@ def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TR
 
     # (c) The straight run, with the step-3 checkpoint saved async.
     ckpt_bytes = sum(x.numel() * max(4, x.element_size()) for x in tree_leaves(state))
-    for name in BUILT:
+    paths = (TC_COUNTER, COPY_COUNTER, BWD_TC_COUNTER, BWD_COPY_COUNTER)
+    for name in (*BUILT, *paths):
         LAUNCH_COUNTS[name] = 0
     straight = []
     ckpt = CheckpointManager(str(ckpt_dir), keep=2)
@@ -3666,6 +3679,16 @@ def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TR
                 f"{ckpt.last_snapshot_s:.2f} s ({free / 1e9:.1f} GB free); the IO runs behind "
                 f"the next steps")
     launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    kinds = {name: LAUNCH_COUNTS[name] for name in paths}
+    log(f"[train] (e) of them: tensor-core forward {kinds[TC_COUNTER]}, tensor-core backward "
+        f"{kinds[BWD_TC_COUNTER]}; aligned copies forward {kinds[COPY_COUNTER]}, backward "
+        f"{kinds[BWD_COPY_COUNTER]}")
+    if cfg.dtype == "bfloat16":
+        require(kinds[TC_COUNTER] == launches[FWD_NAME]
+                and kinds[BWD_TC_COUNTER] == launches[BWD_NAME],
+                f"bf16 training ran other than the tensor-core kernels: {kinds}")
+    require(kinds[COPY_COUNTER] == 0 and kinds[BWD_COPY_COUNTER] == 0,
+            f"the training path's views were copied for TMA: {kinds}")
     per_step = {FWD_NAME: cfg.n_layers * TRAIN_MICRO * 2, BWD_NAME: cfg.n_layers * TRAIN_MICRO}
     log(f"[train] (e) launches over {TRAIN_STEPS} steps {launches}; a step: forward "
         f"{launches[FWD_NAME] / TRAIN_STEPS:g} (remat recompute included), backward "
@@ -3769,10 +3792,10 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + rpc_launches.get(name, 0)
     del workload, full_values, shard_record
     t1 = time.perf_counter()
-    tpch = make_tpch(TPCH_SF1_LINEITEM, seed=SEED, device="cuda")  # phases 7 and 8
+    tpch = make_tpch(TPCH_LINEITEM, seed=SEED, device="cuda")  # phases 7 and 8
     torch.cuda.synchronize()
     log(f"[join] tpch made in {time.perf_counter() - t1:.2f} s")
-    join_launches = phase_join(TPCH_SF1_LINEITEM, SEED, db=tpch)
+    join_launches = phase_join(TPCH_LINEITEM, SEED, db=tpch)
     for name in JOIN_KERNELS:
         launches[name] += join_launches[name]
     strategy_launches = phase_strategies(ROWS, SEED, crimes_db=db, tpch_db=tpch)

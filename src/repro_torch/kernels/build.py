@@ -32,9 +32,11 @@ KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filt
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# --split-compile=0 compiles a source's kernels in parallel: the attention
+# backward's eight tensor-core kernels are the build's longest job.
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 # C signatures of every exported function: (restype, argtypes).  Pointers
@@ -73,8 +75,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                              _I, _LL, _LL, _LL, _I, _I, _F, _P]),
     },
     "flash_attention_bwd": {
+        "flash_attention_bwd_plan": (None, [_I, _P]),
         "flash_attention_bwd_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                            _I, _I, _I, _I, _I, _I, _P, _I, _I, _F]),
+                                            _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _F]),
     },
 }
 

@@ -82,18 +82,16 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 #include "hopper.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-struct Strides {
-  long long b, h, s;
-};
+using flash::Strides;
 
 // ===========================================================================
 // float32: the SIMT kernel
@@ -279,6 +277,7 @@ int f32_width(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
 namespace tc {
 
 using namespace hopper;
+using namespace flash;
 
 constexpr int kConsumers = 2;                     // warpgroups, 64 q rows each
 constexpr int kBlockM = 64 * kConsumers;          // q rows a block
@@ -302,47 +301,11 @@ struct Tile {
   static constexpr int kSmem = kBarOffset + 8 * (2 + 4 * kStages) + 1024;  // + alignment slack
 };
 
-// A tensor map's coordinates are (column, then row, head and batch in the
-// order the wrapper sorted them by stride); `order` holds that order, two
-// bits an axis (0 row, 1 head, 2 batch).
-__device__ __forceinline__ int pick(int axis, int row, int head, int batch) {
-  return axis == 0 ? row : axis == 1 ? head : batch;
-}
-
-__device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map, int order,
-                                         uint32_t bar, int col, int row, int head, int batch) {
-  tma_load_4d(dst, map, bar, col, pick(order & 3, row, head, batch),
-              pick((order >> 2) & 3, row, head, batch), pick((order >> 4) & 3, row, head, batch));
-}
-
-// 2^x by the special-function unit, flushing results below 2^-126 to zero:
-// such a probability adds nothing to l >= 1 or to a bf16 P.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
 // a / den correctly rounded, from inv = RN(1 / den): q = RN(a inv), then
 // one Newton step on the exact residual a - den q (Markstein), for den >= 1.
 __device__ __forceinline__ float div_rn(float a, float den, float inv) {
   const float q = a * inv;
   return fmaf(fmaf(-den, q, a), inv, q);
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, int col, int D, bool pairs, float x0,
-                                           float x1) {
-  if (pairs && col + 1 < D) {
-    *reinterpret_cast<__nv_bfloat162*>(p + col) = __floats2bfloat162_rn(x0, x1);
-  } else {
-    if (col < D) p[col] = __float2bfloat16_rn(x0);
-    if (col + 1 < D) p[col + 1] = __float2bfloat16_rn(x1);
-  }
 }
 
 // S = Q K^T for one warpgroup over DP / 16 k-steps: 32 bytes along a
@@ -695,48 +658,6 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has loaded (looked
-// up at run time, so the library links against nothing but the runtime).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    if (lib != nullptr) fn = (EncodeTiled)dlsym(lib, "cuTensorMapEncodeTiled");
-  }
-  return fn;
-}
-
-constexpr int kErrNoEncoder = -1;     // libcuda has no cuTensorMapEncodeTiled
-constexpr int kErrTensorMap = -1000;  // minus the CUresult of a refused tensor map
-
-// A 4-D map over (D, then the three axes as the wrapper ordered them), boxes
-// of 64 columns by `box_rows` rows, 128-byte swizzle, zeros out of bounds.
-// `axes` is {size1, size2, size3, stride1, stride2, stride3, order}, strides
-// in elements.
-int make_map(CUtensorMap* map, const void* ptr, int D, const long long* axes, int box_rows) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return kErrNoEncoder;
-  const int order = (int)axes[6];
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)axes[0], (cuuint64_t)axes[1],
-                        (cuuint64_t)axes[2]};
-  cuuint64_t strides[3] = {(cuuint64_t)axes[3] * 2, (cuuint64_t)axes[4] * 2,
-                           (cuuint64_t)axes[5] * 2};
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  for (int i = 0; i < 3; ++i)
-    if (((order >> (2 * i)) & 3) == 0) box[1 + i] = (cuuint32_t)box_rows;
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult res = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                     strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kErrTensorMap - (int)res;
 }
 
 // Per device (up to kDevices), set once: the SM count, and whether each

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers (also across
 // a thread-block cluster), cluster ids and barriers, 1-D bulk copies (also
-// multicast to a cluster), TMA tile loads, wgmma descriptors and the three
-// wgmma shapes the flash-attention kernel issues.  Every function is a thin
+// multicast to a cluster), TMA tile loads, wgmma descriptors and the four
+// wgmma shapes the flash-attention kernels issue.  Every function is a thin
 // wrapper over one or two PTX instructions (PTX ISA 8.0, "Asynchronous
 // warpgroup level matrix multiply", "Data movement and conversion" and
 // "Parallel synchronization" sections); nothing here is a finished kernel.
@@ -69,6 +69,16 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank)
       "}\n" ::"r"(bar),
       "r"(rank)
       : "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32: wait for the others, or arrive without waiting.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- clusters ---------------------------------------------------------------
@@ -245,6 +255,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

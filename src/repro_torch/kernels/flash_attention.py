@@ -9,11 +9,12 @@ and serves the training path through :func:`flash_attention_train`.  The
 sources say how the kernels are built and what bounds them.  A CPU tensor
 goes to the plain versions (``ref.flash_attention_ref``,
 ``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``); a CUDA
-tensor goes to a kernel, or the call raises.  The dtype picks the forward
-kernel: bfloat16 runs the tensor-core kernel (wgmma, TMA loads), float32 the
-SIMT kernel (the f32 parity surface); the backward is one SIMT kernel for
-both.  :func:`launch_plan` decides everything about a forward launch that
-does not need the card, so the CPU tests can check it.
+tensor goes to a kernel, or the call raises.  The dtype picks the kernels,
+forward and backward alike: bfloat16 runs the tensor-core kernels (wgmma,
+TMA loads), float32 the SIMT kernels (the f32 parity surface); neither is a
+fallback for the other.  :func:`launch_plan` decides everything about a
+launch that does not need the card (the backward's tiles: :func:`bwd_plan`),
+so the CPU tests can check it.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 TC_COUNTER = "flash_attention.tc"  # launches of the tensor-core (bf16) kernel
 COPY_COUNTER = "flash_attention.aligned_copy"  # q, k or v copied for TMA's alignment
+BWD_TC_COUNTER = "flash_attention_bwd.tc"  # launches of the tensor-core (bf16) backward
+BWD_COPY_COUNTER = "flash_attention_bwd.aligned_copy"  # q, k, v or dO copied for TMA
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAYOUTS = ("bhsd", "bshd")
@@ -90,6 +93,29 @@ def launch_plan(dtype: torch.dtype, q_dims: Sequence[int], kv_heads: int, t: int
     return LaunchPlan(tc, width, bq, block_k(dtype, width), q_tiles, q_tiles * b * h, copies)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The bf16 backward's tiles for one head dim (``csrc/flash_attention_bwd.cu``'s
+    ``tc::Plan``, which ``flash_attention_bwd_plan`` reports)."""
+    width: int  # padded head dim
+    kv_rows: int  # bwd_dkdv_tc: keys a block (two warpgroups of 64)
+    q_rows: int  # bwd_dkdv_tc: q rows a stage of its ring
+    passes: int  # bwd_dkdv_tc's q loops: 1 (dV and dK together) or 2 (dV, then dK)
+    dq_rows: int  # bwd_dq_tc: q rows a block
+    dq_k_rows: int  # bwd_dq_tc: k rows a stage
+    row_pad: int  # lse and D rows of the workspace padded to a multiple
+    stages: int  # each kernel's ring of q (dkdv) or k (dq) tiles
+
+
+def bwd_plan(d: int) -> BwdPlan:
+    """The bf16 backward's plan for head dim ``d``: each kernel's tiles fit
+    227 KB of shared memory and its accumulators a consumer's registers."""
+    width = next(w for w in WIDTHS[torch.bfloat16] if d <= w)
+    return BwdPlan(width=width, kv_rows=128, q_rows=32 if width == 256 else 64,
+                   passes=1 if width <= 128 else 2, dq_rows=128,
+                   dq_k_rows={64: 128, 128: 64, 192: 64, 256: 32}[width], row_pad=128, stages=2)
+
+
 def tma_axes(sizes: Sequence[int], strides: Sequence[int]) -> Tuple[int, ...]:
     """The 7 values ``flash_attention_bf16_launch`` takes for one tensor:
     the sizes and element strides of its axes in the order of the tensor
@@ -115,17 +141,18 @@ def _copy_strides(sizes: Sequence[int], d: int) -> Tuple[int, int, int]:
 
 @functools.lru_cache(maxsize=256)
 def _bf16_launch(dims: Tuple[int, ...], kv_heads: int, t: int, views: Tuple) -> Tuple:
-    """(plan, the 21 tensor-map values) of a bfloat16 call, by shapes,
-    strides and alignment (``views``: (sizes, strides, aligned) of q, k, v).
-    Cached: a serving loop repeats a handful of these, and planning costs
-    more host time than the launch."""
+    """(plan, the tensor-map values) of a bfloat16 call, by shapes, strides
+    and alignment (``views``: (sizes, strides, aligned) of q, k, v, and for
+    the backward dO): 7 values a tensor.  Cached: a serving loop repeats a
+    handful of these, and planning costs more host time than the launch."""
+    names = ("q", "k", "v", "do")[:len(views)]
     plan = launch_plan(torch.bfloat16, dims, kv_heads, t,
                        {n: (0 if aligned else 1, sizes, strides)
-                        for n, (sizes, strides, aligned) in zip("qkv", views)})
+                        for n, (sizes, strides, aligned) in zip(names, views)})
     axes = []
-    for n, (sizes, strides, _) in zip("qkv", views):
+    for n, (sizes, strides, _) in zip(names, views):
         axes += tma_axes(sizes, _copy_strides(sizes, dims[3]) if n in plan.copies else strides)
-    return plan, (ctypes.c_longlong * 21)(*axes)
+    return plan, (ctypes.c_longlong * len(axes))(*axes)
 
 
 def _dims(x: torch.Tensor, layout: str):
@@ -264,8 +291,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     any strides with a contiguous D axis); each gradient is a new
     contiguous tensor in its input's layout and dtype.  dk and dv of a kv
     head sum over the query heads that read it, in a fixed order (no
-    atomics: reruns give equal bits).  A CPU tensor takes
-    ``ref.flash_attention_bwd_ref``, which recomputes what lse carries.
+    atomics: reruns give equal bits).  bfloat16 runs the tensor-core
+    kernels: a view of q, k, v or ``do`` whose base or strides are not
+    16-byte aligned is first copied (``LAUNCH_COUNTS["flash_attention_bwd.
+    aligned_copy"]``).  A CPU tensor takes ``ref.flash_attention_bwd_ref``,
+    which recomputes what lse carries.
     """
     (b, h, s, d), q_st, (hkv, t), k_st, v_st = _check(q, k, v, layout, window)
     for name, x in (("o", o), ("do", do)):
@@ -285,25 +315,44 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if o.stride(-1) != 1:
         o = o.contiguous()
     lse = lse.contiguous()
-    if -(-s // 32) > 65535 or -(-t // 32) > 65535:
+    tc = q.dtype == torch.bfloat16
+    if not tc and (-(-s // 32) > 65535 or -(-t // 32) > 65535):
         raise ValueError(f"grid too large for S={s}, T={t}")
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dk = torch.empty(k.shape, dtype=q.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=q.dtype, device=dev)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    strides = (*q_st, *k_st, *v_st, *_dims(o, layout)[1], *_dims(do, layout)[1],
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    dims = {"q": (b, h, s), "k": (b, hkv, t), "v": (b, hkv, t), "do": (b, h, s)}
+    st = {"q": q_st, "k": k_st, "v": v_st, "do": _dims(do, layout)[1]}
+    axes = None
+    if tc:
+        views = tuple((dims[n], st[n], x.data_ptr() % TMA_ALIGN == 0)
+                      for n, x in tensors.items())
+        plan, axes = _bf16_launch((b, h, s, d), hkv, t, views)
+        for n in plan.copies:
+            tensors[n] = _aligned_copy(tensors[n], layout)
+            st[n] = _copy_strides(dims[n], d)
+            LAUNCH_COUNTS[BWD_COPY_COUNTER] += 1
+        pad = bwd_plan(d).row_pad
+        s_pad = -(-s // pad) * pad
+        ws = torch.empty((2, b * h, s_pad), dtype=torch.float32, device=dev)
+    else:
+        ws = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    strides = (*st["q"], *st["k"], *st["v"], *_dims(o, layout)[1], *st["do"],
                *_dims(dq, layout)[1], *_dims(dk, layout)[1], *_dims(dv, layout)[1])
     lib = build.library(BWD_NAME)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     err = lib.flash_attention_bwd_launch(
-        index, build.stream_handle(dev), _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, h // hkv, s, t, d,
-        (ctypes.c_longlong * 24)(*strides), int(causal), int(window),
+        index, build.stream_handle(dev), _DTYPE_CODES[q.dtype], tensors["q"].data_ptr(),
+        tensors["k"].data_ptr(), tensors["v"].data_ptr(), o.data_ptr(), tensors["do"].data_ptr(),
+        lse.data_ptr(), ws.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        h // hkv, s, t, d, (ctypes.c_longlong * 24)(*strides), axes, int(causal), int(window),
         ctypes.c_float(1.0 / math.sqrt(d)))
     build.check(err, BWD_NAME)
+    if tc:
+        LAUNCH_COUNTS[BWD_TC_COUNTER] += 1
     LAUNCH_COUNTS[BWD_NAME] += 1
     return dq, dk, dv
 

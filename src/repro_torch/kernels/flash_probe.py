@@ -1,6 +1,6 @@
-"""Where the bf16 flash-attention kernel spends its time, on the card.
+"""Where the bf16 flash-attention kernels spend their time, on the card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.flash_probe [--paired DIR]
+    PYTHONPATH=src python -m repro_torch.kernels.flash_probe [--bwd] [--paired DIR]
 
 Three probes, each at the serving prefill shape (B=16, S=T=2,048, H=32,
 D=64, causal) and internlm2-20b's (B=4, H=48 on 8 kv heads, D=128):
@@ -18,11 +18,20 @@ D=64, causal) and internlm2-20b's (B=4, H=48 on 8 kv heads, D=128):
   division instead of the reciprocal and Newton step, bit for bit, at both
   shapes and gemma3's (D=168, window 1,024).
 
-``--paired DIR`` instead times the forward at both shapes in this tree and
-in the checkout at ``DIR`` (e.g. the parent commit, unpacked with ``git
-archive``), each run a process of its own, in turns (this, DIR, DIR, this,
-twice): CUDA-event ms a call of the serving call (no lse) and, where the
-tree's wrapper has it, of the training call that also stores lse.
+``--bwd`` instead probes the backward (``csrc/flash_attention_bwd.cu``) at
+``chip_smoke.py``'s three ``FLASH_BWD_SHAPES`` (:data:`BWD_SHAPES`): the
+source patched to drop the exps (P = the scaled scores), one product (dK +=
+dS^T Q, or dQ += dS K), every product, or the tile loads (the producers
+complete each barrier with no bytes), alone and together; each variant's
+device ms by kernel (``torch.profiler``: prep, dkdv, dq), two rounds.
+
+``--paired DIR`` instead times this tree against the checkout at ``DIR``
+(e.g. the parent commit, unpacked with ``git archive``), each run a process
+of its own, in turns (this, DIR, DIR, this, twice): the forward's CUDA-event
+ms a call at both shapes (the serving call, and where the tree's wrapper has
+it the training call that also stores lse), and the bf16 backward's device
+ms by kernel (delta or prep, dkdv, dq; ``torch.profiler``) at
+:data:`BWD_SHAPES`.
 
 A patch that no longer finds its text in the source raises; the CPU test
 ``tests/test_torch_models.py::test_flash_probe_patches_apply`` applies every
@@ -43,9 +52,14 @@ from typing import Callable, Dict, List
 from repro_torch.kernels import build
 
 SOURCE = build.CSRC / "flash_attention.cu"
+BWD_SOURCE = build.CSRC / "flash_attention_bwd.cu"
 PROBE_DIR = build.BUILD_DIR / "probe"
 SHAPES = {"serving": (16, 2048, 32, 32, 64), "internlm2": (4, 2048, 48, 8, 128)}
 GEMMA3 = (1, 4096, 32, 16, 168)  # window 1,024
+# chip_smoke.FLASH_BWD_SHAPES: (B, S, T, Hq, Hkv, D, causal, window), bf16.
+BWD_SHAPES = {"training": (4, 2048, 2048, 32, 32, 64, True, 0),
+              "internlm2": (4, 2048, 2048, 48, 8, 128, True, 0),
+              "gemma3": (1, 4096, 4096, 32, 16, 168, True, 1024)}
 
 
 def _sub(src: str, old: str, new: str) -> str:
@@ -192,6 +206,65 @@ def instrument(src: str) -> str:
                   "  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n")
 
 
+def bwd_no_exps(src: str) -> str:
+    """P = the scaled, shifted scores: no exp2 on the special-function unit."""
+    return _sub(src, "      float p = exp2_ftz(fmaf(x[4 * j + e], scale_log2, -l[e]));",
+                "      float p = fmaf(x[4 * j + e], scale_log2, -l[e]);")
+
+
+def bwd_no_dk_product(src: str) -> str:
+    """bwd_dkdv_tc issues no dK += dS^T Q."""
+    return _sub(src, "      if constexpr (kDK) issue_rs<DP, BM>(dk, dsf, q_st);\n", "")
+
+
+def bwd_no_dq_product(src: str) -> str:
+    """bwd_dq_tc issues no dQ += dS K."""
+    return _sub(src, "      issue_rs<DP, BN>(acc, dsf, k_st);\n", "")
+
+
+def bwd_no_products(src: str) -> str:
+    """Neither kernel issues any product."""
+    src = _empty_body(src, "void issue_ss(", "(void)d; (void)a; (void)b;")
+    return _empty_body(src, "void issue_rs(", "(void)acc; (void)a; (void)b;")
+
+
+_BWD_Q_LOADS = """            mbar_expect_tx(bar_full(st), 2 * L::kQ + 2 * L::kRowBytes);
+            for (int c = 0; c < kChunks; ++c)
+              load_box(q_st + c * BM * 128, &tm_q, q_order, bar_full(st), 64 * c, q0, h, b);
+            for (int c = 0; c < kChunks; ++c)
+              load_box(do_st + c * BM * 128, &tm_do, do_order, bar_full(st), 64 * c, q0, h, b);
+            bulk_load(rows_st, lse2 + rows + q0, L::kRowBytes, bar_full(st));
+            bulk_load(rows_st + L::kRowBytes, delta + rows + q0, L::kRowBytes, bar_full(st));
+"""
+_BWD_KV_LOADS = """        mbar_expect_tx(bar_full(st), 2 * L::kKV);
+        for (int c = 0; c < kChunks; ++c)
+          load_box(k_st + c * BN * 128, &tm_k, k_order, bar_full(st), 64 * c, k0, hk, b);
+        for (int c = 0; c < kChunks; ++c)
+          load_box(v_st + c * BN * 128, &tm_v, v_order, bar_full(st), 64 * c, k0, hk, b);
+"""
+
+
+def bwd_no_loads(src: str) -> str:
+    """The producers complete each stage's barrier with no bytes: the q tiles
+    of bwd_dkdv_tc and the k tiles of bwd_dq_tc are never loaded (each
+    block's own K/V, or Q/dO, tile still is)."""
+    src = _sub(src, _BWD_Q_LOADS, "            mbar_expect_tx(bar_full(st), 0);\n"
+               "            (void)q_st; (void)do_st; (void)rows_st; (void)rows;\n")
+    return _sub(src, _BWD_KV_LOADS, "        mbar_expect_tx(bar_full(st), 0);\n"
+                "        (void)k_st; (void)v_st;\n")
+
+
+BWD_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "kernel": lambda src: src,
+    "no exps": bwd_no_exps,
+    "no dK product": bwd_no_dk_product,
+    "no dQ product": bwd_no_dq_product,
+    "no products": bwd_no_products,
+    "no exps, no products": _chain(bwd_no_exps, bwd_no_products),
+    "no exps, no products, no loads": _chain(bwd_no_exps, bwd_no_products, bwd_no_loads),
+}
+
+
 def all_patches() -> Dict[str, str]:
     """Every patched source by name (no build): what the CPU test applies."""
     src = SOURCE.read_text()
@@ -201,11 +274,18 @@ def all_patches() -> Dict[str, str]:
     return out
 
 
-def _build(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+def all_bwd_patches() -> Dict[str, str]:
+    """Every patched backward source by name (no build)."""
+    src = BWD_SOURCE.read_text()
+    return {name: patch(src) for name, patch in BWD_VARIANTS.items()}
+
+
+def _build(sources: Dict[str, str], kernel: str = "flash_attention",
+           tag: str = "v") -> Dict[str, ctypes.CDLL]:
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for i, (name, text) in enumerate(sources.items()):
-        cu, so = PROBE_DIR / f"v{i}.cu", PROBE_DIR / f"v{i}.so"
+        cu, so = PROBE_DIR / f"{tag}{i}.cu", PROBE_DIR / f"{tag}{i}.so"
         cu.write_text(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)]
         jobs.append((name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -216,7 +296,7 @@ def _build(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise build.KernelBuildError(f"{name}:\n{out}")
         lib = ctypes.CDLL(str(so))
-        for fn, (restype, argtypes) in build.SIGNATURES["flash_attention"].items():
+        for fn, (restype, argtypes) in build.SIGNATURES[kernel].items():
             f = getattr(lib, fn)
             f.restype, f.argtypes = restype, argtypes
         libs[name] = lib
@@ -256,8 +336,37 @@ def _restore(name: str, kept) -> None:
         build._LIBS[name] = kept
 
 
+def _bwd_inputs(torch, dev, shape):
+    """q, k, v, o, dO, lse of one BWD_SHAPES case in the training path's
+    (B, S, H, D) layout, o and lse from the forward kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, s, t, hq, hkv, d, causal, window = shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, do = (torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16() for _ in "qd")
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device=dev).bfloat16() for _ in "kv")
+    o, lse = flash_attention(q, k, v, causal=causal, window=window, layout="bshd",
+                             return_lse=True)
+    return q, k, v, o, do, lse
+
+
+def _by_kernel(per: Dict[str, float]) -> Dict[str, float]:
+    """Device ms by the backward's kernel: delta (or prep), dkdv, dq."""
+    out: Dict[str, float] = {}
+    for name, ms in per.items():
+        part = next((p for p in ("dkdv", "dq", "delta", "prep") if f"bwd_{p}" in name), name)
+        part = "delta" if part == "prep" else part
+        out[part] = round(out.get(part, 0.0) + ms, 4)
+    out["total"] = round(sum(per.values()), 4)
+    return out
+
+
+# The script each tree runs in ``paired``: it reads only what every commit
+# since the backward came has (``flash_attention_bwd``'s signature, the
+# forward's inputs and event timing), and profiles the backward itself.
 PAIRED_SCRIPT = """
-import inspect, json, torch
+import inspect, json, sys, torch
+from torch.profiler import ProfilerActivity, profile
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_probe import SHAPES, _event_ms, _inputs
 dev = torch.device("cuda")
@@ -268,6 +377,35 @@ for label, (q, k, v) in _inputs(torch, dev).items():
     if lse:
         out[label + " +lse"] = _event_ms(
             torch, lambda: FA.flash_attention(q, k, v, layout="bshd", return_lse=True), reps=50)
+for label, shape in json.loads(sys.argv[1]).items():
+    if not hasattr(FA, "flash_attention_bwd"):
+        break
+    b, s, t, hq, hkv, d, causal, window = shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, do = (torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16() for _ in "qd")
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device=dev).bfloat16() for _ in "kv")
+    o, l = FA.flash_attention(q, k, v, causal=causal, window=window, layout="bshd",
+                              return_lse=True)
+    call = lambda: FA.flash_attention_bwd(q, k, v, o, do, l, causal=causal, window=window,
+                                          layout="bshd")
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((p for p in ("dkdv", "dq", "delta", "prep") if "bwd_" + p in e.name),
+                        "other")
+            name = "delta" if name == "prep" else name
+            per[name] = per.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e4
+    per["total"] = sum(per.values())
+    out["bwd " + label] = {n: round(ms, 4) for n, ms in per.items()}
+    del q, k, v, o, do, l
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 """
 
@@ -282,13 +420,43 @@ def paired(trees: List[Path], rounds: int = 2) -> Dict[str, Dict[str, list]]:
     out: Dict[str, Dict[str, list]] = {str(t): {} for t in trees}
     for tree in order:
         env = dict(os.environ, PYTHONPATH=str(tree / "src"))
-        proc = subprocess.run([sys.executable, "-c", PAIRED_SCRIPT], cwd=str(tree), env=env,
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, "-c", PAIRED_SCRIPT, json.dumps(BWD_SHAPES)],
+                              cwd=str(tree), env=env, capture_output=True, text=True,
+                              timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"paired run in {tree} failed:\n{proc.stderr[-4000:]}")
         for label, ms in json.loads(proc.stdout.strip().splitlines()[-1]).items():
-            out[str(tree)].setdefault(label, []).append(round(ms, 4))
+            out[str(tree)].setdefault(label, []).append(
+                ms if isinstance(ms, dict) else round(ms, 4))
     return out
+
+
+def _bwd_variants(torch, FA, dev) -> None:
+    """Each backward variant's device ms by kernel at every BWD_SHAPES case,
+    two rounds, then the card's name and power limit."""
+    from repro_torch.kernels import measure
+
+    libs = _build(all_bwd_patches(), FA.BWD_NAME, tag="b")
+    kept = build._LIBS.get(FA.BWD_NAME)
+    try:
+        for label, shape in BWD_SHAPES.items():
+            q, k, v, o, do, lse = _bwd_inputs(torch, dev, shape)
+            causal, window = shape[6], shape[7]
+            for rnd in range(2):
+                for name in BWD_VARIANTS:
+                    build._LIBS[FA.BWD_NAME] = libs[name]
+                    per = measure.device_ms(torch, lambda: FA.flash_attention_bwd(
+                        q, k, v, o, do, lse, causal=causal, window=window, layout="bshd"),
+                        calls=10)
+                    print(f"[bwd variants] {label} {shape}, round {rnd}, {name}: device ms "
+                          f"{_by_kernel(per)}", flush=True)
+            del q, k, v, o, do, lse
+            torch.cuda.empty_cache()
+    finally:
+        _restore(FA.BWD_NAME, kept)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
 
 
 def main() -> int:
@@ -308,6 +476,9 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
 
     dev = torch.device("cuda")
+    if "--bwd" in sys.argv:
+        _bwd_variants(torch, FA, dev)
+        return 0
     sources = all_patches()
     libs = _build(sources)
     data = _inputs(torch, dev)

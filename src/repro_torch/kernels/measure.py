@@ -7,7 +7,7 @@ import re
 from typing import Callable, Dict
 
 _NAMES = re.compile(r"(filter_rows_kernel|filter_kernel|bitmap_batch_kernel|bitmap_kernel|"
-                    r"segagg_\w+|flash_fwd\w*|Memcpy \w+|Memset)")
+                    r"segagg_\w+|flash_fwd\w*|bwd_\w+|Memcpy \w+|Memset)")
 
 
 def device_ms(torch, fn: Callable, calls: int = 20, before: Callable = None) -> Dict[str, float]:

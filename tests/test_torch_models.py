@@ -17,6 +17,7 @@ those past the tolerance in gemma3's deeper blocks.
 import dataclasses
 import math
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -411,9 +412,13 @@ def test_flash_attention_tc_rounding_at_the_kernel_cases(case):
 
 
 def test_flash_probe_patches_apply():
-    """``kernels/flash_probe.py`` patches the kernel source by text: every
-    patch still finds its anchor, each variant differs from the kernel, and
-    the instrumented copy marks every section once."""
+    """``kernels/flash_probe.py`` patches the kernel sources by text: every
+    patch of the forward and of the backward still finds its anchor, each
+    variant differs from the kernel and from the others, the instrumented
+    copy marks every section once, and the probe's backward shapes are
+    ``chip_smoke.py``'s."""
+    import importlib.util
+
     from repro_torch.kernels import flash_probe
 
     sources = flash_probe.all_patches()
@@ -423,6 +428,20 @@ def test_flash_probe_patches_apply():
     marks = [int(m) for m in re.findall(r"MARK\((\d+)\);", sources["sections"])]
     assert sorted(marks) == sorted([*range(len(flash_probe.LOOP_SECTIONS)),
                                     *flash_probe.ITEM_SECTIONS, 14])
+    bwd = flash_probe.all_bwd_patches()
+    kernel = bwd.pop("kernel")
+    assert kernel == flash_probe.BWD_SOURCE.read_text()
+    assert all(text != kernel for text in bwd.values())
+    assert len(set(bwd.values())) == len(bwd)
+    assert "exp2_ftz(fmaf(" not in bwd["no exps"]
+    assert "wgmma_ss<N>(" not in bwd["no products"] and "wgmma_rs_n64(" not in bwd["no products"]
+    assert "load_box(q_st" not in bwd["no exps, no products, no loads"]
+    assert "load_box(k_st" not in bwd["no exps, no products, no loads"]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert tuple(flash_probe.BWD_SHAPES.values()) == chip_smoke.FLASH_BWD_SHAPES
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ rounding; the norm-wise bound does (measured 8.2e-5 at worst).  AdamW
 an element by at most that at ``OptConfig(total_steps=10)``).
 """
 import dataclasses
+import math
 import sys
 
 import jax
@@ -46,7 +47,8 @@ from repro_torch.configs import get_config
 from repro_torch.convert import (lm_params_from_numpy, lm_params_to_numpy, train_state_from_numpy,
                                  train_state_to_numpy)
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (BWD_NAME, flash_attention, flash_attention_bwd,
+from repro_torch.kernels.flash_attention import (BWD_NAME, BWD_TC_COUNTER, bwd_plan,
+                                                 flash_attention, flash_attention_bwd,
                                                  flash_attention_train)
 from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as TL
@@ -115,6 +117,22 @@ BWD_GRID = ([(2, 3, 3, s, t, 64, causal, window)
                (1, 8, 2, 13, 13, 16, False, 4)])
 
 
+# (B, S, T, Hq, Hkv, D, causal, window): tests/test_torch_models.py's kernel
+# cases (MHA and GQA, widths 64, 128, 168 and 256, ragged tiles, S < T).
+BWD_KERNEL_CASES = [
+    (2, 64, 64, 3, 3, 64, True, 0),
+    (2, 96, 96, 3, 3, 64, True, 32),
+    (2, 1, 96, 3, 3, 64, True, 0),
+    (2, 96, 96, 3, 3, 64, False, 0),
+    (1, 130, 200, 8, 2, 128, True, 0),
+    (1, 77, 77, 4, 1, 168, True, 24),
+    (3, 40, 65, 6, 3, 12, False, 17),
+    (1, 300, 300, 4, 4, 256, True, 70),
+    (1, 260, 260, 48, 8, 128, True, 0),
+]
+KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # chip_smoke.FLASH_TOL
+
+
 @pytest.mark.parametrize("case", BWD_GRID)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_ref_matches_jax_vjp(case, dtype):
@@ -181,6 +199,125 @@ def test_flash_attention_train_on_the_cpu_is_the_plain_gradient():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     with pytest.raises(ValueError):
         flash_attention_bwd(*(t_.detach() for t_ in x), o, do, lse[:, :1], layout="bshd")
+
+
+def _tc_bwd_emulation(q, k, v, o, do, lse, causal, window):
+    """The bf16 tensor-core backward's arithmetic in plain torch, tile by tile
+    (``csrc/flash_attention_bwd.cu``, ``bwd_prep_tc``, ``bwd_dkdv_tc``,
+    ``bwd_dq_tc``): bf16 operands, f32 products and accumulators; D =
+    rowsum(dO o O) in f32; P^T = exp2(S^T scale_log2 - lse log2(e)) from the
+    f32 scores, in the log2 domain, zero where masked; dS^T = P^T o (dP^T -
+    D) from the f32 P^T; P^T and dS^T rounded to bf16 before dV += P^T dO and
+    dK += dS^T Q, which sum over the group's query heads in turn and the q
+    tiles ascending (``bwd_plan``'s q rows a stage); dQ += dS K over the k
+    tiles ascending, dS rounded to bf16; the scale applied to the f32 dK and
+    dQ, then bf16.  (B, H, S, D) q, o, do; (B, Hkv, T, D) k, v; lse (B, H,
+    S).  Sums inside a tile run in another order than the tensor cores', and
+    exp2 keeps results below 2^-126 that the kernel flushes."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    group = h // hkv
+    plan = bwd_plan(d)
+    scale = np.float32(1.0 / math.sqrt(d))  # the wrapper's c_float
+    scale_log2 = torch.tensor(np.float32(float(scale) * math.log2(math.e)))
+    lse2 = lse.float() * torch.tensor(np.float32(math.log2(math.e)))
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)
+    pos = torch.arange(s) + (t - s)
+    keys = torch.arange(t)
+    live = torch.ones((s, t), dtype=torch.bool)
+    if causal:
+        live &= keys[None, :] <= pos[:, None]
+    if window > 0:
+        live &= keys[None, :] > pos[:, None] - window
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+
+    dk = torch.zeros((b, hkv, t, d))
+    dv = torch.zeros((b, hkv, t, d))
+    for g in range(group):
+        heads = torch.arange(hkv) * group + g
+        for q0 in range(0, s, plan.q_rows):
+            rows = slice(q0, q0 + plan.q_rows)
+            qt, dot = qf[:, heads, rows], dof[:, heads, rows]
+            st = torch.einsum("bhtd,bhsd->bhts", kf, qt) * scale_log2
+            pt = torch.exp2(st - lse2[:, heads, None, rows])
+            pt = torch.where(live[rows].T, pt, torch.zeros(()))
+            dpt = torch.einsum("bhtd,bhsd->bhts", vf, dot)
+            dst = pt * (dpt - delta[:, heads, None, rows])
+            dv += torch.einsum("bhts,bhsd->bhtd", bf(pt), dot)
+            dk += torch.einsum("bhts,bhsd->bhtd", bf(dst), qt)
+
+    kx, vx = kf.repeat_interleave(group, 1), vf.repeat_interleave(group, 1)
+    dq = torch.zeros((b, h, s, d))
+    for k0 in range(0, t, plan.dq_k_rows):
+        cols = slice(k0, k0 + plan.dq_k_rows)
+        sc = torch.einsum("bhsd,bhtd->bhst", qf, kx[:, :, cols]) * scale_log2
+        p = torch.where(live[:, cols], torch.exp2(sc - lse2[..., None]), torch.zeros(()))
+        dp = torch.einsum("bhsd,bhtd->bhst", dof, vx[:, :, cols])
+        dq += torch.einsum("bhst,bhtd->bhsd", bf(p * (dp - delta[..., None])), kx[:, :, cols])
+    out = (dq * scale, dk * scale, dv)
+    return tuple(x.to(torch.bfloat16) for x in out)
+
+
+@pytest.mark.parametrize("case", BWD_GRID)
+def test_flash_attention_bwd_tc_rounding_within_bf16_tolerance(case):
+    """At the plain version's grid, the rounding the tensor-core backward adds
+    (P^T and dS^T in bf16 before their products, exp2 of the f32 scores in
+    the log2 domain) stays within BWD_REF_TOL (bf16) of ``jax.vjp`` of the
+    reference's oracle."""
+    b, h, hkv, s, t, d, causal, window = case
+    rng = np.random.default_rng(sum(case) + 17)
+    (jq, q), (jk, k), (jv, v), (jdo, do) = (
+        _pair(rng.standard_normal(shape), "bfloat16")
+        for shape in ((b, h, s, d), (b, hkv, t, d), (b, hkv, t, d), (b, h, s, d)))
+    o, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    got = _tc_bwd_emulation(q, k, v, o, do, lse, causal, window)
+    want = _jax_vjp(jq, jk, jv, jdo, causal, window)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        _close_to_scale(g, w, BWD_REF_TOL["bfloat16"], name)
+
+
+@pytest.mark.parametrize("case", BWD_KERNEL_CASES)
+def test_flash_attention_bwd_tc_rounding_at_the_kernel_cases(case):
+    """The same emulation at the ``cuda`` tests' shapes (widths 12-256, GQA,
+    S < T, windows, ragged tiles, two passes above width 128) against the
+    port's plain version, within the kernel tests' KERNEL_TOL (bf16)."""
+    b, s, t, hq, hkv, d, causal, window = case
+    gen = torch.Generator().manual_seed(s * 17 + t)
+    q, do = (torch.randn((b, hq, s, d), generator=gen).bfloat16() for _ in "qd")
+    k, v = (torch.randn((b, hkv, t, d), generator=gen).bfloat16() for _ in "kv")
+    o, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    got = _tc_bwd_emulation(q, k, v, o, do, lse, causal, window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal, window)
+    tol = KERNEL_TOL[torch.bfloat16]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+SMEM_BYTES = 232_448  # an H100 block's dynamic shared memory
+
+
+@pytest.mark.parametrize("d,want", [
+    (1, (64, 64, 1, 128)), (12, (64, 64, 1, 128)), (64, (64, 64, 1, 128)),
+    (65, (128, 64, 1, 64)), (128, (128, 64, 1, 64)), (168, (192, 64, 2, 64)),
+    (192, (192, 64, 2, 64)), (200, (256, 32, 2, 32)), (256, (256, 32, 2, 32)),
+])
+def test_flash_attention_bwd_plan(d, want):
+    """The bf16 backward's plan (width, q rows a stage, passes, dQ's k rows a
+    stage): both kernels' tiles (K and V of 128 keys with a ring of Q and
+    dO; Q and dO of 128 rows with a ring of K and V) fit a block's shared
+    memory; two passes, and so 8 products, only above width 128."""
+    plan = bwd_plan(d)
+    assert (plan.width, plan.q_rows, plan.passes, plan.dq_k_rows) == want
+    assert plan.kv_rows == plan.dq_rows == plan.row_pad == 128 and plan.stages == 2
+    ring, item = plan.stages, 2
+    dkdv = (item * plan.width * (2 * plan.kv_rows + ring * 2 * plan.q_rows)
+            + ring * 2 * 4 * plan.q_rows)
+    dq = (item * plan.width * (2 * plan.dq_rows + ring * 2 * plan.dq_k_rows)
+          + 2 * 4 * plan.dq_rows)
+    barriers = 8 * (1 + 2 * ring)
+    assert max(dkdv, dq) + barriers + 1024 <= SMEM_BYTES
 
 
 @pytest.mark.parametrize("arch,window", [("stablelm-1.6b", 0), ("internlm2-20b", 5)])
@@ -462,22 +599,6 @@ def cuda():
     return torch.device("cuda")
 
 
-# (B, S, T, Hq, Hkv, D, causal, window): tests/test_torch_models.py's kernel
-# cases (MHA and GQA, widths 64, 128, 168 and 256, ragged tiles, S < T).
-BWD_KERNEL_CASES = [
-    (2, 64, 64, 3, 3, 64, True, 0),
-    (2, 96, 96, 3, 3, 64, True, 32),
-    (2, 1, 96, 3, 3, 64, True, 0),
-    (2, 96, 96, 3, 3, 64, False, 0),
-    (1, 130, 200, 8, 2, 128, True, 0),
-    (1, 77, 77, 4, 1, 168, True, 24),
-    (3, 40, 65, 6, 3, 12, False, 17),
-    (1, 300, 300, 4, 4, 256, True, 70),
-    (1, 260, 260, 48, 8, 128, True, 0),
-]
-KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # chip_smoke.FLASH_TOL
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", BWD_KERNEL_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -493,10 +614,11 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
     do = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(dtype)
     o, lse = flash_attention(q, k, v, causal=causal, window=window, layout="bshd",
                              return_lse=True)
-    before = LAUNCH_COUNTS[BWD_NAME]
+    before, before_tc = LAUNCH_COUNTS[BWD_NAME], LAUNCH_COUNTS[BWD_TC_COUNTER]
     got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window, layout="bshd")
     again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window, layout="bshd")
     assert LAUNCH_COUNTS[BWD_NAME] == before + 2
+    assert LAUNCH_COUNTS[BWD_TC_COUNTER] == before_tc + (2 if dtype == torch.bfloat16 else 0)
     qh, kh, vh, oh, doh = (x.transpose(1, 2) for x in (q, k, v, o, do))
     want = ref.flash_attention_bwd_ref(qh, kh, vh, oh, doh, causal, window)
     lse_want = ref.flash_attention_lse_ref(qh, kh, causal, window)
@@ -507,6 +629,22 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
         assert g.dtype == dtype and g.shape == x.shape
         assert torch.equal(g, g2)
         torch.testing.assert_close(g.float(), w.transpose(1, 2).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_plan_matches_the_source(cuda):
+    """``bwd_plan`` mirrors the source's ``tc::Plan`` at every head dim."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = build.library(BWD_NAME)
+    out = (ctypes.c_int * 8)()
+    for d in range(1, 257):
+        lib.flash_attention_bwd_plan(d, out)
+        p = bwd_plan(d)
+        assert list(out) == [p.width, p.kv_rows, p.q_rows, p.passes, p.dq_rows, p.dq_k_rows,
+                             p.row_pad, p.stages], d
 
 
 @pytest.mark.cuda

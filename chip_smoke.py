@@ -87,7 +87,7 @@ through ``select_composite_gb``, ``capture_composite`` and
 execution, every random pick against its candidate pool and a second
 engine's, the batch against the sequential runs, each composite sketch
 against the single sketches of its parts and the plain bitmap, and that
-kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6, 11.  Phase 6 serves ``stablelm-1.6b`` at full
+kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6, 11, 12.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -107,8 +107,20 @@ f32 copies); steps 0-5 with an async checkpoint after step 2 (26.3 GB),
 then a restore of it and steps 3-5 again, whose losses, grad norms and
 final parameters and moments must equal the straight run's bit for bit;
 the launch counts of both kernels per step; and the training CLI fresh and
-resumed as processes on the card.  Any failed check raises, so the exit
-code is not 0.
+resumed as processes on the card.  Phase 12 serves ``qwen2-moe-a2.7b`` at
+full width and depth (24 layers, d_model 2048, 16 heads, 64 experts of
+which 60 are real, top-4, a shared expert of 5,632, bf16, 15.15 B random
+parameters) through ``launch.serve.serve`` at phase 6's defaults; then, on
+every layer's own input at that prompt, attention through the kernel
+against the plain chunked loop and ``moe`` against ``moe_plain`` (equal
+picks, kept slots and aux; the output within ``MOE_TOL_BF16``); a
+2,048-token prompt's prefill (no decode through it), ``moe`` against
+``moe_plain`` on its first and last layers and a rerun with equal bits;
+each layer's share of picks dropped by capacity, the warm prefill and
+decode times beside decode's bound; and ``qwen3-moe-30b-a3b`` at full
+width and 2 of its 48 periods (128 experts, top-8, 32 heads on 4) served
+and checked layer by layer.  Any failed check raises, so the exit code is
+not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as ``nvidia-smi`` reports them, and last
@@ -3227,7 +3239,7 @@ def _layerwise_check(cfg, params, tokens) -> None:
         emb = lm._embed(cfg, params, tokens)
         noisy = emb * (1 + 1e-6 * torch.randn(emb.shape, generator=gen, device=emb.device))
         hn = L.rmsnorm(params["final_norm"], _plain_attention(lambda: lm._run_stack(cfg, params,
-                                                                                   noisy)))
+                                                                                   noisy)[0]))
         perturbed = torch.einsum("bd,dv->bv", hn[:, -1], params["lm_head"]).float()
     log(f"[serve] f32 layer by layer ({cfg.n_layers} layers, B={b}, S={s}): max |diff| / scale "
         f"kernel vs plain attention {worst['kernel vs plain']:.2e}, decode vs prefill "
@@ -3237,11 +3249,12 @@ def _layerwise_check(cfg, params, tokens) -> None:
         f"embeddings perturbed by 1e-6 relative {float((perturbed - plain).abs().max()):.3e}")
 
 
-def _layerwise_check_bf16(cfg, params, tokens) -> None:
+def _layerwise_check_bf16(cfg, params, tokens, ffn=None, label: str = "[serve]") -> float:
     """Bf16 prefill of ``tokens`` through every layer of ``cfg`` (the
     serving weights): at each layer, on that layer's input, attention through
     the tensor-core kernel against the plain chunked loop, within
-    SERVE_TOL_BF16 of the layer's scale."""
+    SERVE_TOL_BF16 of the layer's scale; ``ffn(i, p, x)`` gives layer i's
+    FFN output (``mlp`` when None).  Returns the worst error over scale."""
     import torch
 
     from repro_torch.models import layers as L
@@ -3262,12 +3275,13 @@ def _layerwise_check_bf16(cfg, params, tokens) -> None:
                 err = float((got.float() - want.float()).abs().max())
                 worst = max(worst, err / scale)
                 require(bool(torch.isfinite(got).all()) and err <= SERVE_TOL_BF16 * scale,
-                        f"layer {i}.{j} bf16 kernel vs plain: max |diff| {err:.3e} at scale "
-                        f"{scale:.1f}")
-                h = L.mlp(p["ffn"], cfg, got)
-    log(f"[serve] bf16 layer by layer ({cfg.n_layers} layers, B={tokens.shape[0]}, "
+                        f"{label} layer {i}.{j} bf16 kernel vs plain: max |diff| {err:.3e} at "
+                        f"scale {scale:.1f}")
+                h = L.mlp(p["ffn"], cfg, got) if ffn is None else ffn(i, p["ffn"], got)
+    log(f"{label} bf16 layer by layer ({cfg.n_layers} layers, B={tokens.shape[0]}, "
         f"S={tokens.shape[1]}): max |diff| / scale kernel vs plain attention {worst:.2e} "
         f"(tolerance {SERVE_TOL_BF16})")
+    return worst
 
 
 def phase_serve(seed: int = 0) -> dict:
@@ -3758,6 +3772,253 @@ def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TR
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: MoE serving, qwen2-moe-a2.7b at full width and depth
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_CUT_ARCH, MOE_CUT_PERIODS = "qwen3-moe-30b-a3b", 2  # 2 of its 48 periods
+# Bf16, relative to the layer output's scale: moe against moe_plain on the
+# same input.  The picks, kept slots and aux are equal, and both copy each
+# token into its slots exactly, so the outputs part only where (a) the
+# expert products, cuBLAS calls over moe's expert-major slots and over
+# moe_plain's one-hot layout, round an element apart, and (b) the combine's
+# float32 sums of at most k terms, in other orders, round to bf16 apart:
+# one bf16 ulp (2^-7 of a value at most) each, carried unchanged through the
+# shared expert's and the residual's adds (rounding is monotone).  So two
+# ulps, 2^-6 = 1.56e-2, under SERVE_TOL_BF16.
+MOE_TOL_BF16 = 2.0 ** -6
+MOE_CHECK_LAYERS = (0, -1)  # the long prompt's moe vs moe_plain layers
+
+
+def _moe_route_stats(cfg, r) -> tuple:
+    """(share of the real positions' picks dropped by capacity, mean distinct
+    experts the B rows pick at one position: a decode step's expert reads)."""
+    b, k = r.idx.shape[0], cfg.experts_per_token
+    keep = r.keep.reshape(b, -1, k)[:, :r.s]
+    mask = r.mask.reshape(b, -1, cfg.experts_p)[:, :r.s]
+    distinct = float(mask.amax(dim=0).sum(dim=-1).float().mean())
+    return 1.0 - float(keep.float().mean()), distinct
+
+
+def _moe_against_plain(cfg, p, x, label: str) -> float:
+    """moe against moe_plain on one layer's FFN input ``x``: equal picks,
+    kept slots and aux, the output within MOE_TOL_BF16 of its scale; returns
+    the error over the scale."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    h = L.rmsnorm(p["ln"], x)
+    _, r = L.moe_route(p, cfg, h)
+    _, rp = L.moe_route_plain(p, cfg, h)
+    require(torch.equal(r.idx, rp.idx), f"{label}: moe picks other experts than moe_plain")
+    require(torch.equal(r.keep, rp.keep)
+            and torch.equal(torch.where(r.keep, r.pos, -1), torch.where(rp.keep, rp.pos, -1)),
+            f"{label}: moe keeps other slots than moe_plain")
+    y, aux = L.moe(p, cfg, x)
+    yp, auxp = L.moe_plain(p, cfg, x)
+    require(torch.equal(aux, auxp), f"{label}: aux {float(aux)} against moe_plain's {float(auxp)}")
+    scale = float(yp.float().abs().max())
+    err = float((y.float() - yp.float()).abs().max())
+    require(bool(torch.isfinite(y).all()) and err <= MOE_TOL_BF16 * scale,
+            f"{label}: moe vs moe_plain max |diff| {err:.3e} at scale {scale:.1f}")
+    return err / scale
+
+
+def _moe_layerwise(cfg, params, tokens, label: str, plain_layers=None) -> dict:
+    """:func:`_layerwise_check_bf16` over an MoE config, whose FFN at each
+    layer, on that layer's own input, is held against moe_plain (at
+    ``plain_layers``, every layer if None); returns each layer's dropped
+    share and distinct experts a position (:func:`_moe_route_stats`)."""
+    from repro_torch.models import layers as L
+
+    n = cfg.n_periods
+    check = set(range(n)) if plain_layers is None else {i % n for i in plain_layers}
+    out = {"worst": 0.0, "dropped": [], "distinct": []}
+
+    def ffn(i, p, x):
+        _, r = L.moe_route(p, cfg, L.rmsnorm(p["ln"], x))
+        dropped, distinct = _moe_route_stats(cfg, r)
+        out["dropped"].append(dropped)
+        out["distinct"].append(distinct)
+        out["cap"] = r.cap
+        if i in check:
+            out["worst"] = max(out["worst"], _moe_against_plain(cfg, p, x, f"{label} layer {i}"))
+        return L.moe(p, cfg, x)[0]
+
+    _layerwise_check_bf16(cfg, params, tokens, ffn=ffn, label=f"[moe] {label}")
+    log(f"[moe] {label} moe vs moe_plain (capacity {out['cap']}) max |diff| / scale "
+        f"{out['worst']:.2e} over layers {sorted(check)} (tolerance {MOE_TOL_BF16}); picks, "
+        f"kept slots and aux equal")
+    log(f"[moe] {label} share of routed picks dropped by capacity by layer: "
+        f"{' '.join(f'{x:.4f}' for x in out['dropped'])} (mean {sum(out['dropped']) / n:.4f})")
+    return out
+
+
+def _decode_bound_ms(cfg, params, distinct, batch: int, mean_t: float) -> tuple:
+    """The least ms of one decode step at 3.35 TB/s: every non-expert weight
+    but the embedding table read once (the B embedding rows instead), the
+    keys and values of ``mean_t`` cached positions a layer, and the experts'
+    three matrices either for every expert (padded ones too, as a step's
+    products that read all of them) or for the distinct experts the prompt's
+    positions pick on average a layer (``distinct``)."""
+    import math
+
+    from repro_torch.models.params import leaves
+
+    expert = 3 * cfg.d_model * cfg.moe_d_ff * 2  # bytes of one expert's matrices
+    dense = batch * cfg.d_model * 2
+    for path, x in leaves(params):
+        if path[0] != "embed" and path[-2:] not in (("ffn", "wg"), ("ffn", "wi"), ("ffn", "wo")):
+            dense += math.prod(x.shape) * x.element_size()
+    cache = cfg.n_layers * batch * mean_t * 2 * cfg.kv_heads_p * cfg.hd * 2
+    every = dense + cache + cfg.n_layers * cfg.experts_p * expert
+    picked = dense + cache + sum(distinct) * expert
+    return every / HBM_BYTES_PER_S * 1e3, picked / HBM_BYTES_PER_S * 1e3, every, picked
+
+
+def phase_moe(seed: int = 0, cfg=None, cut_cfg=None, device: str = "cuda") -> dict:
+    """Serve qwen2-moe-a2.7b at full width and depth on the card, then
+    qwen3-moe-30b-a3b at full width and 2 of its 48 periods; returns the
+    main path's launches (qwen2-moe's default serve).  ``cfg``, ``cut_cfg``
+    and ``device`` serve a rehearsal on the CPU at the smoke configs
+    (``cuda`` calls stubbed, launch checks lenient)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.kernels.flash_attention import COPY_COUNTER, TC_COUNTER
+    from repro_torch.launch.serve import admit_requests, serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.params import n_params
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 is on: the router's float32 logits could flip picks between runs")
+    cfg = cfg or get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = lm.concrete_params(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    n = n_params(params)
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"(kv {cfg.n_kv_heads}) of {cfg.hd}, {cfg.experts_p} experts ({cfg.n_experts} real) of "
+        f"{cfg.moe_d_ff}, top-{cfg.experts_per_token}, shared {cfg.shared_d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {n} parameters ({n * 2 / 1e9:.2f} GB) made on the card "
+        f"in {time.perf_counter() - t0:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # 1. The main path at serve.py's defaults.
+    counters = (*BUILT, TC_COUNTER, COPY_COUNTER)
+    for name in counters:
+        LAUNCH_COUNTS[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serve(cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=seed,
+                n_docs=SERVE_DOCS, device=device, params=params)
+    wall = time.perf_counter() - t0
+    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    tc_launches, copies = LAUNCH_COUNTS[TC_COUNTER], LAUNCH_COUNTS[COPY_COUNTER]
+    log(f"[moe] admission sketch on {res.run_info.attr}: skipping {res.skipped_fraction:.1%} of "
+        f"request pool ({len(res.selected_docs)} of {SERVE_DOCS} admitted)")
+    _serve_line("moe bf16 defaults", res, SERVE_PROMPT)
+    log(f"[moe] serve() wall {wall:.2f} s; launches {launches}; prefill: {tc_launches} "
+        f"tensor-core flash_attention launches, {copies} aligned copies")
+    on_card = device == "cuda"
+    require(not on_card or launches["flash_attention"] == cfg.n_layers == tc_launches,
+            f"prefill launched flash_attention {launches['flash_attention']} times "
+            f"({tc_launches} tensor-core), expected {cfg.n_layers}")
+    require(copies == 0, f"prefill copied {copies} q/k/v views for TMA's alignment")
+    require(not on_card or launches["segment_aggregate"] > 0,
+            "admission did not aggregate on the card")
+    require(res.prefill_logits.shape == (SERVE_REQUESTS, cfg.vocab_p)
+            and bool(torch.isfinite(res.prefill_logits).all())
+            and bool(torch.isfinite(res.last_logits).all()), "moe logits not finite")
+    require(res.generated.shape == (SERVE_REQUESTS, SERVE_GEN)
+            and int(res.generated.min()) >= 0 and int(res.generated.max()) < cfg.vocab_size,
+            "generated tokens out of range")
+
+    # 2. Layer by layer on the serving weights at the 64-token prompt.
+    short = _moe_layerwise(cfg, params, res.prompt, f"S={SERVE_PROMPT}")
+
+    # 3. The long prompt: prefill only (no teacher-forced decode through it).
+    long_prompt, _ = admit_requests(cfg, requests=SERVE_REQUESTS, prompt_len=LONG_PROMPT,
+                                    seed=seed, n_docs=SERVE_DOCS, device=device)
+    with torch.inference_mode():
+        before = {name: LAUNCH_COUNTS[name] for name in counters}
+        logits = lm.prefill(params, cfg, {"tokens": long_prompt})
+        torch.cuda.synchronize()
+        long_launches = LAUNCH_COUNTS["flash_attention"] - before["flash_attention"]
+        long_tc = LAUNCH_COUNTS[TC_COUNTER] - before[TC_COUNTER]
+        long_copies = LAUNCH_COUNTS[COPY_COUNTER] - before[COPY_COUNTER]
+        require(bool(torch.isfinite(logits).all()), "long-prompt logits are not finite")
+        require(not on_card or long_launches == long_tc == cfg.n_layers,
+                f"a {LONG_PROMPT}-token prefill launched flash_attention {long_launches} times "
+                f"({long_tc} tensor-core)")
+        require(long_copies == 0, f"the long prefill copied {long_copies} views")
+        for tokens in (res.prompt, long_prompt):
+            ms = time_ms(lambda: lm.prefill(params, cfg, {"tokens": tokens}), reps=3, warmup=1)
+            log(f"[moe] warm bf16 prefill B={tokens.shape[0]} S={tokens.shape[1]}: {ms:.2f} ms "
+                f"({tokens.numel() / ms * 1e3:.0f} tok/s)")
+    _moe_layerwise(cfg, params, long_prompt, f"S={LONG_PROMPT}", plain_layers=MOE_CHECK_LAYERS)
+    del logits
+
+    # 4. Equal bits on a rerun: layer 0's moe on its input at the long prompt.
+    with torch.inference_mode():
+        p = lm._period_slice(params["periods"], 0)["b0"]
+        x = L.attention_train(p["mixer"], cfg, lm._embed(cfg, params, long_prompt))
+        y1, a1 = L.moe(p["ffn"], cfg, x)
+        y2, a2 = L.moe(p["ffn"], cfg, x)
+        require(torch.equal(y1, y2) and torch.equal(a1, a2), "moe reruns differ")
+        log(f"[moe] rerun of layer 0's moe on {tuple(x.shape)}: equal bits")
+        del x, y1, y2
+
+        # 5. Decode: the serve's steps, a warm step, and its bound.
+        cache = lm.init_cache(cfg, SERVE_REQUESTS, SERVE_PROMPT + SERVE_GEN, device=device)
+        tok = res.prompt[:, 0]
+        ms = time_ms(lambda: lm.decode_step(params, cfg, cache, tok, SERVE_PROMPT), reps=5,
+                     warmup=2)
+    mean_t = (SERVE_PROMPT + SERVE_GEN) / 2
+    every, picked, every_b, picked_b = _decode_bound_ms(cfg, params, short["distinct"],
+                                                         SERVE_REQUESTS, mean_t)
+    log(f"[moe] decode B={SERVE_REQUESTS}: {res.per_token_s * 1e3:.2f} ms a step over serve's "
+        f"{res.n_decode_steps} steps, a warm step {ms:.2f} ms (CUDA events); bound "
+        f"{every:.2f} ms reading every expert ({every_b / 1e9:.2f} GB), {picked:.2f} ms reading "
+        f"the {sum(short['distinct']) / cfg.n_layers:.1f} experts a layer the prompt's "
+        f"positions pick on average ({picked_b / 1e9:.2f} GB), at 3.35 TB/s")
+    del params, res, cache, long_prompt
+    torch.cuda.empty_cache()
+
+    # 6. qwen3-moe-30b-a3b at full width, 2 of its 48 periods.
+    cut = cut_cfg or dataclasses.replace(get_config(MOE_CUT_ARCH), n_layers=MOE_CUT_PERIODS,
+                                         n_periods=MOE_CUT_PERIODS)
+    params = lm.concrete_params(cut, seed=seed, device=device)
+    before = {name: LAUNCH_COUNTS[name] for name in counters}
+    res = serve(cut, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=seed,
+                n_docs=SERVE_DOCS, device=device, params=params)
+    cut_fa = LAUNCH_COUNTS["flash_attention"] - before["flash_attention"]
+    cut_tc = LAUNCH_COUNTS[TC_COUNTER] - before[TC_COUNTER]
+    _serve_line(f"{cut.name} ({cut.n_periods} of 48 periods)", res, SERVE_PROMPT)
+    require(bool(torch.isfinite(res.prefill_logits).all())
+            and bool(torch.isfinite(res.last_logits).all()), f"{cut.name} logits not finite")
+    require(not on_card or cut_fa == cut_tc == cut.n_layers,
+            f"{cut.name} prefill launched flash_attention {cut_fa} times ({cut_tc} tensor-core)")
+    log(f"[moe] {cut.name}: {n_params(params)} parameters, {cut.experts_p} experts top-"
+        f"{cut.experts_per_token}, {cut.n_heads} heads on {cut.n_kv_heads} of {cut.hd}; "
+        f"flash_attention {cut_fa} launches, {cut_tc} tensor-core")
+    _moe_layerwise(cut, params, res.prompt, f"{cut.name} S={SERVE_PROMPT}")
+    del params, res
+    torch.cuda.empty_cache()
+    log(f"[moe] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; phase done "
+        f"in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a checkout of "
@@ -3804,8 +4065,9 @@ def main() -> int:
     del db, tpch
     launches["flash_attention"] = phase_serve(SEED_SERVE)["flash_attention"]
     train_launches = phase_train(SEED_SERVE)
+    moe_launches = phase_moe(SEED_SERVE)
     for name, _, _ in KERNELS:
-        launches[name] = launches.get(name, 0) + train_launches[name]
+        launches[name] = launches.get(name, 0) + train_launches[name] + moe_launches[name]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -5,6 +5,8 @@ A request pool carries metadata (the corpus schema); a PBDS sketch filters
 which requests a serving policy ("serve only domains whose mean quality
 passes tau") touches, then the model prefills the batch and decodes.  On
 the card every prefill attention layer runs the flash-attention kernel.
+Dense and MoE configs serve (``--arch qwen2-moe-a2.7b --no-smoke`` holds
+30.3 GB of bf16 weights on one card).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b --smoke \\
       --requests 16 --prompt-len 64 --gen 16 [--device cpu]
@@ -59,6 +61,19 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def admit_requests(cfg: ModelConfig, *, requests: int = 16, prompt_len: int = 64,
+                   seed: int = 0, n_docs: int = 5_000, device: DeviceLike = None):
+    """The sketch-filtered admission: ``(tokens, pipe)``, the first batch of
+    ``requests`` admitted prompts of ``prompt_len`` tokens, (B, prompt_len)
+    on ``device`` (CUDA unless ``"cpu"``), and the pipeline that admitted
+    them."""
+    dev = resolve_device(device)
+    meta = make_corpus_metadata(n_docs=n_docs, seed=seed, device=dev)
+    pipe = SketchedDataPipeline(meta, CurationSpec(), requests, prompt_len, cfg.vocab_size,
+                                seed=seed, device=dev)
+    return torch.from_numpy(next(iter(pipe))["tokens"]).to(dev), pipe
+
+
 @torch.inference_mode()
 def serve(cfg: ModelConfig, *, requests: int = 16, prompt_len: int = 64, gen: int = 16,
           seed: int = 0, n_docs: int = 5_000, device: DeviceLike = None,
@@ -69,12 +84,8 @@ def serve(cfg: ModelConfig, *, requests: int = 16, prompt_len: int = 64, gen: in
     dev = resolve_device(device)
     if params is None:
         params = lm.concrete_params(cfg, seed=seed, device=dev)
-
-    # --- sketch-filtered admission ------------------------------------------
-    meta = make_corpus_metadata(n_docs=n_docs, seed=seed, device=dev)
-    pipe = SketchedDataPipeline(meta, CurationSpec(), requests, prompt_len, cfg.vocab_size,
-                                seed=seed, device=dev)
-    tokens = torch.from_numpy(next(iter(pipe))["tokens"]).to(dev)  # (B, prompt)
+    tokens, pipe = admit_requests(cfg, requests=requests, prompt_len=prompt_len, seed=seed,
+                                  n_docs=n_docs, device=dev)
     b = tokens.shape[0]
 
     # --- prefill + greedy decode ---------------------------------------------

@@ -13,6 +13,14 @@ backward run the flash-attention kernels, and curation runs the engine's.
 
 The reference declares ``--smoke`` as ``store_true`` with ``default=True``,
 so it can never train a full config; here ``--no-smoke`` trains one.
+
+The MoE configs (``--arch qwen2-moe-a2.7b``, ``qwen3-moe-30b-a3b``) train
+at ``--smoke``, on the CPU too.  At full width neither fits one card: the
+bf16 weights and gradients, the f32 master and the two f32 moments come to
+16 bytes a parameter (the f32 gradient accumulator adds 4 more), 242 GB
+for qwen2-moe's 15.15 B parameters (its padded experts included) and 481 GB
+for qwen3-moe's 30.1 B, against the card's 80 GB; they wait for the
+multi-card path (ROADMAP A7.6).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Transformer building blocks, dense part (the port of
-``repro/models/layers.py``): norms, RoPE, GQA attention (full and sliding
-window; train/prefill and decode paths) and the SwiGLU MLP.
+"""Transformer building blocks (the port of ``repro/models/layers.py``):
+norms, RoPE, GQA attention (full and sliding window; train/prefill and
+decode paths), the SwiGLU MLP and the capacity-based MoE FFN.
 
 All forwards are plain functions over a parameter tree (``P`` specs, then a
 ``ParamTree`` of tensors; see ``params.py``).  Full-sequence attention goes
@@ -14,13 +14,15 @@ differentiating its chunk loop); on a CPU tensor it runs
 online-softmax, KV-chunked loop, which autograd differentiates as the
 reference's autodiff does.  Decode attention
 stays plain PyTorch on both devices, as the reference computes it with
-einsums outside any kernel.  The MoE FFN and cross-attention wait for their
-slice.
+einsums outside any kernel; so does the MoE FFN (routing, dispatch, the
+expert products and combine are einsums outside any Pallas kernel in the
+reference).  Cross-attention waits for its slice.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -296,7 +298,7 @@ def attention_decode(
 
 
 # ---------------------------------------------------------------------------
-# FFN: dense SwiGLU
+# FFN: dense SwiGLU + capacity-based MoE
 # ---------------------------------------------------------------------------
 
 
@@ -310,12 +312,216 @@ def mlp_params(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Any]:
     }
 
 
-def mlp(p, cfg: ModelConfig, x: torch.Tensor, residual: bool = True) -> torch.Tensor:
-    h = rmsnorm(p["ln"], x)
-    dt = x.dtype
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """silu as XLA computes it: x * 1 / (1 + exp(-x)), each step rounded to
+    the dtype (in bf16, torch.sigmoid rounds once and so differs from it)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _swiglu(p, h: torch.Tensor) -> torch.Tensor:
+    dt = h.dtype
     g = torch.einsum("bsd,df->bsf", h, p["wg"].to(dt))
     u = torch.einsum("bsd,df->bsf", h, p["wi"].to(dt))
-    # silu as XLA computes it: x * 1 / (1 + exp(-x)), each step rounded to the
-    # dtype (in bf16, torch.sigmoid rounds once and so differs from it).
-    y = torch.einsum("bsf,fd->bsd", g * (1 / (1 + torch.exp(-g))) * u, p["wo"].to(dt))
+    return torch.einsum("bsf,fd->bsd", silu(g) * u, p["wo"].to(dt))
+
+
+def mlp(p, cfg: ModelConfig, x: torch.Tensor, residual: bool = True) -> torch.Tensor:
+    y = _swiglu(p, rmsnorm(p["ln"], x))
     return x + y if residual else y
+
+
+def moe_params(cfg: ModelConfig) -> Dict[str, Any]:
+    d, e, ffe = cfg.d_model, cfg.experts_p, cfg.moe_d_ff
+    p: Dict[str, Any] = {
+        "ln": norm_params(d),
+        "router": P((d, e), ("embed", "experts")),
+        "wg": P((e, d, ffe), ("experts", "embed", "moe_ffn")),
+        "wi": P((e, d, ffe), ("experts", "embed", "moe_ffn")),
+        "wo": P((e, ffe, d), ("experts", "moe_ffn", "embed")),
+    }
+    if cfg.shared_d_ff:
+        p["shared"] = {
+            "wg": P((d, cfg.shared_d_ff), ("embed", "ffn")),
+            "wi": P((d, cfg.shared_d_ff), ("embed", "ffn")),
+            "wo": P((cfg.shared_d_ff, d), ("ffn", "embed")),
+        }
+    return p
+
+
+class MoeRoute(NamedTuple):
+    """One MoE call's routing over its (B, G, gs) group positions, padded
+    positions included (the aux loss averages over them)."""
+
+    probs: torch.Tensor  # (B, G, gs, E) float32, the router's softmax
+    mask: torch.Tensor  # (B, G, gs, E) float32, 1 where the position picked the expert
+    idx: torch.Tensor  # (B, G, gs, k) int64, the picks by descending probability
+    gates: torch.Tensor  # (B, G, gs, k) float32, the picks' probabilities over their sum
+    pos: torch.Tensor  # (B, G, gs, k) int64, the pick's slot in its expert
+    keep: torch.Tensor  # (B, G, gs, k) bool, pos < cap: a dropped pick adds nothing
+    cap: int  # an expert's slots in a group
+    s: int  # the real positions of a batch row; the group tail past them is padding
+
+
+def _moe_groups(cfg: ModelConfig, h: torch.Tensor, group_size: int):
+    """``h`` (B, S, d) as groups of ``gs = min(group_size, S)`` positions,
+    (B, G, gs, d), the last zero-padded; and an expert's capacity a group,
+    ``max(1, ceil(gs k / E cf))``."""
+    b, s, d = h.shape
+    gs = min(group_size, s)
+    pad = -s % gs
+    hp = F.pad(h, (0, 0, 0, pad)) if pad else h
+    cap = max(1, math.ceil(gs * cfg.experts_per_token / cfg.experts_p * cfg.capacity_factor))
+    return hp.reshape(b, (s + pad) // gs, gs, d), cap
+
+
+def _router_probs(p, cfg: ModelConfig, hg: torch.Tensor, s: int) -> torch.Tensor:
+    """The router's softmax in float32 (float32 operands: with TF32 off, as
+    torch leaves it, the picks cannot flip between runs); padded experts and
+    padded positions get logits of -1e30."""
+    logits = torch.einsum("bgsd,de->bgse", hg.to(torch.float32), p["router"].to(torch.float32))
+    if cfg.padded_experts and cfg.padded_experts > cfg.n_experts:
+        logits = logits.masked_fill(
+            torch.arange(cfg.experts_p, device=hg.device) >= cfg.n_experts, NEG_INF)
+    _, ng, gs, _ = hg.shape
+    if ng * gs > s:  # padded positions route nowhere
+        valid = (torch.arange(ng * gs, device=hg.device) < s).reshape(1, ng, gs, 1)
+        logits = logits.masked_fill(~valid, NEG_INF)
+    return torch.softmax(logits, dim=-1)
+
+
+def _moe_check(cfg: ModelConfig) -> None:
+    # Padded experts' probabilities are 0 and ties go to the lower index, so
+    # with k <= n_experts no pick lands on a padded expert (moe skips them).
+    if not 0 < cfg.experts_per_token <= cfg.n_experts:
+        raise ValueError(f"{cfg.name}: top-{cfg.experts_per_token} of {cfg.n_experts} experts")
+
+
+def moe_route(p, cfg: ModelConfig, h: torch.Tensor, group_size: int = 4096):
+    """The routing :func:`moe` runs on the normed input ``h`` (B, S, d):
+    ``(hg, route)``, ``hg`` the groups (B, G, gs, d).  Top-k as a stable
+    descending sort of the probabilities, so ties go to the lower expert
+    index as in ``jax.lax.top_k`` (``torch.topk`` does not promise that; a
+    padded position's probabilities all tie); a pick's slot is the count of
+    the group's earlier positions routed to its expert."""
+    _moe_check(cfg)
+    hg, cap = _moe_groups(cfg, h, group_size)
+    probs = _router_probs(p, cfg, hg, h.shape[1])
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    vals, idx = vals[..., :k], idx[..., :k]
+    mask = torch.zeros_like(probs).scatter_(-1, idx, 1.0)
+    pos = (torch.cumsum(mask, dim=2) - mask).gather(-1, idx).to(torch.int64)
+    gates = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+    return hg, MoeRoute(probs, mask, idx, gates, pos, pos < cap, cap, h.shape[1])
+
+
+def moe_aux(cfg: ModelConfig, r: MoeRoute) -> torch.Tensor:
+    """Switch-style load-balance loss over the real experts: ``n_experts *
+    sum(f_e p_e)``, ``f_e`` the share of positions that picked expert e
+    before capacity, ``p_e`` its mean probability, both over every position
+    (padded ones too), float32 0-d."""
+    e = cfg.n_experts
+    f_e = r.mask[..., :e].mean(dim=(0, 1, 2))
+    p_e = r.probs[..., :e].mean(dim=(0, 1, 2))
+    return e * torch.sum(f_e * p_e)
+
+
+def _moe_out(p, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor, y: torch.Tensor,
+             r: MoeRoute) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed output (B, G gs, d) cut to the real positions, the shared
+    expert's added in the dtype, then the residual; and the aux loss."""
+    y = y[:, :x.shape[1]]
+    if "shared" in p:
+        y = y + _swiglu(p["shared"], h)
+    return x + y, moe_aux(cfg, r)
+
+
+def moe(p, cfg: ModelConfig, x: torch.Tensor, group_size: int = 4096
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style top-k dispatch with capacity groups (the reference's
+    ``moe``): ``(x + y, aux)``.
+
+    Where the reference multiplies (B, G, gs, E, C) one-hots, this gathers:
+    the (B G, E, C) slots, expert-major, each take an exact copy of the one
+    position routed there (a zero row where none is; no slot is written
+    twice), the experts run as three batched products over their slots in
+    the dtype (the padded experts, which no pick reaches, are skipped), and
+    each position gathers its kept slots' outputs, sums ``gate * out`` in
+    float32 in pick order with the gate rounded to the dtype first, and
+    rounds once: no ``index_add_``, no float atomics, so reruns give equal
+    bits.  The same arithmetic as :func:`moe_plain` but for the order of
+    that float32 sum.
+    """
+    b, s, d = x.shape
+    h = rmsnorm(p["ln"], x)
+    hg, r = moe_route(p, cfg, h, group_size)
+    _, ng, gs, _ = hg.shape
+    n, k, e, cap, dt, dev = b * ng, cfg.experts_per_token, cfg.n_experts, r.cap, x.dtype, x.device
+    tok, n_slots = n * gs, e * n * cap
+    keep = r.keep.reshape(tok, k)
+    row = torch.arange(n, device=dev).repeat_interleave(gs)[:, None]  # each position's group
+    slot = (r.idx.reshape(tok, k) * n + row) * cap + r.pos.reshape(tok, k)
+    # Which position fills each slot: position ``tok``, a zero row, where none
+    # does; dropped picks write it into one spare slot past the end.
+    src = torch.full((n_slots + 1,), tok, dtype=torch.int64, device=dev)
+    pos_id = torch.arange(tok, device=dev)[:, None].expand(tok, k)
+    src.scatter_(0, torch.where(keep, slot, n_slots).reshape(-1),
+                 torch.where(keep, pos_id, tok).reshape(-1))
+    rows = torch.cat([hg.reshape(tok, d), hg.new_zeros(1, d)])
+    xin = rows[src[:n_slots]].view(e, n * cap, d)
+    g = torch.bmm(xin, p["wg"][:e].to(dt))
+    u = torch.bmm(xin, p["wi"][:e].to(dt))
+    out = torch.bmm(silu(g) * u, p["wo"][:e].to(dt)).view(n_slots, d)
+    gate = torch.where(keep, r.gates.reshape(tok, k).to(dt), 0).to(torch.float32)
+    slot = torch.where(keep, slot, 0)  # a dropped pick reads slot 0 at gate 0
+    y = gate[:, 0, None] * out[slot[:, 0]].to(torch.float32)
+    for j in range(1, k):
+        y = y + gate[:, j, None] * out[slot[:, j]].to(torch.float32)
+    return _moe_out(p, cfg, x, h, y.to(dt).view(b, ng * gs, d), r)
+
+
+def moe_route_plain(p, cfg: ModelConfig, h: torch.Tensor, group_size: int = 4096):
+    """:func:`moe_route` as the reference writes it: top-k as k rounds of
+    argmax (the first of equal maxima: ``lax.top_k``'s order), the picks'
+    one-hot sum as the mask, slots from its cumulative sum."""
+    _moe_check(cfg)
+    hg, cap = _moe_groups(cfg, h, group_size)
+    probs = _router_probs(p, cfg, hg, h.shape[1])
+    rest, picks = probs, []
+    for _ in range(cfg.experts_per_token):
+        i = torch.argmax(rest, dim=-1, keepdim=True)
+        picks.append(i)
+        rest = rest.scatter(-1, i, float("-inf"))
+    idx = torch.cat(picks, dim=-1)
+    vals = probs.gather(-1, idx)
+    gates = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+    mask = F.one_hot(idx, cfg.experts_p).to(torch.float32).sum(3)
+    pos_in_e = torch.cumsum(mask, dim=2) - mask
+    keep = (pos_in_e < cap) * mask
+    return hg, MoeRoute(probs, mask, idx, gates, pos_in_e.gather(-1, idx).to(torch.int64),
+                        keep.gather(-1, idx) > 0, cap, h.shape[1])
+
+
+def moe_plain(p, cfg: ModelConfig, x: torch.Tensor, group_size: int = 4096
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`moe`: the reference's one-hot dispatch and
+    combine einsums line by line, over every expert, padded ones included.
+    The combine sums in float32 and rounds once (the rounding :func:`moe`
+    keeps).  For tests and checks; no serving or training path calls it."""
+    b, s, d = x.shape
+    h = rmsnorm(p["ln"], x)
+    hg, r = moe_route_plain(p, cfg, h, group_size)
+    dt = x.dtype
+    sel = F.one_hot(r.idx, cfg.experts_p).to(torch.float32)  # (B,G,gs,k,E)
+    gate_e = torch.einsum("bgske,bgsk->bgse", sel, r.gates)
+    pos_in_e = torch.cumsum(r.mask, dim=2) - r.mask
+    keep = (pos_in_e < r.cap) * r.mask
+    one_hot_pos = pos_in_e[..., None] == torch.arange(r.cap, device=x.device)
+    dispatch = one_hot_pos.to(dt) * keep[..., None].to(dt)  # (B,G,gs,E,C)
+    combine = dispatch * gate_e[..., None].to(dt)
+    xin = torch.einsum("bgsec,bgsd->bgecd", dispatch, hg)
+    gsw = silu(torch.einsum("bgecd,edf->bgecf", xin, p["wg"].to(dt)))
+    up = torch.einsum("bgecd,edf->bgecf", xin, p["wi"].to(dt))
+    out_e = torch.einsum("bgecf,efd->bgecd", gsw * up, p["wo"].to(dt))
+    y = torch.einsum("bgsec,bgecd->bgsd", combine.to(torch.float32), out_e.to(torch.float32))
+    return _moe_out(p, cfg, x, h, y.to(dt).reshape(b, -1, d), r)

@@ -1,4 +1,4 @@
-"""Model assembly for decoder-only dense LMs (the port of
+"""Model assembly for decoder-only LMs, dense and MoE (the port of
 ``repro/models/lm.py``): the parameter tree, the training loss, prefill and
 cached decode.
 
@@ -9,14 +9,14 @@ stacked periods with ``lax.scan``; here a Python loop walks them, indexing
 each leaf at its period.
 
 Entry points:
-  loss_fn(params, cfg, batch)                -- training loss (next-token xent)
+  loss_fn(params, cfg, batch)                -- training loss (xent + MoE aux)
   prefill(params, cfg, batch)                -- full-seq forward -> last logits
   decode_step(params, cfg, cache, token, pos) -- one token against the cache
 
 Training differentiates ``loss_fn`` with autograd; ``remat="full"``
 recomputes each period in the backward (``torch.utils.checkpoint``, the
-reference's ``jax.checkpoint`` around its scan body).  This slice ports the
-mixers ``attn``/``swa`` and the FFN ``mlp``; the MoE FFN, the SSM/xLSTM
+reference's ``jax.checkpoint`` around its scan body).  The port has the
+mixers ``attn``/``swa`` and the FFNs ``mlp`` and ``moe``; the SSM/xLSTM
 mixers, the vision front end and encoder-decoder configs raise
 ``NotImplementedError`` (ROADMAP A7).  The reference's
 ``parallel/context.py`` sharding constraints are identities on one card and
@@ -44,8 +44,8 @@ def _unsupported(what: str) -> NotImplementedError:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port: every block must be
-    ``attn``/``swa`` + ``mlp``, with no front end and no encoder."""
+    """Raise for what the port does not have yet: every block must be
+    ``attn``/``swa`` + ``mlp``/``moe``, with no front end and no encoder."""
     if cfg.is_encdec:
         raise _unsupported(f"{cfg.name}: the encoder-decoder backbone")
     if cfg.frontend:
@@ -53,7 +53,7 @@ def check_supported(cfg: ModelConfig) -> None:
     for mixer, ffn in cfg.all_blocks:
         if mixer not in ("attn", "swa"):
             raise _unsupported(f"{cfg.name}: the {mixer} mixer (models/ssm.py)")
-        if ffn != "mlp":
+        if ffn not in ("mlp", "moe"):
             raise _unsupported(f"{cfg.name}: the {ffn} FFN")
 
 
@@ -62,8 +62,10 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_params(cfg: ModelConfig) -> Dict[str, Any]:
-    return {"mixer": L.attn_params(cfg), "ffn": L.mlp_params(cfg)}
+def _block_params(cfg: ModelConfig, block: Block) -> Dict[str, Any]:
+    _, ffn = block
+    return {"mixer": L.attn_params(cfg),
+            "ffn": L.moe_params(cfg) if ffn == "moe" else L.mlp_params(cfg)}
 
 
 def build_param_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -74,10 +76,10 @@ def build_param_spec(cfg: ModelConfig) -> Dict[str, Any]:
         "final_norm": L.norm_params(d),
         "lm_head": P((d, vp), ("embed", "vocab")),
     }
-    period = {f"b{j}": _block_params(cfg) for j in range(len(cfg.pattern))}
+    period = {f"b{j}": _block_params(cfg, blk) for j, blk in enumerate(cfg.pattern)}
     spec["periods"] = stack(period, cfg.n_periods)
     if cfg.remainder:
-        spec["rem"] = {f"r{j}": _block_params(cfg) for j in range(len(cfg.remainder))}
+        spec["rem"] = {f"r{j}": _block_params(cfg, blk) for j, blk in enumerate(cfg.remainder)}
     return spec
 
 
@@ -94,20 +96,26 @@ def concrete_params(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = Non
 # ---------------------------------------------------------------------------
 
 
-def _apply_block_train(cfg: ModelConfig, block: Block, p, h: torch.Tensor) -> torch.Tensor:
-    mixer, _ = block
+def _apply_block_train(cfg: ModelConfig, block: Block, p, h: torch.Tensor):
+    """(h, aux): the block's output and its MoE aux loss (0 for ``mlp``, as
+    the reference sets it)."""
+    mixer, ffn = block
     if mixer == "attn":
         h = L.attention_train(p["mixer"], cfg, h, causal=True)
     else:  # swa
         h = L.attention_train(p["mixer"], cfg, h, window=cfg.sliding_window)
-    return L.mlp(p["ffn"], cfg, h)
+    if ffn == "moe":
+        return L.moe(p["ffn"], cfg, h)
+    return L.mlp(p["ffn"], cfg, h), 0.0
 
 
-def _period(cfg: ModelConfig, pp, h: torch.Tensor) -> torch.Tensor:
-    """One period of the layer pattern (the reference's scan body)."""
+def _period(cfg: ModelConfig, pp, h: torch.Tensor, aux: torch.Tensor):
+    """One period of the layer pattern (the reference's scan body): (h, the
+    running aux sum), the aux carried as the reference's scan carries it."""
     for j, blk in enumerate(cfg.pattern):
-        h = _apply_block_train(cfg, blk, pp[f"b{j}"], h)
-    return h
+        h, a = _apply_block_train(cfg, blk, pp[f"b{j}"], h)
+        aux = aux + a
+    return h, aux
 
 
 def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
@@ -138,24 +146,27 @@ def _period_slice(tree, i: int):
     return {k: _period_slice(v, i) for k, v in tree.items()}
 
 
-def _run_stack(cfg: ModelConfig, params, h: torch.Tensor, period: Callable = _period
-               ) -> torch.Tensor:
+def _run_stack(cfg: ModelConfig, params, h: torch.Tensor, period: Callable = _period):
     """Run the periods in order (each through ``period``), then the
-    remainder blocks."""
+    remainder blocks: (h, the float32 sum of the blocks' MoE aux losses,
+    from 0 in block order)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pp in _period_slices(params["periods"], cfg.n_periods):
-        h = period(cfg, pp, h)
+        h, aux = period(cfg, pp, h, aux)
     for j, blk in enumerate(cfg.remainder):
-        h = _apply_block_train(cfg, blk, params["rem"][f"r{j}"], h)
-    return h
+        h, a = _apply_block_train(cfg, blk, params["rem"][f"r{j}"], h)
+        aux = aux + a
+    return h, aux
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding's backward on the card sums each token's rows in a fixed
     # order (sorted indices), so a training step's gradients repeat bit for bit.
     emb = F.embedding(tokens.long(), params["embed"])
-    # A Python float keeps the residual stream in the model's dtype, as the
-    # reference's weak-typed scale does.
-    return emb * float(np.sqrt(cfg.d_model))
+    # The reference's weak-typed scale is cast to the residual stream's dtype
+    # before it multiplies (sqrt(2048) is 45.25 in bf16); torch would multiply
+    # by the unrounded float, so round it first.
+    return emb * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=emb.dtype).item()
 
 
 def chunked_xent(cfg: ModelConfig, h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
@@ -189,19 +200,20 @@ def chunked_xent(cfg: ModelConfig, h: torch.Tensor, head: torch.Tensor, labels: 
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Next-token cross-entropy of ``batch["tokens"]`` (B, S), float32 0-d.
-    ``params`` is the parameter tree (a ``ParamTree`` or nested dicts of
-    tensors, e.g. leaves that require grad).  Dense blocks add no MoE
-    auxiliary loss, so the reference's ``xent + 0.01 * aux`` is ``xent``."""
+    """The reference's training loss of ``batch["tokens"]`` (B, S), float32
+    0-d: next-token cross-entropy plus 0.01 times the sum of the MoE blocks'
+    load-balance aux losses (0 for a dense model, whose loss is the xent
+    itself).  ``params`` is the parameter tree (a ``ParamTree`` or nested
+    dicts of tensors, e.g. leaves that require grad)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens)
-    h = _run_stack(cfg, params, h, period=_remat(_period, cfg))
+    h, aux = _run_stack(cfg, params, h, period=_remat(_period, cfg))
     h = L.rmsnorm(params["final_norm"], h)
     labels = F.pad(tokens[:, 1:], (0, 1))
     mask = F.pad(torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=tokens.device),
                  (0, 1))
-    return chunked_xent(cfg, h, params["lm_head"], labels, mask)
+    return chunked_xent(cfg, h, params["lm_head"], labels, mask) + 0.01 * aux
 
 
 # -- caches -----------------------------------------------------------------
@@ -237,9 +249,11 @@ def _stack_leaves(tree, n: int):
 
 
 def _apply_block_decode(cfg: ModelConfig, block: Block, p, c, h: torch.Tensor, pos: int):
-    mixer, _ = block
+    mixer, ffn = block
     window = cfg.sliding_window if mixer == "swa" else 0
     h, _ = L.attention_decode(p["mixer"], cfg, h, c["kv"], pos, window=window)
+    if ffn == "moe":  # one position a row: groups of 1, an expert's capacity 1
+        return L.moe(p["ffn"], cfg, h)[0]
     return L.mlp(p["ffn"], cfg, h)
 
 
@@ -274,6 +288,6 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.T
     card."""
     check_supported(cfg)
     h = _embed(cfg, params, batch["tokens"])
-    h = _run_stack(cfg, params, h)
+    h, _ = _run_stack(cfg, params, h)
     h = L.rmsnorm(params["final_norm"], h)
     return torch.einsum("bd,dv->bv", h[:, -1], params["lm_head"]).to(torch.float32)

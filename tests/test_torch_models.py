@@ -468,6 +468,24 @@ def test_rmsnorm_rope_and_mlp(dtype):
     assert_close(TL.mlp(_port_tree(mp), cfg, x), want, dtype)
 
 
+@pytest.mark.parametrize("d_model", [60, 64, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embed_matches_reference_bit_for_bit(d_model, dtype):
+    """The embedding times sqrt(d_model), whose weak-typed scale the
+    reference rounds to the dtype first (sqrt(2048) = 45.25 in bf16; 60 is
+    qwen1.5's smoke width, 64 a power of 4, 2048 the MoE configs')."""
+    cfg = dataclasses.replace(get_config("qwen1.5-32b", smoke=True), d_model=d_model, dtype=dtype)
+    rcfg = dataclasses.replace(ref_config("qwen1.5-32b", smoke=True), d_model=d_model,
+                               dtype=dtype)
+    rng = np.random.default_rng(d_model)
+    jt, t = _pair(rng.standard_normal((cfg.vocab_size, d_model)) * 0.02, dtype)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    want = rlm._embed(rcfg, {"embed": jt}, jnp.asarray(tokens))
+    got = tlm._embed(cfg, {"embed": t}, torch.from_numpy(tokens))
+    assert got.dtype == t.dtype
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
 # (B, S, T, Hq, Hkv, causal, window, chunk)
 GQA_CASES = [
     (2, 12, 12, 4, 4, True, 0, 16),    # MHA, one chunk
@@ -552,11 +570,13 @@ def _models(arch: str, dtype: str):
                                                device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "internlm2-20b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "internlm2-20b", "gemma3-27b",
+                                  "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_reference(arch, dtype):
     """Prefill's logits, then teacher-forced decode: every step's logits and
-    the whole cache after the last step (periods and remainder)."""
+    the whole cache after the last step (periods and remainder).  The MoE
+    configs route each decode step's single position alone (capacity 1)."""
     rcfg, rp, cfg, tp = _models(arch, dtype)
     b, s = 2, 6
     tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -611,14 +631,15 @@ def test_sliding_window_cache_ring_buffer():
     np.testing.assert_allclose(logits.numpy(), full.numpy(), atol=0.2, rtol=0.08)
 
 
-UNPORTED = ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "jamba-1.5-large-398b", "xlstm-350m",
-            "llava-next-mistral-7b", "seamless-m4t-medium"]
+UNPORTED = ["jamba-1.5-large-398b", "xlstm-350m", "llava-next-mistral-7b",
+            "seamless-m4t-medium"]
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_configs_raise(arch):
-    """MoE, SSM/xLSTM, vision and encoder-decoder configs wait for their
-    slice: parameters, caches, prefill and the training loss raise."""
+    """SSM/xLSTM (jamba's MoE blocks with its mamba mixer), vision and
+    encoder-decoder configs wait for their slice: parameters, caches,
+    prefill and the training loss raise."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tlm.concrete_params(cfg, device="cpu")
@@ -632,4 +653,4 @@ def test_unported_configs_raise(arch):
 
 def test_every_arch_is_either_ported_or_refused():
     assert set(ARCHS) == set(UNPORTED) | {"stablelm-1.6b", "internlm2-20b", "gemma3-27b",
-                                          "qwen1.5-32b"}
+                                          "qwen1.5-32b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"}

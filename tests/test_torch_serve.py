@@ -188,8 +188,21 @@ def test_serve_on_the_cpu_matches_the_reference():
     """The smoke config in float32: the same admitted prompts, prefill
     logits within tolerance, the same greedy tokens; decode at the last
     prompt position agrees with prefill."""
-    rcfg = dataclasses.replace(ref_config("stablelm-1.6b", smoke=True), dtype="float32")
-    cfg = dataclasses.replace(get_config("stablelm-1.6b", smoke=True), dtype="float32")
+    _check_serve("stablelm-1.6b")
+
+
+def test_moe_serve_on_the_cpu_matches_the_reference():
+    """:func:`test_serve_on_the_cpu_matches_the_reference` for qwen2-moe's
+    smoke config, but for decode against prefill: prefill routes groups of
+    16 positions at capacity 5, which drops picks, and decode each position
+    alone at capacity 1, which drops none (the reference's semantics), so
+    the two need not agree."""
+    _check_serve("qwen2-moe-a2.7b")
+
+
+def _check_serve(arch: str) -> None:
+    rcfg = dataclasses.replace(ref_config(arch, smoke=True), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     rparams = jax.jit(lambda k: rlm.concrete_params(k, rcfg))(jax.random.PRNGKey(0))
     params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, rparams), cfg, device="cpu")
     requests, prompt_len, gen = 4, 16, 6
@@ -199,7 +212,8 @@ def test_serve_on_the_cpu_matches_the_reference():
                        device="cpu", params=params)
     np.testing.assert_array_equal(res.prompt.numpy(), tokens)
     _close(res.prefill_logits.numpy(), logits)
-    _close(res.decode_logits.numpy(), res.prefill_logits.numpy())
+    if not cfg.n_experts:
+        _close(res.decode_logits.numpy(), res.prefill_logits.numpy())
     np.testing.assert_array_equal(res.generated.numpy(), generated)
     assert res.run_info.attr == pipe.run_info.attr
     assert res.skipped_fraction == pipe.skipped_fraction

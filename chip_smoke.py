@@ -15,7 +15,9 @@ each beside its device time from ``torch.profiler`` by kernel; the f32
 flash-attention kernel and SDPA in turns on the same shapes; and the
 flash-attention backward at the training micro-batch, internlm2-20b's GQA
 and gemma3's window shapes against its plain version, with equal bits on a
-rerun, beside SDPA's backward).
+rerun, beside SDPA's backward; and the two recurrent scans at phase 13's
+long prefill, jamba-1.5-large's selective scan and xlstm-350m's sLSTM
+scan, with equal bits on a rerun).
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
@@ -87,7 +89,7 @@ through ``select_composite_gb``, ``capture_composite`` and
 execution, every random pick against its candidate pool and a second
 engine's, the batch against the sequential runs, each composite sketch
 against the single sketches of its parts and the plain bitmap, and that
-kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6, 11, 12.  Phase 6 serves ``stablelm-1.6b`` at full
+kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6, 11, 12, 13.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -97,7 +99,7 @@ the curation query, each layer's attention through the kernel against the
 plain chunked loop (float32 copies of the weights, where decode is also
 held against prefill, and the bf16 weights themselves at both prompts),
 that every bf16 prefill ran the tensor-core kernel, and a 2,048-token
-prompt.  Phase 11 trains ``stablelm-1.6b`` at full width and depth (bf16,
+prompt's admission and prefill (no decode through it).  Phase 11 trains ``stablelm-1.6b`` at full width and depth (bf16,
 ``remat="full"``, batch 8 of 2,048 tokens in 2 microbatches, AdamW with an
 f32 master, 6 steps): curation of 20,000 docs as ``launch/train.py`` runs
 it, checked against the CPU pipeline and a plain numpy evaluation; every
@@ -119,7 +121,18 @@ picks, kept slots and aux; the output within ``MOE_TOL_BF16``); a
 each layer's share of picks dropped by capacity, the warm prefill and
 decode times beside decode's bound; and ``qwen3-moe-30b-a3b`` at full
 width and 2 of its 48 periods (128 experts, top-8, 32 heads on 4) served
-and checked layer by layer.  Any failed check raises, so the exit code is
+and checked layer by layer.  Phase 13 serves ``xlstm-350m`` at full width
+and depth (12 periods of mLSTM and sLSTM, d_model 1,024, bf16, 0.455 B
+random parameters) and ``jamba-1.5-large-398b`` at full width over the
+first four blocks of its period (attention + MoE, then mamba with MLP,
+MoE and MLP; 23.0 B parameters) through ``launch.serve.serve`` at phase
+6's defaults: the launches of each prefill (12 sLSTM scans; 3 selective
+scans and 1 tensor-core attention), every scan layer's kernel against its
+plain version on that layer's own input with a bit-equal rerun, decode
+against prefill layer by layer on float32 copies of xlstm's weights, a
+2,048-token prefill (its scans checked on the first and last layers),
+warm prefill and decode times beside decode's bound, and the peak memory.
+Any failed check raises, so the exit code is
 not 0.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
@@ -141,6 +154,9 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Special-function units: 16 results a clock per SM (the CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0) x 132 SMs x 1,980 MHz.
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
 ENVELOPE = float(1 << 24)  # float32 adds integers exactly below this
 KERNEL_ROWS = 1 << 23  # 6.7M rows padded to pow2, the executor's row class
@@ -166,6 +182,12 @@ KERNELS = (
     # No Pallas kernel: the gradient XLA derives for the reference's chunk loop.
     ("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/models/layers.py:91"),
+    # No Pallas kernel: mamba_train's chunked lax.scan pair, and the forward of
+    # the sLSTM's custom-VJP lax.scan.
+    ("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu",
+     "src/repro/models/ssm.py:58"),
+    ("slstm_scan", "src/repro_torch/kernels/csrc/slstm_scan.cu",
+     "src/repro/models/ssm.py:412"),
 )
 N_SHARDS = 4
 SHARD_ATTR = "community"  # the partition phase 4's waves chose
@@ -458,6 +480,8 @@ def phase_kernels(n: int, seed: int) -> dict:
     rows["flash_attention"] = _kernel_flash_attention(seed)
     _flash_f32_pairs(seed)
     rows["flash_attention_bwd"] = _kernel_flash_attention_bwd(seed)
+    rows["selective_scan"] = _kernel_selective_scan(seed)
+    rows["slstm_scan"] = _kernel_slstm_scan(seed)
     return rows
 
 
@@ -799,6 +823,138 @@ def _kernel_flash_attention_bwd(seed: int) -> dict:
         torch.cuda.empty_cache()
     out["max_abs_err"] = worst
     return out
+
+
+# The recurrent scans at phase 13's long prefill: jamba-1.5-large's mamba
+# layer (16 rows of 2,048 positions, di 16,384, 16 states, bf16 x1) and
+# xlstm-350m's sLSTM layer (16 rows of 2,048, 4 heads of 256 units, bf16).
+SCAN_SHAPE = (16, 2048, 16384, 16)
+SLSTM_SHAPE = (16, 2048, 4, 256)
+# The plain selective scan's chunk here: at the reference's 1,024 its decay
+# and drive would take 17.2 GB each at SCAN_SHAPE; the chunk bounds memory
+# only (the state crosses chunks unchanged).
+SCAN_PLAIN_CHUNK = 128
+# Float32, of the output's largest magnitude (derived in
+# tests/test_torch_ssm_card.py): selective_scan's states equal the plain
+# version's bit for bit and its output's 16-term sum runs in another order
+# (at most 1.9e-6 of the terms' absolute sum); slstm_scan's recurrent
+# product's 256-term sum runs in another order, which the recurrence does not
+# amplify (3.6e-7 of the scale between two float32 orders over 2,048 steps).
+SCAN_TOL = 1e-5
+
+
+def _selective_scan_bound(b: int, s: int, di: int, n: int, x_bytes: int):
+    """selective_scan's least ms: its bytes (x1, dt and ys a position and
+    channel, b and c a position, a) at 3.35 TB/s against its B S di n
+    exponentials at the special-function units' rate."""
+    return bound((x_bytes + 8) * b * s * di + 8 * b * s * n + 4 * di * n, b * s * di * n,
+                 SFU_OPS_PER_S)
+
+
+def _slstm_scan_bound(b: int, s: int, hh: int, uh: int, x_bytes: int, w_bytes: int):
+    """slstm_scan's least ms: the recurrent product's 2 B S H uh 4uh float32
+    operations at 67 TFLOP/s against its bytes (xproj, hs, wr and bias)."""
+    d = hh * uh
+    return bound(x_bytes * b * s * 4 * d + 4 * b * s * d + w_bytes * (hh * uh * 4 * uh + 4 * d),
+                 2 * b * s * hh * uh * 4 * uh)
+
+
+def _scan_row(label: str, kernel, plain, b_ms: float, b_by: str, err: float,
+              plain_reps: int = 2) -> dict:
+    """A scan kernel's JSON row: its CUDA-event and device times beside the
+    plain version's time and the bound; no single PyTorch call computes a
+    scan, so ``library_ms`` is None."""
+    import torch
+
+    from repro_torch.kernels import measure
+
+    ms = time_ms(kernel, reps=10)
+    card = card_state()
+    per = {k: round(v, 4) for k, v in measure.device_ms(torch, kernel, calls=5).items()}
+    row = dict(max_abs_err=err, ms=ms, plain_ms=time_ms(plain, reps=plain_reps, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[kernels] {label}: kernel {ms:.4f} ms, device {sum(per.values()):.4f} ms {per} (bound "
+        f"{b_ms:.4f} ms, {b_by}; SM clock, power after it: {card}); no single PyTorch call "
+        f"computes it; {row}")
+    return row
+
+
+def _kernel_selective_scan(seed: int) -> dict:
+    """selective_scan against its plain version at SCAN_SHAPE on random
+    gates (a = -e, the model's a_log of ones), equal bits on a rerun; bound
+    by the larger of its bytes (x1, dt, ys, b, c) at 3.35 TB/s and its
+    B S di n exponentials at the special-function units' rate."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    b, s, di, n = SCAN_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x1 = ref.silu(torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16))
+    dt = ref.softplus(torch.randn((b, s, di), generator=gen, device=dev))
+    a = -torch.exp(torch.ones((di, n), device=dev))
+    bmat = torch.randn((b, s, n), generator=gen, device=dev)
+    cmat = torch.randn((b, s, n), generator=gen, device=dev)
+    got = selective_scan(x1, dt, a, bmat, cmat)
+    want = ref.selective_scan_plain(x1, dt, a, bmat, cmat, chunk=SCAN_PLAIN_CHUNK)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= SCAN_TOL * scale,
+            f"selective_scan {SCAN_SHAPE}: max |kernel - plain| {err:.3e} at scale {scale:.2f}")
+    require(torch.equal(got, selective_scan(x1, dt, a, bmat, cmat)),
+            "selective_scan gave other bits on a rerun")
+    log(f"[kernels] selective_scan B={b} S={s} di={di} n={n} x1 bf16: max |kernel - plain| "
+        f"{err:.3e} at scale {scale:.3f} ({err / scale:.2e} of it, tolerance {SCAN_TOL}), rerun "
+        f"bit-equal; plain at chunk {SCAN_PLAIN_CHUNK}")
+    del want
+    b_ms, b_by = _selective_scan_bound(b, s, di, n, x1.element_size())
+    row = _scan_row(f"selective_scan B={b} S={s} di={di} n={n}",
+                    lambda: selective_scan(x1, dt, a, bmat, cmat),
+                    lambda: ref.selective_scan_plain(x1, dt, a, bmat, cmat,
+                                                     chunk=SCAN_PLAIN_CHUNK), b_ms, b_by, err)
+    del x1, dt, a, bmat, cmat, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def _kernel_slstm_scan(seed: int) -> dict:
+    """slstm_scan against its plain version at SLSTM_SHAPE (bf16 xproj, wr
+    at the model's initial scale 1/sqrt(uh), a random bias), equal bits on
+    a rerun; bound by the recurrent product's float32 operations at 67
+    TFLOP/s against its bytes."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.slstm_scan import slstm_scan
+
+    b, s, hh, uh = SLSTM_SHAPE
+    d = hh * uh
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xproj = torch.randn((b, s, 4 * d), generator=gen, device=dev).to(torch.bfloat16)
+    wr = (torch.randn((hh, uh, 4 * uh), generator=gen, device=dev) / uh ** 0.5).to(torch.bfloat16)
+    bias = (torch.randn((4 * d,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    got = slstm_scan(xproj, wr, bias)
+    want = ref.slstm_scan_plain(xproj, wr, bias)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= SCAN_TOL * scale,
+            f"slstm_scan {SLSTM_SHAPE}: max |kernel - plain| {err:.3e} at scale {scale:.2f}")
+    require(torch.equal(got, slstm_scan(xproj, wr, bias)), "slstm_scan gave other bits on a rerun")
+    log(f"[kernels] slstm_scan B={b} S={s} H={hh} uh={uh} bf16: max |kernel - plain| {err:.3e} "
+        f"at scale {scale:.3f} ({err / scale:.2e} of it, tolerance {SCAN_TOL}), rerun bit-equal")
+    del want
+    b_ms, b_by = _slstm_scan_bound(b, s, hh, uh, xproj.element_size(), wr.element_size())
+    row = _scan_row(f"slstm_scan B={b} S={s} H={hh} uh={uh}",
+                    lambda: slstm_scan(xproj, wr, bias),
+                    lambda: ref.slstm_scan_plain(xproj, wr, bias), b_ms, b_by, err, plain_reps=1)
+    del xproj, wr, bias, got
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3297,7 +3453,7 @@ def phase_serve(seed: int = 0) -> dict:
     from repro_torch.device import to_host
     from repro_torch.kernels.build import KERNELS as BUILT
     from repro_torch.kernels.flash_attention import COPY_COUNTER, TC_COUNTER
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import admit_requests, serve
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models.params import n_params
@@ -3371,37 +3527,41 @@ def phase_serve(seed: int = 0) -> dict:
     del params32
     torch.cuda.empty_cache()
 
-    # 4. A long prompt in bf16: one prefill of 2,048 tokens, 24 launches.
+    # 4. A long prompt in bf16: its admission and one prefill of 2,048 tokens,
+    # 24 launches (prefill only: serve()'s 2,063 teacher-forced decode steps
+    # through it took about 90 s and checked only their finiteness).
+    long_prompt, _ = admit_requests(cfg, requests=SERVE_REQUESTS, prompt_len=LONG_PROMPT,
+                                    seed=seed, n_docs=SERVE_DOCS)
     before = LAUNCH_COUNTS["flash_attention"]
     before_tc, before_copies = LAUNCH_COUNTS[TC_COUNTER], LAUNCH_COUNTS[COPY_COUNTER]
-    long = serve(cfg, requests=SERVE_REQUESTS, prompt_len=LONG_PROMPT, gen=SERVE_GEN, seed=seed,
-                 n_docs=SERVE_DOCS, params=params)
+    with torch.inference_mode():
+        long_logits = lm.prefill(params, cfg, {"tokens": long_prompt})
+        torch.cuda.synchronize()
     long_launches = LAUNCH_COUNTS["flash_attention"] - before
     long_tc = LAUNCH_COUNTS[TC_COUNTER] - before_tc
     long_copies = LAUNCH_COUNTS[COPY_COUNTER] - before_copies
-    _serve_line("bf16 long prompt", long, LONG_PROMPT)
-    finite = all(bool(torch.isfinite(x).all())
-                 for x in (long.prefill_logits, long.decode_logits, long.last_logits))
-    log(f"[serve] long prompt: flash_attention launches {long_launches} ({long_tc} tensor-core, "
-        f"{long_copies} aligned copies), finite logits {finite}")
+    finite = long_logits.shape == (SERVE_REQUESTS, cfg.vocab_p) and bool(
+        torch.isfinite(long_logits).all())
+    log(f"[serve] long prompt (prefill only): flash_attention launches {long_launches} "
+        f"({long_tc} tensor-core, {long_copies} aligned copies), finite logits {finite}")
     require(finite, "long-prompt logits are not finite")
     require(long_launches == cfg.n_layers and long_tc == cfg.n_layers and long_copies == 0,
             f"a 2048-token prefill launched flash_attention {long_launches} times "
             f"({long_tc} tensor-core, {long_copies} copies)")
 
     # 5. Bf16 layer by layer on the serving weights, at both prompts.
-    for tokens in (res.prompt, long.prompt):
+    for tokens in (res.prompt, long_prompt):
         _layerwise_check_bf16(cfg, params, tokens)
 
     # Warm prefill times (CUDA events; the serve() walls above include first calls).
     with torch.inference_mode():
-        for tokens in (res.prompt, long.prompt):
+        for tokens in (res.prompt, long_prompt):
             ms = time_ms(lambda: lm.prefill(params, cfg, {"tokens": tokens}), reps=5, warmup=1)
             log(f"[serve] warm bf16 prefill B={tokens.shape[0]} S={tokens.shape[1]}: {ms:.2f} ms "
                 f"({tokens.numel() / ms * 1e3:.0f} tok/s)")
         # The kernel's share: one layer's attention call at this prefill's shapes.
         p0 = lm._period_slice(params["periods"], 0)["b0"]["mixer"]
-        x = lm._embed(cfg, params, long.prompt)
+        x = lm._embed(cfg, params, long_prompt)
         q, k, v = L._qkv(p0, cfg, L.rmsnorm(p0["ln"], x))
         pos = torch.arange(x.shape[1], device=x.device)
         q, k = L.rope(q, pos, cfg.rope_theta), L.rope(k, pos, cfg.rope_theta)
@@ -3410,7 +3570,7 @@ def phase_serve(seed: int = 0) -> dict:
             f"{ms * cfg.n_layers:.1f} ms over {cfg.n_layers} layers")
     log(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
         f"phase done in {time.perf_counter() - t_phase:.1f} s")
-    del params, res, long
+    del params, res, long_prompt, long_logits
     torch.cuda.empty_cache()
     return launches
 
@@ -4019,6 +4179,304 @@ def phase_moe(seed: int = 0, cfg=None, cut_cfg=None, device: str = "cuda") -> di
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: SSM serving, xlstm-350m at full width and depth and a full-width
+# cut of jamba-1.5-large
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "xlstm-350m"
+SSM_CUT_ARCH, SSM_CUT_BLOCKS = "jamba-1.5-large-398b", 4  # its period's first 4 blocks, once
+# Float32 copies of the weights, per layer: decode at the last prompt position
+# against prefill there, elementwise (tests/test_ssm_numerics.py's bound).
+SSM_DECODE_TOL = dict(atol=2e-4, rtol=1e-3)
+SSM_SCAN_LAYERS = (0, -1)  # at the long prompt: the first and last layer of each scan kind
+
+
+def _scan_check(cfg, p, mixer: str, h, label: str, timed: bool = False) -> float:
+    """The scan of one mamba or sLSTM layer, on that layer's own input ``h``
+    (the serving weights): the kernel against its plain version within
+    SCAN_TOL of the output's scale, and a rerun with equal bits; with
+    ``timed``, the kernel's time at these shapes beside its bound.  Returns
+    the error over the scale."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.slstm_scan import slstm_scan
+    from repro_torch.models import ssm
+
+    if mixer == "mamba":
+        x1, _, dtv, a, bmat, cmat = ssm.mamba_scan_inputs(p, cfg, h)
+        kernel = lambda: selective_scan(x1, dtv, a, bmat, cmat)
+        want = ref.selective_scan_plain(x1, dtv, a, bmat, cmat, chunk=SCAN_PLAIN_CHUNK)
+        b_ms, b_by = _selective_scan_bound(*x1.shape, a.shape[1], x1.element_size())
+    else:
+        xproj = ssm.slstm_scan_input(p, h)
+        kernel = lambda: slstm_scan(xproj, p["wr"], p["bias"])
+        want = ref.slstm_scan_plain(xproj, p["wr"], p["bias"])
+        b_ms, b_by = _slstm_scan_bound(*xproj.shape[:2], *p["wr"].shape[:2],
+                                       xproj.element_size(), p["wr"].element_size())
+    got = kernel()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= SCAN_TOL * scale,
+            f"{label}: {mixer} scan kernel vs plain max |diff| {err:.3e} at scale {scale:.3f}")
+    require(torch.equal(got, kernel()), f"{label}: the {mixer} scan kernel's rerun differs")
+    if timed:
+        ms = time_ms(kernel, reps=5, warmup=1)
+        log(f"[ssm] {label}: the {mixer} scan kernel at {tuple(got.shape)}: {ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), {ms / b_ms:.1f}x")
+    return err / scale
+
+
+def _ssm_layerwise(cfg, params, tokens, label: str, scan_layers=None) -> dict:
+    """Bf16 prefill of ``tokens`` block by block (the serving weights); at
+    each mamba or sLSTM layer (the ``scan_layers``-th of its kind, every one
+    when None), :func:`_scan_check` on that layer's own input, the first
+    checked of each kind timed.  Returns the worst error over scale by
+    mixer."""
+    import torch
+
+    from repro_torch.models import lm
+
+    require(not cfg.remainder, f"{cfg.name}: the layer walk covers the periods only")
+    blocks = [(i, j, blk) for i in range(cfg.n_periods) for j, blk in enumerate(cfg.pattern)]
+    kinds = {m: [k for k, (_, _, blk) in enumerate(blocks) if blk[0] == m]
+             for m in ("mamba", "slstm")}
+    check = {m: (set(ks) if scan_layers is None else {ks[i] for i in scan_layers if ks})
+             for m, ks in kinds.items()}
+    worst, timed = {}, set()
+    with torch.inference_mode():
+        h = lm._embed(cfg, params, tokens)
+        for k, (i, j, blk) in enumerate(blocks):
+            p = lm._period_slice(params["periods"], i)[f"b{j}"]
+            mixer = blk[0]
+            if k in check.get(mixer, ()):
+                e = _scan_check(cfg, p["mixer"], mixer, h, f"{label} layer {k}",
+                                timed=mixer not in timed)
+                timed.add(mixer)
+                worst[mixer] = max(worst.get(mixer, 0.0), e)
+            h, _ = lm._apply_block_train(cfg, blk, p, h)
+    log(f"[ssm] {label} layer by layer (B={tokens.shape[0]}, S={tokens.shape[1]}): scan kernel "
+        f"vs plain max |diff| / scale {worst} over layers "
+        f"{ {m: sorted(c) for m, c in check.items() if c} } (tolerance {SCAN_TOL}); reruns "
+        f"bit-equal")
+    return worst
+
+
+def _ssm_decode_check(cfg, params, tokens) -> float:
+    """Float32 copies of the weights, layer by layer on each layer's own
+    input: the block's decode form fed the prompt one position at a time,
+    its output at the last position against the block's prefill output
+    there, within SSM_DECODE_TOL.  Returns the worst excess of |diff| over
+    rtol |prefill|, relative to atol."""
+    import torch
+
+    from repro_torch.models import lm
+
+    b, s = tokens.shape
+    worst = 0.0
+    with torch.inference_mode():
+        h = lm._embed(cfg, params, tokens)
+        for i in range(cfg.n_periods):
+            pp = lm._period_slice(params["periods"], i)
+            for j, blk in enumerate(cfg.pattern):
+                p = pp[f"b{j}"]
+                out, _ = lm._apply_block_train(cfg, blk, p, h)
+                cache = lm._block_cache(cfg, blk, b, s, torch.float32, h.device)
+                for t in range(s):
+                    dec = lm._apply_block_decode(cfg, blk, p, cache, h[:, t:t + 1], t)
+                want = out[:, -1]
+                excess = (dec[:, 0] - want).abs() - SSM_DECODE_TOL["rtol"] * want.abs()
+                e = float(excess.max()) / SSM_DECODE_TOL["atol"]
+                worst = max(worst, e)
+                require(e <= 1.0, f"layer {i}.{j} ({blk[0]}) f32 decode vs prefill: "
+                                  f"|diff| - rtol |want| reaches {e:.2f} atol")
+                h = out
+    log(f"[ssm] f32 layer by layer ({cfg.n_layers} layers, B={b}, S={s}): decode at the last "
+        f"position vs prefill, worst (|diff| - {SSM_DECODE_TOL['rtol']} |prefill|) / "
+        f"{SSM_DECODE_TOL['atol']} = {worst:.3f} (at most 1)")
+    return worst
+
+
+def _ssm_decode_bound_ms(cfg, params, batch: int, total: int, device) -> tuple:
+    """The least ms of one decode step at 3.35 TB/s and its bytes: every
+    weight but the embedding table read once (the B embedding rows
+    instead), every recurrent state read and written, and half the
+    attention caches' positions read (the mean over the serve's steps)."""
+    import math
+
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves
+
+    n_bytes = batch * cfg.d_model * 2
+    for path, x in leaves(params):
+        if path[0] != "embed":
+            n_bytes += math.prod(x.shape) * x.element_size()
+    for path, x in _cache_tensors(lm.init_cache(cfg, batch, total, device=device)):
+        size = x.numel() * x.element_size()
+        n_bytes += size / 2 if "kv" in path else 2 * size
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_bytes
+
+
+def _cache_tensors(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _cache_tensors(v, path + (k,))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from _cache_tensors(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _ssm_serve(cfg, seed: int, device: str, label: str, expect: dict, f32_check: bool) -> dict:
+    """One config of phase 13: random bf16 weights, ``serve()`` at phase 6's
+    defaults (its launches counted from 0), the scans layer by layer at the
+    64-token prompt, the float32 decode check (``f32_check``), a 2,048-token
+    prefill with its launches, the scans at its first and last layers, warm
+    prefill and decode times beside decode's bound, and the peak memory.
+    ``expect`` maps each kernel to its launches a prefill.  Returns the
+    serve's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.kernels.flash_attention import COPY_COUNTER, TC_COUNTER
+    from repro_torch.launch.serve import admit_requests, serve
+    from repro_torch.models import lm
+    from repro_torch.models.params import n_params
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    on_card = device == "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.concrete_params(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    n = n_params(params)
+    mixers = sorted({m for m, _ in cfg.all_blocks})
+    log(f"[ssm] {label}: {cfg.n_layers} layers {mixers}, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads (kv {cfg.n_kv_heads}), vocab {cfg.vocab_size}, {cfg.dtype}: {n} parameters "
+        f"({n * 2 / 1e9:.2f} GB; param_count() {cfg.param_count()}) made in "
+        f"{time.perf_counter() - t0:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # 1. The main path at serve.py's defaults, counted from 0.
+    counters = (*BUILT, TC_COUNTER, COPY_COUNTER)
+    for name in counters:
+        LAUNCH_COUNTS[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serve(cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=seed,
+                n_docs=SERVE_DOCS, device=device, params=params)
+    wall = time.perf_counter() - t0
+    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    tc, copies = LAUNCH_COUNTS[TC_COUNTER], LAUNCH_COUNTS[COPY_COUNTER]
+    log(f"[ssm] {label} admission sketch on {res.run_info.attr}: skipping "
+        f"{res.skipped_fraction:.1%} of request pool ({len(res.selected_docs)} of {SERVE_DOCS} "
+        f"admitted)")
+    _serve_line(f"{label} bf16 defaults", res, SERVE_PROMPT)
+    log(f"[ssm] {label} serve() wall {wall:.2f} s; launches {launches}; {tc} tensor-core "
+        f"flash_attention launches, {copies} aligned copies")
+    for name, want in expect.items():
+        require(not on_card or launches[name] == want,
+                f"{label}: the serve launched {name} {launches[name]} times, expected {want}")
+    require(not on_card or tc == expect.get("flash_attention", 0),
+            f"{label}: {tc} tensor-core flash_attention launches")
+    require(copies == 0, f"{label}: the prefill copied {copies} views for TMA's alignment")
+    require(not on_card or launches["segment_aggregate"] > 0,
+            f"{label}: the admission did not aggregate on the card")
+    require(res.prefill_logits.shape == (SERVE_REQUESTS, cfg.vocab_p)
+            and bool(torch.isfinite(res.prefill_logits).all())
+            and bool(torch.isfinite(res.last_logits).all()), f"{label}: logits not finite")
+    require(res.generated.shape == (SERVE_REQUESTS, SERVE_GEN)
+            and int(res.generated.min()) >= 0 and int(res.generated.max()) < cfg.vocab_size,
+            f"{label}: generated tokens out of range")
+
+    # 2. The scans layer by layer on the serving weights at the 64-token prompt,
+    # and (xlstm) decode against prefill on float32 copies.
+    _ssm_layerwise(cfg, params, res.prompt, f"{label} S={SERVE_PROMPT}")
+    if f32_check:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = params.map(lambda x: x.to(torch.float32))
+        _ssm_decode_check(cfg32, params32, res.prompt)
+        del params32
+        torch.cuda.empty_cache()
+
+    # 3. The long prompt: its admission and one prefill (no decode through it).
+    long_prompt, _ = admit_requests(cfg, requests=SERVE_REQUESTS, prompt_len=LONG_PROMPT,
+                                    seed=seed, n_docs=SERVE_DOCS, device=device)
+    with torch.inference_mode():
+        before = {name: LAUNCH_COUNTS[name] for name in counters}
+        logits = lm.prefill(params, cfg, {"tokens": long_prompt})
+        torch.cuda.synchronize()
+        got = {name: LAUNCH_COUNTS[name] - before[name] for name in counters}
+        require(logits.shape == (SERVE_REQUESTS, cfg.vocab_p)
+                and bool(torch.isfinite(logits).all()), f"{label}: long-prompt logits not finite")
+        for name, want in expect.items():
+            require(not on_card or got[name] == want,
+                    f"{label}: the {LONG_PROMPT}-token prefill launched {name} {got[name]} times")
+        require(not on_card or got[TC_COUNTER] == expect.get("flash_attention", 0),
+                f"{label}: the long prefill's tensor-core launches {got[TC_COUNTER]}")
+        require(got[COPY_COUNTER] == 0, f"{label}: the long prefill copied views")
+        log(f"[ssm] {label} {LONG_PROMPT}-token prefill launches "
+            f"{ {k: v for k, v in got.items() if v} }, finite logits")
+        del logits
+        for tokens in (res.prompt, long_prompt):
+            ms = time_ms(lambda: lm.prefill(params, cfg, {"tokens": tokens}), reps=3, warmup=1)
+            log(f"[ssm] {label} warm bf16 prefill B={tokens.shape[0]} S={tokens.shape[1]}: "
+                f"{ms:.2f} ms ({tokens.numel() / ms * 1e3:.0f} tok/s)")
+    _ssm_layerwise(cfg, params, long_prompt, f"{label} S={LONG_PROMPT}",
+                   scan_layers=SSM_SCAN_LAYERS)
+
+    # 4. Decode: the serve's steps, a warm step, and its bound.
+    total = SERVE_PROMPT + SERVE_GEN
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, SERVE_REQUESTS, total, device=device)
+        tok = res.prompt[:, 0]
+        ms = time_ms(lambda: lm.decode_step(params, cfg, cache, tok, SERVE_PROMPT), reps=5,
+                     warmup=2)
+    b_ms, b_bytes = _ssm_decode_bound_ms(cfg, params, SERVE_REQUESTS, total, device)
+    log(f"[ssm] {label} decode B={SERVE_REQUESTS}: {res.per_token_s * 1e3:.2f} ms a step over "
+        f"serve's {res.n_decode_steps} steps, a warm step {ms:.2f} ms (CUDA events); bound "
+        f"{b_ms:.3f} ms ({b_bytes / 1e9:.3f} GB of weights and states at 3.35 TB/s)")
+    log(f"[ssm] {label} peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del params, res, cache, long_prompt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ssm(seed: int = 0, cfg=None, cut_cfg=None, device: str = "cuda") -> dict:
+    """Serve xlstm-350m at full width and depth on the card, then
+    jamba-1.5-large-398b at full width over the first four blocks of its
+    period; returns the main path's launches (both default serves, each
+    counted from 0).  ``cfg``, ``cut_cfg`` and ``device`` serve a rehearsal
+    on the CPU at the smoke configs (``cuda`` calls stubbed, launch checks
+    lenient)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(SSM_ARCH)
+    n_slstm = sum(1 for m, _ in cfg.all_blocks if m == "slstm")
+    launches = _ssm_serve(cfg, seed, device, cfg.name, {"slstm_scan": n_slstm,
+                                                        "selective_scan": 0}, f32_check=True)
+    if cut_cfg is None:
+        full = get_config(SSM_CUT_ARCH)
+        cut_cfg = dataclasses.replace(full, n_layers=SSM_CUT_BLOCKS, n_periods=1,
+                                      pattern=full.pattern[:SSM_CUT_BLOCKS])
+    kinds = [m for m, _ in cut_cfg.all_blocks]
+    cut = _ssm_serve(cut_cfg, seed, device,
+                     f"{cut_cfg.name} ({len(kinds)} of its 72 blocks)",
+                     {"selective_scan": kinds.count("mamba"), "slstm_scan": 0,
+                      "flash_attention": kinds.count("attn")}, f32_check=False)
+    for name, count in cut.items():
+        launches[name] += count
+    log(f"[ssm] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a checkout of "
@@ -4066,8 +4524,10 @@ def main() -> int:
     launches["flash_attention"] = phase_serve(SEED_SERVE)["flash_attention"]
     train_launches = phase_train(SEED_SERVE)
     moe_launches = phase_moe(SEED_SERVE)
+    ssm_launches = phase_ssm(SEED_SERVE)
     for name, _, _ in KERNELS:
-        launches[name] = launches.get(name, 0) + train_launches[name] + moe_launches[name]
+        launches[name] = (launches.get(name, 0) + train_launches[name] + moe_launches[name]
+                          + ssm_launches[name])
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -28,7 +28,8 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
                             "fragment_bitmap_batch", "segment_aggregate_batch",
-                            "flash_attention", "flash_attention_bwd")
+                            "flash_attention", "flash_attention_bwd", "selective_scan",
+                            "slstm_scan")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -78,6 +79,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "flash_attention_bwd_plan": (None, [_I, _P]),
         "flash_attention_bwd_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                             _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _F]),
+    },
+    "selective_scan": {
+        "selective_scan_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
+    },
+    "slstm_scan": {
+        "slstm_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I]),
     },
 }
 

@@ -186,3 +186,129 @@ def flash_attention_bwd_ref(
         dk = dk.reshape(b, hkv, group, t, d).sum(dim=2)
         dv = dv.reshape(b, hkv, group, t, d).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent mixers' scans (``models/ssm.py``)
+# ---------------------------------------------------------------------------
+#
+# The reference's ``jax.nn`` activations, each rounded where XLA rounds it:
+# in bfloat16 every step of the expansion rounds to the dtype (``logistic``
+# is ``1 / (1 + exp(-x))``, ``softplus`` is ``logaddexp(x, 0)``); in float32
+# no torch formula repeats XLA-CPU's ``exp``/``log1p`` bit for bit, and
+# ``torch.sigmoid`` is the nearest form of ``logistic``.
+
+
+class _Sigmoid(torch.autograd.Function):
+    """``lax.logistic`` with its JVP rule as the gradient: ``g * (y * (1 -
+    y))``, each step rounded to the dtype (autograd through ``1 / (1 +
+    exp(-x))`` rounds other steps in bfloat16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sigmoid(x) if x.dtype == torch.float32 else 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``."""
+    return _Sigmoid.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)`` (in bfloat16 the MLP's
+    ``layers.silu`` forward; in float32 through ``torch.sigmoid``)."""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``jnp.logaddexp(x, 0)`` =
+    ``max(x, 0) + log1p(exp(-|x|))`` (not ``F.softplus``'s form)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+def selective_scan_plain(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                         bmat: torch.Tensor, cmat: torch.Tensor,
+                         chunk: int = 1024) -> torch.Tensor:
+    """The plain version of ``selective_scan``: the body of the reference's
+    ``mamba_train`` scans (``repro/models/ssm.py:87-108``), transcribed.
+
+    ``x1`` (B, S, di) in the model's dtype, read as float32; ``dt`` (B, S,
+    di) float32 after the softplus; ``a`` (di, n) float32 (``-exp(a_log)``);
+    ``bmat``, ``cmat`` (B, S, n) float32.  Returns ``ys`` (B, S, di) float32.
+    Chunk by chunk, the (B, c, di, n) ``decay = exp(dt a)`` and ``drive =
+    (dt x) b``, then one step a position: ``h = h decay + drive``, ``y =
+    einsum(h, c)``.  The state carries across chunks, so the chunk bounds
+    memory only: the reference pads the last chunk with zero steps after the
+    real ones, which change no output, and the last chunk here is ragged."""
+    b, s, di = x1.shape
+    c = max(1, min(chunk, s))
+    h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32, device=x1.device)
+    ys = []
+    for c0 in range(0, s, c):
+        dtc = dt[:, c0:c0 + c]
+        decay = torch.exp(dtc[..., None] * a)  # (B, c, di, n)
+        drive = (dtc * x1[:, c0:c0 + c].to(torch.float32))[..., None] * bmat[:, c0:c0 + c, None, :]
+        for t in range(dtc.shape[1]):
+            h = h * decay[:, t] + drive[:, t]
+            ys.append(torch.einsum("bin,bn->bi", h, cmat[:, c0 + t]))
+    if not ys:
+        return torch.zeros((b, 0, di), dtype=torch.float32, device=x1.device)
+    return torch.stack(ys, dim=1)
+
+
+def slstm_cell(xt: torch.Tensor, hprev: torch.Tensor, state, wr: torch.Tensor,
+               bias: torch.Tensor):
+    """One sLSTM step (``_slstm_cell`` and ``_slstm_step``): ``xt`` (B, 4d)
+    in its dtype, ``hprev`` (B, H, uh) float32, ``state`` (c, n, m) float32,
+    ``wr`` (H, uh, 4 uh) and ``bias`` (H, 4 uh) already float32.  Returns
+    ``(h, (c, n, m))``: the recurrent product, then ``(x + rec) + bias``,
+    the z, i, f, o gates, the log-sigmoid forget gate, the stabilizer m and
+    ``h = sigmoid(o) c / max(n, 1e-6)``."""
+    b = xt.shape[0]
+    hh, uh = wr.shape[0], wr.shape[1]
+    c, n, m = state
+    rec = torch.einsum("bhu,hug->bhg", hprev, wr)
+    pre = xt.reshape(b, hh, 4 * uh).to(torch.float32) + rec + bias
+    zt, it, ft, ot = torch.split(pre, uh, dim=-1)
+    logf = log_sigmoid(ft)
+    m_new = torch.maximum(logf + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(logf + m - m_new)
+    c_new = f_p * c + i_p * torch.tanh(zt)
+    n_new = f_p * n + i_p
+    h_new = sigmoid(ot) * c_new / torch.clamp_min(n_new, 1e-6)
+    return h_new, (c_new, n_new, m_new)
+
+
+def slstm_scan_plain(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``slstm_scan``: the forward of the reference's
+    ``_slstm_scan_p`` (``_slstm_scan_fwd_impl``, ``repro/models/ssm.py:356``),
+    one :func:`slstm_cell` a position from zero states and ``m = -1e30``.
+    ``xproj`` (B, S, 4d) in its dtype, ``wr`` (H, uh, 4 uh) and ``bias``
+    (4d) in their stored dtype, widened to float32.  Returns ``hs`` (B, S,
+    H, uh) float32."""
+    b, s, _ = xproj.shape
+    hh, uh = wr.shape[0], wr.shape[1]
+    w = wr.to(torch.float32)
+    bi = bias.reshape(hh, 4 * uh).to(torch.float32)
+    z = torch.zeros((b, hh, uh), dtype=torch.float32, device=xproj.device)
+    h, state = z, (z, z, torch.full_like(z, -1e30))
+    hs = []
+    for t in range(s):
+        h, state = slstm_cell(xproj[:, t], h, state, w, bi)
+        hs.append(h)
+    if not hs:
+        return torch.zeros((b, 0, hh, uh), dtype=torch.float32, device=xproj.device)
+    return torch.stack(hs, dim=1)

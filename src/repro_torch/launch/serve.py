@@ -4,9 +4,11 @@ requests (the port of ``repro/launch/serve.py``).
 A request pool carries metadata (the corpus schema); a PBDS sketch filters
 which requests a serving policy ("serve only domains whose mean quality
 passes tau") touches, then the model prefills the batch and decodes.  On
-the card every prefill attention layer runs the flash-attention kernel.
-Dense and MoE configs serve (``--arch qwen2-moe-a2.7b --no-smoke`` holds
-30.3 GB of bf16 weights on one card).
+the card every prefill attention layer runs the flash-attention kernel,
+every mamba layer the selective-scan kernel and every sLSTM layer the
+sLSTM-scan kernel.  Dense, MoE and recurrent configs serve (``--arch
+qwen2-moe-a2.7b --no-smoke`` holds 30.3 GB of bf16 weights on one card,
+``--arch xlstm-350m --no-smoke`` 0.91 GB).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b --smoke \\
       --requests 16 --prompt-len 64 --gen 16 [--device cpu]

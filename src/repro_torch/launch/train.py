@@ -21,6 +21,12 @@ bf16 weights and gradients, the f32 master and the two f32 moments come to
 for qwen2-moe's 15.15 B parameters (its padded experts included) and 481 GB
 for qwen3-moe's 30.1 B, against the card's 80 GB; they wait for the
 multi-card path (ROADMAP A7.6).
+
+The recurrent configs (``--arch xlstm-350m``, ``jamba-1.5-large-398b``)
+train at ``--smoke`` on the CPU, where autograd differentiates the scans'
+plain versions.  On the card their forward runs the selective-scan and
+sLSTM-scan kernels, whose backward kernels wait for ROADMAP A7.4b: a
+training step there raises ``NotImplementedError`` in the backward.
 """
 from __future__ import annotations
 

@@ -16,11 +16,12 @@ Entry points:
 Training differentiates ``loss_fn`` with autograd; ``remat="full"``
 recomputes each period in the backward (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` around its scan body).  The port has the
-mixers ``attn``/``swa`` and the FFNs ``mlp`` and ``moe``; the SSM/xLSTM
-mixers, the vision front end and encoder-decoder configs raise
-``NotImplementedError`` (ROADMAP A7).  The reference's
-``parallel/context.py`` sharding constraints are identities on one card and
-are not called.
+mixers ``attn``/``swa``, ``mamba``, ``mlstm`` and ``slstm`` (``ssm.py``) and
+the FFNs ``mlp``, ``moe`` and ``none``; the vision front end and
+encoder-decoder configs raise ``NotImplementedError`` (ROADMAP A7).  On the
+card a gradient through the mamba or sLSTM scan kernel raises (its backward
+waits for ROADMAP A7.4b).  The reference's ``parallel/context.py`` sharding
+constraints are identities on one card and are not called.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import Block, ModelConfig
 from repro_torch.models.params import P, ParamTree, init_params, stack
 
@@ -43,18 +45,23 @@ def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} {WAITS}")
 
 
+MIXERS = ("attn", "swa", "mamba", "mlstm", "slstm")
+FFNS = ("mlp", "moe", "none")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not have yet: every block must be
-    ``attn``/``swa`` + ``mlp``/``moe``, with no front end and no encoder."""
+    """Raise for what the port does not have yet: every block's mixer must
+    be one of ``MIXERS`` and its FFN one of ``FFNS``, with no front end and
+    no encoder."""
     if cfg.is_encdec:
         raise _unsupported(f"{cfg.name}: the encoder-decoder backbone")
     if cfg.frontend:
         raise _unsupported(f"{cfg.name}: the {cfg.frontend} front end")
     for mixer, ffn in cfg.all_blocks:
-        if mixer not in ("attn", "swa"):
-            raise _unsupported(f"{cfg.name}: the {mixer} mixer (models/ssm.py)")
-        if ffn not in ("mlp", "moe"):
-            raise _unsupported(f"{cfg.name}: the {ffn} FFN")
+        if mixer not in MIXERS:
+            raise ValueError(f"{cfg.name}: no mixer {mixer!r}")
+        if ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: no FFN {ffn!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -62,10 +69,23 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _mixer_params(cfg: ModelConfig, mixer: str) -> Dict[str, Any]:
+    if mixer == "mamba":
+        return S.mamba_params(cfg)
+    if mixer == "mlstm":
+        return S.mlstm_params(cfg)
+    if mixer == "slstm":
+        return S.slstm_params(cfg)
+    return L.attn_params(cfg)
+
+
 def _block_params(cfg: ModelConfig, block: Block) -> Dict[str, Any]:
-    _, ffn = block
-    return {"mixer": L.attn_params(cfg),
-            "ffn": L.moe_params(cfg) if ffn == "moe" else L.mlp_params(cfg)}
+    """The block's mixer and, unless its FFN is ``none``, its FFN."""
+    mixer, ffn = block
+    p: Dict[str, Any] = {"mixer": _mixer_params(cfg, mixer)}
+    if ffn != "none":
+        p["ffn"] = L.moe_params(cfg) if ffn == "moe" else L.mlp_params(cfg)
+    return p
 
 
 def build_param_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -102,11 +122,19 @@ def _apply_block_train(cfg: ModelConfig, block: Block, p, h: torch.Tensor):
     mixer, ffn = block
     if mixer == "attn":
         h = L.attention_train(p["mixer"], cfg, h, causal=True)
-    else:  # swa
+    elif mixer == "swa":
         h = L.attention_train(p["mixer"], cfg, h, window=cfg.sliding_window)
+    elif mixer == "mamba":
+        h = S.mamba_train(p["mixer"], cfg, h)
+    elif mixer == "mlstm":
+        h = S.mlstm_train(p["mixer"], cfg, h)
+    else:  # slstm
+        h = S.slstm_train(p["mixer"], cfg, h)
     if ffn == "moe":
         return L.moe(p["ffn"], cfg, h)
-    return L.mlp(p["ffn"], cfg, h), 0.0
+    if ffn == "mlp":
+        return L.mlp(p["ffn"], cfg, h), 0.0
+    return h, 0.0
 
 
 def _period(cfg: ModelConfig, pp, h: torch.Tensor, aux: torch.Tensor):
@@ -143,6 +171,8 @@ def _period_slice(tree, i: int):
     leaf indexed at ``i`` on its leading axis (views, no copies)."""
     if isinstance(tree, torch.Tensor):
         return tree[i]
+    if isinstance(tree, tuple):  # the sLSTM cache (h, c, n, m)
+        return tuple(_period_slice(v, i) for v in tree)
     return {k: _period_slice(v, i) for k, v in tree.items()}
 
 
@@ -220,7 +250,16 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.T
 
 
 def _block_cache(cfg: ModelConfig, block: Block, batch: int, length: int, dtype, device):
+    """The reference's block cache: ``kv`` for attention, ``ssm`` (mamba's
+    state and conv tail, the tail in ``dtype``), ``ml`` (mLSTM's c, n, m) or
+    ``sl`` (sLSTM's (h, c, n, m) tuple); recurrent states in float32."""
     mixer, _ = block
+    if mixer == "mamba":
+        return {"ssm": S.init_mamba_cache(cfg, batch, dtype, device)}
+    if mixer == "mlstm":
+        return {"ml": S.init_mlstm_cache(cfg, batch, device)}
+    if mixer == "slstm":
+        return {"sl": S.init_slstm_cache(cfg, batch, device)}
     window = cfg.sliding_window if mixer == "swa" else 0
     return {"kv": L.init_attn_cache(cfg, batch, length, window, dtype, device)}
 
@@ -242,19 +281,45 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device: DeviceLike = N
 def _stack_leaves(tree, n: int):
     if isinstance(tree, torch.Tensor):
         return tree[None].repeat((n,) + (1,) * tree.dim())
+    if isinstance(tree, tuple):
+        return tuple(_stack_leaves(v, n) for v in tree)
     return {k: _stack_leaves(v, n) for k, v in tree.items()}
+
+
+def _store(cache, new) -> None:
+    """Copy a recurrent mixer's new state into its cache tensors (views of
+    the stacked cache), leaf by leaf, cast to each leaf's dtype."""
+    if isinstance(cache, torch.Tensor):
+        cache.copy_(new)
+    elif isinstance(cache, tuple):
+        for c, x in zip(cache, new):
+            _store(c, x)
+    else:
+        for k, c in cache.items():
+            _store(c, new[k])
 
 
 # -- decode -------------------------------------------------------------------
 
 
 def _apply_block_decode(cfg: ModelConfig, block: Block, p, c, h: torch.Tensor, pos: int):
+    """One block of one decode step; the block's cache ``c`` is updated in
+    place (attention writes its slot, a recurrent mixer's new state is
+    copied over its old one)."""
     mixer, ffn = block
-    window = cfg.sliding_window if mixer == "swa" else 0
-    h, _ = L.attention_decode(p["mixer"], cfg, h, c["kv"], pos, window=window)
+    if mixer in ("attn", "swa"):
+        window = cfg.sliding_window if mixer == "swa" else 0
+        h, _ = L.attention_decode(p["mixer"], cfg, h, c["kv"], pos, window=window)
+    else:
+        step, key = {"mamba": (S.mamba_decode, "ssm"), "mlstm": (S.mlstm_decode, "ml"),
+                     "slstm": (S.slstm_decode, "sl")}[mixer]
+        h, state = step(p["mixer"], cfg, h, c[key])
+        _store(c[key], state)
     if ffn == "moe":  # one position a row: groups of 1, an expert's capacity 1
         return L.moe(p["ffn"], cfg, h)[0]
-    return L.mlp(p["ffn"], cfg, h)
+    if ffn == "mlp":
+        return L.mlp(p["ffn"], cfg, h)
+    return h
 
 
 def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos: int):
@@ -284,8 +349,9 @@ def decode_step(params, cfg: ModelConfig, cache, token: torch.Tensor, pos: int):
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward returning last-position logits (B, vocab_p),
-    float32.  Every attention layer runs the flash-attention kernel on the
-    card."""
+    float32.  On the card every attention layer runs the flash-attention
+    kernel, every mamba layer the selective-scan kernel and every sLSTM
+    layer the sLSTM-scan kernel."""
     check_supported(cfg)
     h = _embed(cfg, params, batch["tokens"])
     h, _ = _run_stack(cfg, params, h)

@@ -570,13 +570,25 @@ def _models(arch: str, dtype: str):
                                                device="cpu")
 
 
+def _cache_leaves(tree):
+    """(path, tensor) pairs of a decode cache, the sLSTM's (h, c, n, m)
+    tuple by index."""
+    for path, x in leaves(tree):
+        if isinstance(x, tuple):
+            yield from ((path + (str(i),), t) for i, t in enumerate(x))
+        else:
+            yield path, x
+
+
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "internlm2-20b", "gemma3-27b",
-                                  "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+                                  "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "xlstm-350m",
+                                  "jamba-1.5-large-398b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_reference(arch, dtype):
     """Prefill's logits, then teacher-forced decode: every step's logits and
-    the whole cache after the last step (periods and remainder).  The MoE
-    configs route each decode step's single position alone (capacity 1)."""
+    the whole cache after the last step (periods and remainder; the mamba,
+    mLSTM and sLSTM states of xlstm-350m and jamba).  The MoE configs route
+    each decode step's single position alone (capacity 1)."""
     rcfg, rp, cfg, tp = _models(arch, dtype)
     b, s = 2, 6
     tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -596,7 +608,7 @@ def test_prefill_and_decode_match_reference(arch, dtype):
                                   jnp.asarray(i, jnp.int32))
             got, tcache = tlm.decode_step(tp, cfg, tcache, torch.from_numpy(tokens[:, i]), i)
             assert_close(got, want, dtype, err_msg=f"step {i}")
-    ref_leaves, port_leaves = dict(leaves(rcache)), dict(leaves(tcache))
+    ref_leaves, port_leaves = dict(_cache_leaves(rcache)), dict(_cache_leaves(tcache))
     assert set(ref_leaves) == set(port_leaves)
     for path, x in ref_leaves.items():
         assert tuple(port_leaves[path].shape) == x.shape, path
@@ -631,15 +643,13 @@ def test_sliding_window_cache_ring_buffer():
     np.testing.assert_allclose(logits.numpy(), full.numpy(), atol=0.2, rtol=0.08)
 
 
-UNPORTED = ["jamba-1.5-large-398b", "xlstm-350m", "llava-next-mistral-7b",
-            "seamless-m4t-medium"]
+UNPORTED = ["llava-next-mistral-7b", "seamless-m4t-medium"]
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_configs_raise(arch):
-    """SSM/xLSTM (jamba's MoE blocks with its mamba mixer), vision and
-    encoder-decoder configs wait for their slice: parameters, caches,
-    prefill and the training loss raise."""
+    """The vision and encoder-decoder configs wait for their slice:
+    parameters, caches, prefill and the training loss raise."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tlm.concrete_params(cfg, device="cpu")
@@ -653,4 +663,5 @@ def test_unported_configs_raise(arch):
 
 def test_every_arch_is_either_ported_or_refused():
     assert set(ARCHS) == set(UNPORTED) | {"stablelm-1.6b", "internlm2-20b", "gemma3-27b",
-                                          "qwen1.5-32b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"}
+                                          "qwen1.5-32b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                                          "xlstm-350m", "jamba-1.5-large-398b"}

@@ -395,6 +395,11 @@ def _port_grads(cfg, params, tokens):
     return loss, torch.autograd.grad(loss, flat)
 
 
+# The configs whose bf16 gradients are held per leaf in norm against the
+# reference's own bf16 error (the MoE configs of attention blocks).
+MOE_NORM_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
+
+
 @pytest.mark.parametrize("arch,dtype,cfg_kw", [
     pytest.param("stablelm-1.6b", "float32", {}, id="float32-cfg_kw0"),
     pytest.param("stablelm-1.6b", "bfloat16", {}, id="bfloat16-cfg_kw1"),
@@ -406,6 +411,10 @@ def _port_grads(cfg, params, tokens):
     pytest.param("qwen3-moe-30b-a3b", "bfloat16", {}, id="qwen3-moe-bfloat16"),
     pytest.param("qwen2-moe-a2.7b", "float32", {"capacity_factor": 0.5},
                  id="qwen2-moe-float32-drops"),
+    pytest.param("xlstm-350m", "float32", {}, id="xlstm-float32"),
+    pytest.param("xlstm-350m", "bfloat16", {}, id="xlstm-bfloat16"),
+    pytest.param("jamba-1.5-large-398b", "float32", {}, id="jamba-float32"),
+    pytest.param("jamba-1.5-large-398b", "bfloat16", {}, id="jamba-bfloat16"),
 ])
 def test_loss_fn_and_grads_match_reference(arch, dtype, cfg_kw):
     """``loss_fn`` and its gradients against
@@ -427,8 +436,15 @@ def test_loss_fn_and_grads_match_reference(arch, dtype, cfg_kw):
     where the reference's bf16 gradients are 10-22% in norm from its f32
     ones (the port's at most a tenth of that).  The MoE layer's own
     gradients are held elementwise on the same input in
-    ``tests/test_torch_moe.py``.  Sequence 40 with loss and attention chunks
-    of 16: a padded last chunk and three kv chunks."""
+    ``tests/test_torch_moe.py``.  The recurrent smoke configs: xlstm-350m
+    (mLSTM and sLSTM) and jamba-1.5-large-398b (mamba beside attention and
+    MoE) at the same bounds, jamba's bf16 leaves elementwise like the dense
+    configs': behind each mamba layer's convolution its gradients equal the
+    reference's bit for bit, and the convolution's weights' gradient, which
+    the reference sums over the positions in bf16 one row at a time where
+    torch sums in float32, is as close to the f32 gradient as the
+    reference's.  Sequence 40 with loss and
+    attention chunks of 16: a padded last chunk and three kv chunks."""
     rcfg, _, rstate, cfg, _, state = _states(arch, dtype, **cfg_kw)
     tokens = _tokens(cfg, 2, 40)
     value_and_grad = jax.value_and_grad(lambda p, t: rlm.loss_fn(p, rcfg, {"tokens": t}))
@@ -447,7 +463,7 @@ def test_loss_fn_and_grads_match_reference(arch, dtype, cfg_kw):
             _close_in_norm(g, w, GRAD_RTOL_F32, GRAD_ATOL_F32, name)
     else:
         np.testing.assert_allclose(float(loss.detach()), float(rloss), rtol=BF16_TOL)
-        if cfg.n_experts:
+        if arch in MOE_NORM_ARCHS:
             c32 = dataclasses.replace(rcfg, dtype="float32")
             p32 = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), rstate["params"])
             _, g32 = jax.jit(jax.value_and_grad(lambda p, t: rlm.loss_fn(p, c32, {"tokens": t})))(
@@ -547,6 +563,15 @@ def test_moe_train_step_matches_reference(arch):
     _check_train_step(arch)
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_ssm_train_step_matches_reference(arch):
+    """:func:`test_train_step_matches_reference` on the smoke configs with
+    recurrent mixers (xlstm's mLSTM and sLSTM; jamba's mamba beside
+    attention and MoE): autograd through the plain scans against the
+    reference's scans and the sLSTM's custom VJP."""
+    _check_train_step(arch)
+
+
 def _check_train_step(arch: str) -> None:
     rcfg, rspec, rstate, cfg, spec, state = _states(arch, "float32")
     tokens = _tokens(cfg, 4, 32, seed=5)
@@ -629,7 +654,7 @@ def test_train_cli_on_the_cpu_with_resume(tmp_path, monkeypatch, capsys):
     assert out[2] == "[train] resumed from step 3"
     assert out[3].startswith("[train] step=4 loss=")
     assert out[4].endswith("ckpts=[3, 4, 5]")  # keep-last-3
-    monkeypatch.setattr(sys, "argv", ["train", "--no-smoke", "--arch", "xlstm-350m",
+    monkeypatch.setattr(sys, "argv", ["train", "--no-smoke", "--arch", "llava-next-mistral-7b",
                                       "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         ttrain.main()

@@ -927,7 +927,8 @@ def _kernel_slstm_scan(seed: int) -> dict:
     TFLOP/s against its bytes."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import slstm_scan as SS
     from repro_torch.kernels.slstm_scan import slstm_scan
 
     b, s, hh, uh = SLSTM_SHAPE
@@ -947,6 +948,11 @@ def _kernel_slstm_scan(seed: int) -> dict:
     require(torch.equal(got, slstm_scan(xproj, wr, bias)), "slstm_scan gave other bits on a rerun")
     log(f"[kernels] slstm_scan B={b} S={s} H={hh} uh={uh} bf16: max |kernel - plain| {err:.3e} "
         f"at scale {scale:.3f} ({err / scale:.2e} of it, tolerance {SCAN_TOL}), rerun bit-equal")
+    p = SS.card_plan(0, 1, 1, b, hh, uh)
+    resident = build.library(SS.NAME).slstm_scan_max_clusters(0, 1, 1, b, hh, uh, p.cluster,
+                                                               p.groups, p.halves, p.smem)
+    log(f"[kernels] slstm_scan plan {p}: {hh * p.groups} clusters of {p.cluster} CTAs, "
+        f"{resident} resident at once (cudaOccupancyMaxActiveClusters)")
     del want
     b_ms, b_by = _slstm_scan_bound(b, s, hh, uh, xproj.element_size(), wr.element_size())
     row = _scan_row(f"slstm_scan B={b} S={s} H={hh} uh={uh}",

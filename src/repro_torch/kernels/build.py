@@ -84,7 +84,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "selective_scan_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
     },
     "slstm_scan": {
-        "slstm_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I]),
+        "slstm_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _P, _P] + [_I] * 8),
+        "slstm_scan_max_clusters": (_I, [_I] * 10),
     },
 }
 

@@ -5,15 +5,30 @@ It replaces no Pallas kernel: the reference's ``_slstm_scan_p``
 steps one position at a time in a ``lax.scan``.  As torch ops that is about
 fifteen launches a position: a 2,048-token prefill of xlstm-350m's twelve
 sLSTM layers would take some 370,000.  The kernel walks every position in
-one launch; the source says what bounds it.
+one launch.
+
+The recurrence is block-diagonal by head, so the kernel gives each head and
+group of batch rows a thread-block cluster (:func:`plan`): each CTA of the
+cluster holds its units' four gate columns of ``wr`` in shared memory for
+the whole call, takes their recurrent product in float32 on the CUDA cores
+(``slices`` partial sums of ``slice`` u each, added in order: the order
+depends on ``uh`` alone), updates their cells, and sends their new ``h`` to
+every CTA of the cluster through distributed shared memory, one wait a
+position.  A group's rows run as one or two halves that take turns at the
+product.  The source says what bounds it; ``kernels/scan_probe.py``
+measures it.
 
 A CPU tensor goes to the plain version (``ref.slstm_scan_plain``), which
 autograd differentiates; a CUDA tensor goes to the kernel, or the call
-raises.  Under autograd on the card the kernel runs inside an autograd
-function whose backward raises: the counterpart of ``_slstm_scan_bwd``
-waits for ROADMAP A7.4b.
+raises (a shape no plan takes raises ValueError).  Under autograd on the
+card the kernel runs inside an autograd function whose backward raises: the
+counterpart of ``_slstm_scan_bwd`` waits for ROADMAP A7.4b.
 """
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -22,11 +37,161 @@ from repro_torch.kernels.ref import slstm_scan_plain
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "slstm_scan"
-MAX_UNITS = 256  # units a head: a block has a thread per pre-activation, 4 uh <= 1,024
+# Mirrored by the source's constexprs (kMaxUnits, kMaxCluster, kMaxShare,
+# kMaxRows, kMaxHalves, kMaxSmem, kOnePerSm) and its Layout.
+MAX_UNITS = 256  # units a head
+MAX_CLUSTER = 8  # CTAs a head: the portable cluster size
+MAX_SHARE = 32  # units a CTA: 4 x 32 gate columns, 128 threads a half
+MAX_ROWS = 4  # batch rows a half (8 fmaf chains a row a thread)
+MAX_HALVES = 2  # halves of a group's rows, in turn at the product
+MAX_SMEM = 232_448  # dynamic shared memory a block can have on an H100
+ONE_PER_SM = 118_784  # two CTAs of this many bytes do not fit one SM's 228 KB
+# Clusters of 1, 2, 4 and 8 CTAs resident at once on an H100 SXM (132 SMs in
+# GPCs of unequal size; cudaOccupancyMaxActiveClusters on the card, one CTA
+# an SM), used where the card is not asked.
+RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15}
+# The planner's clocks a position (used only to rank plans): FIXED for the
+# cell, the exchange and the waits, and per half and round of 4 u of the
+# product CHUNK_ROW a row plus CHUNK; fitted to the card's times of every
+# plan at 1 to 16 rows of 4 x 256 (``scan_probe --plans``).
+FIXED_CLOCKS, CHUNK_ROW_CLOCKS, CHUNK_CLOCKS = 1700, 62, 40
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BACKWARD_WAITS = ("the sLSTM scan's backward on the card waits for its kernel "
                   "(ROADMAP A7.4b); train on the CPU, where autograd differentiates the "
                   "plain version")
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch: clusters of ``cluster`` CTAs, one a (head, group of batch
+    rows), ``groups`` groups (the grid's y), ``halves`` halves of at most
+    ``rows`` rows a CTA, ``threads`` threads and ``smem`` bytes of dynamic
+    shared memory a CTA.  Each output's recurrent product is ``slices``
+    fmaf chains over ``slice`` consecutive u each, added in order."""
+
+    cluster: int
+    groups: int
+    halves: int
+    rows: int
+    threads: int
+    smem: int
+    slice: int
+    slices: int
+
+    def units(self, uh: int) -> Tuple[Tuple[int, int], ...]:
+        """Each CTA's units of a head, ``(first, count)`` by rank (the
+        source's ``lo`` and ``n``)."""
+        c = self.cluster
+        return tuple((k * uh // c, (k + 1) * uh // c - k * uh // c) for k in range(c))
+
+    def row_ranges(self, b: int) -> Tuple[Tuple[int, int], ...]:
+        """Each (group, half)'s batch rows, ``(first, count)`` (the source's
+        ``b0`` and ``rows``)."""
+        out = []
+        for y in range(self.groups):
+            g0, g1 = y * b // self.groups, (y + 1) * b // self.groups
+            for p in range(self.halves):
+                first = g0 + (g1 - g0) * p // self.halves
+                out.append((first, g0 + (g1 - g0) * (p + 1) // self.halves - first))
+        return tuple(out)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def rows_of(b: int, groups: int, halves: int) -> int:
+    """The rows of the most-filled half (the source's ``rows_of``)."""
+    return _ceil(_ceil(b, groups), halves)
+
+
+def slices_of(uh: int, cluster: int) -> Tuple[int, int]:
+    """``(slice, slices)``: the u a partial sum covers and their count (the
+    source's ``Layout``): a half's threads are groups of 8 of the CTA's
+    padded gate columns times slices of u, a multiple of 4 each."""
+    share = _ceil(uh, cluster)
+    ngroups = _ceil(4 * share, 8)
+    k = min(_ceil(4 * share, 32) * 32 // ngroups, _ceil(uh, 4))
+    slice_ = _ceil(_ceil(uh, k), 4) * 4
+    return slice_, _ceil(uh, slice_)
+
+
+def smem_bytes(uh: int, cluster: int, rows: int, halves: int, w_bytes: int) -> int:
+    """A CTA's dynamic shared memory (the source's ``Layout`` and
+    ``smem_for``): per half two mbarriers, h double-buffered (``rows`` x uh
+    rounded to 8, float32), the partial sums ([rows][slices][columns padded
+    to 8], float32) and the new h of its share; the CTA's wr rows over its
+    padded columns in the stored dtype; at least ONE_PER_SM."""
+    share = _ceil(uh, cluster)
+    cpad = _ceil(4 * share, 8) * 8
+    _, slices = slices_of(uh, cluster)
+    per_half = (2 * rows * _ceil(uh, 8) * 8 * 4 + rows * slices * cpad * 4
+                + _ceil(rows * share * 4, 16) * 16)
+    need = 16 * MAX_HALVES + halves * per_half + _ceil(uh * cpad * w_bytes, 16) * 16
+    return max(need, ONE_PER_SM)
+
+
+def plan(b: int, hh: int, uh: int, w_bytes: int,
+         max_clusters: Optional[Callable[[int, int, int, int], int]] = None) -> Plan:
+    """The launch for ``b`` batch rows of ``hh`` heads of ``uh`` units with
+    ``wr`` of ``w_bytes`` (4 float32, 2 bfloat16) a weight.
+
+    The cluster is the fewest CTAs (1, 2, 4 or 8) that leave each at most
+    MAX_SHARE units: a half of 4 warps at uh = 256.  The groups and halves
+    are those whose launch takes the fewest estimated clocks: waves of
+    resident clusters (``max_clusters(cluster, groups, halves, smem)``, else
+    RESIDENT) times a position's.  Raises ValueError for a shape no plan
+    takes."""
+    if not 1 <= uh <= MAX_UNITS:
+        raise ValueError(f"{uh} units a head: the kernel takes 1 to {MAX_UNITS}")
+    if b < 1 or hh < 1:
+        raise ValueError(f"{b} batch rows of {hh} heads: the kernel needs at least one of each")
+    if w_bytes not in (2, 4):
+        raise ValueError(f"wr of {w_bytes} bytes a weight: the kernel reads float32 or bfloat16")
+    cluster = next(c for c in (1, 2, 4, MAX_CLUSTER) if _ceil(uh, c) <= MAX_SHARE)
+    role_threads = _ceil(4 * _ceil(uh, cluster), 32) * 32
+    slice_, slices = slices_of(uh, cluster)
+    best, best_cost = None, math.inf
+    for halves in range(1, MAX_HALVES + 1):
+        for groups in sorted({_ceil(b, r) for r in range(1, MAX_ROWS * halves + 1)}):
+            rows = rows_of(b, groups, halves)
+            if groups > 65535 or b // groups < halves or rows > MAX_ROWS:
+                continue
+            smem = smem_bytes(uh, cluster, rows, halves, w_bytes)
+            if smem > MAX_SMEM:
+                continue
+            resident = max_clusters(cluster, groups, halves, smem) if max_clusters else None
+            resident = resident if resident and resident > 0 else RESIDENT[cluster]
+            position = FIXED_CLOCKS + halves * _ceil(slice_, 4) * (
+                CHUNK_ROW_CLOCKS * rows + CHUNK_CLOCKS)
+            cost = _ceil(hh * groups, resident) * position
+            if cost < best_cost:
+                best_cost = cost
+                best = Plan(cluster, groups, halves, rows, halves * role_threads, smem, slice_,
+                            slices)
+    if best is None:
+        raise ValueError(f"{b} batch rows: the grid's y axis holds 65,535 groups of at most "
+                         f"{MAX_ROWS * MAX_HALVES} rows")
+    return best
+
+
+_PLANS: Dict[tuple, Plan] = {}
+
+
+def card_plan(index: int, x_code: int, w_code: int, b: int, hh: int, uh: int) -> Plan:
+    """:func:`plan` with the card's resident clusters
+    (``slstm_scan_max_clusters``), cached by shape."""
+    key = (index, x_code, w_code, b, hh, uh)
+    got = _PLANS.get(key)
+    if got is None:
+        lib = build.library(NAME)
+
+        def resident(cluster: int, groups: int, halves: int, smem: int) -> int:
+            return lib.slstm_scan_max_clusters(index, x_code, w_code, b, hh, uh, cluster, groups,
+                                               halves, smem)
+
+        got = _PLANS[key] = plan(b, hh, uh, 2 if w_code else 4, resident)
+    return got
 
 
 def _check(xproj, wr, bias) -> None:
@@ -49,19 +214,17 @@ def _check(xproj, wr, bias) -> None:
 def _launch(xproj, wr, bias) -> torch.Tensor:
     b, s, _ = xproj.shape
     hh, uh, _ = wr.shape
-    if uh > MAX_UNITS:
-        raise ValueError(f"{uh} units a head: the kernel takes at most {MAX_UNITS}")
-    if b > 65535:
-        raise ValueError(f"{b} batch rows: the grid's y axis holds 65,535")
     dev = xproj.device
     xproj, wr, bias = xproj.contiguous(), wr.contiguous(), bias.contiguous()
     hs = torch.empty((b, s, hh, uh), dtype=torch.float32, device=dev)
     if hs.numel() == 0:
         return hs
     index = dev.index if dev.index is not None else torch.cuda.current_device()
+    x_code, w_code = _DTYPE_CODES[xproj.dtype], _DTYPE_CODES[wr.dtype]
+    p = card_plan(index, x_code, w_code, b, hh, uh)
     err = build.library(NAME).slstm_scan_launch(
-        index, build.stream_handle(dev), _DTYPE_CODES[xproj.dtype], _DTYPE_CODES[wr.dtype],
-        xproj.data_ptr(), wr.data_ptr(), bias.data_ptr(), hs.data_ptr(), b, s, hh, uh)
+        index, build.stream_handle(dev), x_code, w_code, xproj.data_ptr(), wr.data_ptr(),
+        bias.data_ptr(), hs.data_ptr(), b, s, hh, uh, p.cluster, p.groups, p.halves, p.smem)
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
     return hs

@@ -130,9 +130,10 @@ def gqa_chunked(
     enabled and an input requires it, through :func:`flash_attention_train`,
     whose backward is the backward kernel, else the forward alone (prefill
     and serving).  The kernels take end-aligned positions and no validity
-    mask: that is every prefill and training call; explicit positions or
-    ``k_valid`` come only from cross-attention, which waits with the
-    encoder-decoder configs, and raise on the card.
+    mask: that is every prefill and training call, and cross-attention too,
+    which is non-causal with T != S.  No reference caller passes explicit
+    positions or ``k_valid`` (only ``gqa_chunked``'s own signature names
+    them); on the card they raise.
     """
     if q.device.type == "cpu":
         return gqa_chunked_plain(q, k, v, causal=causal, window=window,

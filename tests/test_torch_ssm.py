@@ -21,6 +21,7 @@ Tolerances:
   train, the sLSTM gradients): ``tests/test_ssm_numerics.py``'s own.
 """
 import dataclasses
+import re
 import sys
 
 import jax
@@ -235,6 +236,133 @@ def test_ref_scans_match_the_reference_scans():
                 slstm_scan(torch.from_numpy(xproj), tp["wr"], tp["bias"])):
         assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, hh, uh)
         assert_close(got, want, "float32")
+
+
+# The shapes of tests/test_torch_ssm_card.py and of xlstm-350m's layer: (B, H, uh).
+PLAN_SHAPES = [(2, 4, 16), (3, 2, 8), (1, 1, 1), (2, 3, 40), (2, 4, 256), (16, 4, 256),
+               (3, 4, 256), (5, 4, 256), (2, 2, 70), (1, 4, 256), (64, 4, 256), (9, 2, 200)]
+SCAN_TOL = 1e-5  # tests/test_torch_ssm_card.py's and chip_smoke.py's, of the output's scale
+
+
+@pytest.mark.parametrize("w_bytes", [4, 2])
+@pytest.mark.parametrize("b,hh,uh", PLAN_SHAPES)
+def test_slstm_scan_plan_covers_every_shape(b, hh, uh, w_bytes):
+    """``slstm_scan.plan`` for every shape the card tests and xlstm-350m
+    run, float32 and bfloat16 wr: a portable cluster of at most uh CTAs;
+    each unit owned by exactly one CTA, at most MAX_SHARE; each batch row
+    by exactly one (group, half), at most ``rows`` <= MAX_ROWS; the shared
+    memory the source's formula gives, within the H100's 232,448 bytes; the
+    grid's y within 65,535; the slices of u covering uh, a multiple of 4
+    each, and fitting the half's threads; the same plan under the card's
+    resident clusters when they are the default."""
+    from repro_torch.kernels import slstm_scan as SS
+
+    p = SS.plan(b, hh, uh, w_bytes)
+    assert 1 <= p.cluster <= SS.MAX_CLUSTER and p.cluster <= uh
+    units = p.units(uh)
+    assert [u for first, count in units for u in range(first, first + count)] == list(range(uh))
+    assert all(1 <= count <= SS.MAX_SHARE for _, count in units)
+    ranges = p.row_ranges(b)
+    assert [r for first, count in ranges for r in range(first, first + count)] == list(range(b))
+    assert all(1 <= count <= p.rows <= SS.MAX_ROWS for _, count in ranges)
+    assert p.halves in (1, 2) and 1 <= p.groups <= 65535
+    assert p.smem == SS.smem_bytes(uh, p.cluster, p.rows, p.halves, w_bytes)
+    assert SS.ONE_PER_SM <= p.smem <= SS.MAX_SMEM
+    half_threads = p.threads // p.halves
+    assert half_threads % 32 == 0 and half_threads >= 4 * units[0][1]
+    assert p.slice % 4 == 0 and (p.slices - 1) * p.slice < uh <= p.slices * p.slice
+    assert -(-4 * -(-uh // p.cluster) // 8) * p.slices <= half_threads
+    assert SS.plan(b, hh, uh, w_bytes, lambda c, *_: SS.RESIDENT[c]) == p
+
+
+@pytest.mark.parametrize("args", [(1, 1, 0, 4), (1, 1, 257, 2), (0, 4, 256, 2), (2, 0, 8, 4),
+                                  (2, 1, 8, 3), (8 * 65535 + 1, 1, 8, 4)])
+def test_slstm_scan_plan_refuses_what_the_kernel_does_not_take(args):
+    from repro_torch.kernels import slstm_scan as SS
+
+    with pytest.raises(ValueError):
+        SS.plan(*args)
+
+
+def _split_order_scan(xproj, wr, bias, slice_):
+    """``slstm_scan_plain`` with the kernel's recurrent product: per output,
+    fmaf chains over consecutive slices of ``slice_`` u (u ascending, from
+    0; an fmaf emulated as the float64 sum of the exact product, rounded to
+    float32), added in slice order; then ``(x + rec) + bias`` and
+    ``ref.slstm_cell``'s gates."""
+    b, s, _ = xproj.shape
+    hh, uh, g4 = wr.shape
+    k = -(-uh // slice_)
+    w = torch.zeros((hh, k * slice_, g4), dtype=torch.float64)
+    w[:, :uh] = wr.to(torch.float64)
+    w = w.reshape(hh, k, slice_, g4)
+    bi = bias.reshape(hh, g4).to(torch.float32)
+    z = torch.zeros((b, hh, uh), dtype=torch.float32)
+    h, c, n, m = z, z, z, torch.full_like(z, -1e30)
+    hs = []
+    for t in range(s):
+        hp = torch.zeros((b, hh, k * slice_), dtype=torch.float64)
+        hp[..., :uh] = h.to(torch.float64)
+        hp = hp.reshape(b, hh, k, slice_)
+        acc = torch.zeros((b, hh, k, g4), dtype=torch.float32)
+        for j in range(slice_):
+            acc = (hp[..., j, None] * w[None, :, :, j] + acc.to(torch.float64)).to(torch.float32)
+        rec = acc[:, :, 0]
+        for i in range(1, k):
+            rec = rec + acc[:, :, i]
+        pre = (xproj[:, t].reshape(b, hh, g4).to(torch.float32) + rec) + bi
+        zt, it, ft, ot = torch.split(pre, uh, dim=-1)
+        logf = ref.log_sigmoid(ft)
+        m_new = torch.maximum(logf + m, it)
+        i_p, f_p = torch.exp(it - m_new), torch.exp(logf + m - m_new)
+        c = f_p * c + i_p * torch.tanh(zt)
+        n = f_p * n + i_p
+        m = m_new
+        h = ref.sigmoid(ot) * c / torch.clamp_min(n, 1e-6)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def test_slstm_scan_split_order_matches_the_reference():
+    """The kernel's order of the recurrent product (``plan``'s 8 slices of
+    32 u at xlstm-350m's 4 heads of 256 units), emulated, against
+    ``slstm_scan_plain`` and the reference's ``_slstm_scan_p`` (under JAX on
+    the CPU) within SCAN_TOL of the output's scale: 2 rows of 32 positions
+    (S cut from the layer's 2,048), float32, wr at the model's initial scale
+    1/sqrt(uh), a random bias."""
+    from repro_torch.kernels import slstm_scan as SS
+
+    cfg = get_config("xlstm-350m")
+    hh, uh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    p = SS.plan(16, hh, uh, 2)
+    assert (p.slice, p.slices) == (32, 8)
+    rng = np.random.default_rng(11)
+    xproj = rng.standard_normal((2, 32, 4 * hh * uh)).astype(np.float32)
+    wr = (rng.standard_normal((hh, uh, 4 * uh)) / uh ** 0.5).astype(np.float32)
+    bias = (rng.standard_normal(4 * hh * uh) * 0.1).astype(np.float32)
+    got = _split_order_scan(*(torch.from_numpy(a) for a in (xproj, wr, bias)), p.slice)
+    plain = ref.slstm_scan_plain(*(torch.from_numpy(a) for a in (xproj, wr, bias)))
+    want = np.asarray(jax.jit(lambda a, w, c: RS._slstm_scan_p(a, w, c, hh, uh))(
+        jnp.asarray(xproj), jnp.asarray(wr), jnp.asarray(bias)))
+    for other in (plain.numpy(), want):
+        scale = float(np.abs(other).max())
+        assert float(np.abs(got.numpy() - other).max()) <= SCAN_TOL * scale
+
+
+def test_scan_probe_patches_apply():
+    """``kernels/scan_probe.py`` patches the kernel source by text: every
+    variant still finds its anchors and differs from the kernel and from the
+    others, and the instrumented copy marks every section once."""
+    from repro_torch.kernels import scan_probe
+
+    sources = scan_probe.all_patches()
+    kernel = sources.pop("kernel")
+    assert kernel == scan_probe.SOURCE.read_text()
+    assert set(sources) == set(scan_probe.VARIANTS) - {"kernel"} | {"sections"}
+    assert all(text != kernel for text in sources.values())
+    assert len(set(sources.values())) == len(sources)
+    marks = [int(m) for m in re.findall(r"MARK\((\d+)\);", sources["sections"])]
+    assert sorted(marks) == list(range(len(scan_probe.SECTIONS)))
 
 
 def test_activations_round_where_jax_rounds_in_bf16():

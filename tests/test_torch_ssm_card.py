@@ -11,16 +11,20 @@ selective_scan: the states equal the plain version's bit for bit (the same
 float32 products, ``expf`` and sums, none contracted into an FMA); the
 output adds its n <= 16 terms in another order than cuBLAS's einsum, at
 most 2 gamma_16 = 1.9e-6 of their absolute sum.  slstm_scan: the recurrent
-product adds its uh <= 256 terms in another order than cuBLAS's; the
-layer's recurrence does not amplify that (two float32 orders of the same
-product stay within 3.6e-7 of the scale over 2,048 steps at xlstm-350m's
-width and initial scales), and the gates round as the plain version does.
+product adds its uh <= 256 terms in another order than cuBLAS's (fmaf
+chains over slices of u, added in slice order: ``slstm_scan.plan``'s
+``slice``, which depends on uh alone); the layer's recurrence does not
+amplify that (two float32 orders of the same product stay within 3.6e-7 of
+the scale over 2,048 steps at xlstm-350m's width and initial scales; the
+CPU emulation of the kernel's order is held against the reference in
+``test_torch_ssm.py``), and the gates round as the plain version does.
 """
 import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import ref
+from repro_torch.kernels import measure, ref
+from repro_torch.kernels import slstm_scan as SS
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.models import ssm
@@ -92,6 +96,45 @@ def test_slstm_scan_kernel_matches_plain(cuda, b, s, hh, uh, dtype):
     assert LAUNCH_COUNTS["slstm_scan"] == before + 1
     _close(got, ref.slstm_scan_plain(*args))
     assert torch.equal(got, slstm_scan(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hh,uh,dtype", [
+    (16, 64, 4, 256, torch.float32),  # f32 wr at uh = 256: the largest shared memory
+    (3, 40, 4, 256, torch.bfloat16),  # B = 3 at xlstm-350m's 4 x 256
+    (5, 40, 4, 256, torch.bfloat16),  # groups of 1, 2 and 2 rows: the first not filled
+    (2, 33, 2, 70, torch.bfloat16),   # 70 units over 4 CTAs (17, 18, 17, 18): unaligned h stores
+    (2, 33, 2, 70, torch.float32),
+])
+def test_slstm_scan_kernel_at_the_plans_edges(cuda, b, s, hh, uh, dtype):
+    """The plans' edges: the largest shared memory, row groups the batch
+    does not fill, a uh the cluster does not divide; against the plain
+    version, one launch counted and one device event a call, equal bits on
+    a rerun."""
+    args = _slstm_inputs(b, s, hh, uh, dtype, 11, cuda)
+    p = SS.card_plan(cuda.index or 0, SS._DTYPE_CODES[dtype], SS._DTYPE_CODES[dtype], b, hh, uh)
+    if (b, uh) == (5, 256):
+        assert min(count for _, count in p.row_ranges(b)) < p.rows
+    if uh == 70:
+        assert p.cluster == 4 and uh % p.cluster
+    before = LAUNCH_COUNTS["slstm_scan"]
+    got = slstm_scan(*args)
+    assert LAUNCH_COUNTS["slstm_scan"] == before + 1
+    _close(got, ref.slstm_scan_plain(*args))
+    assert torch.equal(got, slstm_scan(*args))
+    assert measure.device_events(torch, lambda: slstm_scan(*args)) == 1
+
+
+@pytest.mark.cuda
+def test_slstm_scan_rows_do_not_depend_on_the_plan(cuda):
+    """The sum's order depends on uh alone, so a row's hs is the same bits
+    whatever batch (and so plan) it runs in: 16 rows (two halves of three
+    groups) against each row alone and against the first five."""
+    x, wr, bias = _slstm_inputs(16, 48, 4, 256, torch.bfloat16, 12, cuda)
+    full = slstm_scan(x, wr, bias)
+    assert torch.equal(full[:5], slstm_scan(x[:5], wr, bias))
+    for i in (0, 7, 15):
+        assert torch.equal(full[i:i + 1], slstm_scan(x[i:i + 1], wr, bias))
 
 
 @pytest.mark.cuda

@@ -17,7 +17,9 @@ flash-attention backward at the training micro-batch, internlm2-20b's GQA
 and gemma3's window shapes against its plain version, with equal bits on a
 rerun, beside SDPA's backward; and the two recurrent scans at phase 13's
 long prefill, jamba-1.5-large's selective scan and xlstm-350m's sLSTM
-scan, with equal bits on a rerun).
+scan, with equal bits on a rerun, the selective scan also as its gated
+entry, bit for bit against the unfused chain it replaces and timed beside
+it, with the blocks an SM holds and the issue floor its SASS gives).
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
@@ -126,9 +128,11 @@ and depth (12 periods of mLSTM and sLSTM, d_model 1,024, bf16, 0.455 B
 random parameters) and ``jamba-1.5-large-398b`` at full width over the
 first four blocks of its period (attention + MoE, then mamba with MLP,
 MoE and MLP; 23.0 B parameters) through ``launch.serve.serve`` at phase
-6's defaults: the launches of each prefill (12 sLSTM scans; 3 selective
-scans and 1 tensor-core attention), every scan layer's kernel against its
-plain version on that layer's own input with a bit-equal rerun, decode
+6's defaults: the launches of each prefill (12 sLSTM scans; 3 gated
+selective scans and 1 tensor-core attention), every scan layer's kernel
+against its plain version on that layer's own input with a bit-equal
+rerun (at a mamba layer also the gated scan against the unfused chain, bit
+for bit), decode
 against prefill layer by layer on float32 copies of xlstm's weights, a
 2,048-token prefill (its scans checked on the first and last layers),
 warm prefill and decode times beside decode's bound, and the peak memory.
@@ -851,6 +855,15 @@ def _selective_scan_bound(b: int, s: int, di: int, n: int, x_bytes: int):
                  SFU_OPS_PER_S)
 
 
+def _gated_scan_bound(b: int, s: int, di: int, n: int, x_bytes: int):
+    """selective_scan_gated's least ms: its bytes (x1, the raw dt, z and the
+    output a position and channel, b and c a position, a, dd and dt_bias) at
+    3.35 TB/s against its B S di (n + 2) exponentials (the states', the
+    softplus's and the gate's) at the special-function units' rate."""
+    return bound((3 * x_bytes + 4) * b * s * di + 8 * b * s * n + 4 * di * (n + 2),
+                 b * s * di * (n + 2), SFU_OPS_PER_S)
+
+
 def _slstm_scan_bound(b: int, s: int, hh: int, uh: int, x_bytes: int, w_bytes: int):
     """slstm_scan's least ms: the recurrent product's 2 B S H uh 4uh float32
     operations at 67 TFLOP/s against its bytes (xproj, hs, wr and bias)."""
@@ -883,11 +896,18 @@ def _kernel_selective_scan(seed: int) -> dict:
     """selective_scan against its plain version at SCAN_SHAPE on random
     gates (a = -e, the model's a_log of ones), equal bits on a rerun; bound
     by the larger of its bytes (x1, dt, ys, b, c) at 3.35 TB/s and its
-    B S di n exponentials at the special-function units' rate."""
+    B S di n exponentials at the special-function units' rate, beside the
+    issue floor its SASS gives (scan_probe.sass_counts) and the blocks an SM
+    holds.  Then selective_scan_gated at SCAN_SHAPE (bf16 z, a view of the
+    in_proj output, and output) against the same ops around the scan-only
+    kernel, bit for bit, timed beside that unfused chain and its bound; its
+    numbers go into the row under ``gated``."""
+    import ctypes
+
     import torch
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels import build, ref, scan_probe
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_gated
 
     b, s, di, n = SCAN_SHAPE
     dev = torch.device("cuda")
@@ -910,12 +930,55 @@ def _kernel_selective_scan(seed: int) -> dict:
         f"{err:.3e} at scale {scale:.3f} ({err / scale:.2e} of it, tolerance {SCAN_TOL}), rerun "
         f"bit-equal; plain at chunk {SCAN_PLAIN_CHUNK}")
     del want
+    lib = build.library("selective_scan")
+    plan = {}
+    for gated in (0, 1):
+        buf = (ctypes.c_int * 5)()
+        build.check(lib.selective_scan_occupancy(0, 1, gated, n, buf), "selective_scan_occupancy")
+        plan["gated" if gated else "scan"] = list(buf)
+    counts = scan_probe.sass_counts(build.library_path("selective_scan"), n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floors = {entry: round(scan_probe.issue_floor_ms(SCAN_SHAPE, c["per_position"], sms), 4)
+              for entry, c in counts.items() if c}
+    sass = {e: {k: round(v, 2) for k, v in c.items()} for e, c in counts.items()}
+    log(f"[kernels] selective_scan plan (bf16, n={n}) [blocks an SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs, shared bytes, threads, channels "
+        f"a unit]: {plan}; SASS of the loop over positions {sass or 'not counted (no cuobjdump)'}; "
+        f"issue floor at {scan_probe.INSTRS_PER_CLOCK} a clock per SM, {scan_probe.CLOCK_HZ / 1e6:.0f} "
+        f"MHz: {floors or 'not measured'} ms")
     b_ms, b_by = _selective_scan_bound(b, s, di, n, x1.element_size())
     row = _scan_row(f"selective_scan B={b} S={s} di={di} n={n}",
                     lambda: selective_scan(x1, dt, a, bmat, cmat),
                     lambda: ref.selective_scan_plain(x1, dt, a, bmat, cmat,
                                                      chunk=SCAN_PLAIN_CHUNK), b_ms, b_by, err)
-    del x1, dt, a, bmat, cmat, got
+    row["issue_floor_ms"] = floors.get("scan")
+    del dt, got
+    torch.cuda.empty_cache()
+
+    z = torch.randn((b, s, 2 * di), generator=gen, device=dev).to(torch.bfloat16)[..., di:]
+    dt_raw = torch.randn((b, s, di), generator=gen, device=dev)
+    dt_bias = torch.randn((di,), generator=gen, device=dev) * 0.1
+    dd = torch.randn((di,), generator=gen, device=dev)
+    args = (x1, z, dt_raw, dt_bias, a, bmat, cmat, dd)
+    fused = lambda: selective_scan_gated(*args, torch.bfloat16)
+    chain = lambda: ref.selective_scan_gated_plain(*args, torch.bfloat16, scan=selective_scan)
+    got, want = fused(), chain()
+    require(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all()),
+            "selective_scan_gated: output not finite bf16")
+    require(torch.equal(got, want), f"selective_scan_gated {SCAN_SHAPE}: max |fused - chain| "
+                                    f"{float((got.float() - want.float()).abs().max()):.3e}")
+    require(torch.equal(got, fused()), "selective_scan_gated gave other bits on a rerun")
+    del got, want
+    g_ms, g_by = _gated_scan_bound(b, s, di, n, x1.element_size())
+    ms = time_ms(fused, reps=10)
+    chain_ms = time_ms(chain, reps=3, warmup=1)
+    row["gated"] = dict(ms=ms, chain_ms=chain_ms, bound_ms=g_ms, bound_by=g_by, max_abs_err=0.0,
+                        issue_floor_ms=floors.get("gated"))
+    log(f"[kernels] selective_scan_gated B={b} S={s} di={di} n={n} bf16 x1, z and output: equal "
+        f"to the unfused chain (ref.softplus, the scan kernel, skip, gate, cast) bit for bit, "
+        f"rerun bit-equal; fused {ms:.4f} ms, the chain {chain_ms:.4f} ms ({chain_ms / ms:.2f}x); "
+        f"bound {g_ms:.4f} ms ({g_by}); SM clock, power after it: {card_state()}; {row['gated']}")
+    del x1, z, dt_raw, dt_bias, a, bmat, cmat, dd, args
     torch.cuda.empty_cache()
     return row
 
@@ -4201,18 +4264,22 @@ SSM_SCAN_LAYERS = (0, -1)  # at the long prompt: the first and last layer of eac
 def _scan_check(cfg, p, mixer: str, h, label: str, timed: bool = False) -> float:
     """The scan of one mamba or sLSTM layer, on that layer's own input ``h``
     (the serving weights): the kernel against its plain version within
-    SCAN_TOL of the output's scale, and a rerun with equal bits; with
-    ``timed``, the kernel's time at these shapes beside its bound.  Returns
-    the error over the scale."""
+    SCAN_TOL of the output's scale, and a rerun with equal bits; at a mamba
+    layer also the gated entry (what ``mamba_train`` runs) against the same
+    ops around the scan-only kernel, bit for bit, and its rerun; with
+    ``timed``, the kernels' times at these shapes beside their bounds.
+    Returns the scan's error over the scale."""
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_gated
     from repro_torch.kernels.slstm_scan import slstm_scan
     from repro_torch.models import ssm
 
     if mixer == "mamba":
-        x1, _, dtv, a, bmat, cmat = ssm.mamba_scan_inputs(p, cfg, h)
+        args = ssm.mamba_gated_inputs(p, cfg, h)
+        x1, _, dt_raw, dt_bias, a, bmat, cmat, _ = args
+        dtv = ref.softplus(dt_raw + dt_bias)  # as mamba_scan_inputs gives it
         kernel = lambda: selective_scan(x1, dtv, a, bmat, cmat)
         want = ref.selective_scan_plain(x1, dtv, a, bmat, cmat, chunk=SCAN_PLAIN_CHUNK)
         b_ms, b_by = _selective_scan_bound(*x1.shape, a.shape[1], x1.element_size())
@@ -4228,10 +4295,26 @@ def _scan_check(cfg, p, mixer: str, h, label: str, timed: bool = False) -> float
     require(bool(torch.isfinite(got).all()) and err <= SCAN_TOL * scale,
             f"{label}: {mixer} scan kernel vs plain max |diff| {err:.3e} at scale {scale:.3f}")
     require(torch.equal(got, kernel()), f"{label}: the {mixer} scan kernel's rerun differs")
+    shape = tuple(got.shape)
+    del got, want
     if timed:
         ms = time_ms(kernel, reps=5, warmup=1)
-        log(f"[ssm] {label}: the {mixer} scan kernel at {tuple(got.shape)}: {ms:.3f} ms, bound "
+        log(f"[ssm] {label}: the {mixer} scan kernel at {shape}: {ms:.3f} ms, bound "
             f"{b_ms:.3f} ms ({b_by}), {ms / b_ms:.1f}x")
+    if mixer == "mamba":
+        del dtv
+        fused = lambda: selective_scan_gated(*args, h.dtype)
+        got = fused()
+        want = ref.selective_scan_gated_plain(*args, h.dtype, scan=selective_scan)
+        require(torch.equal(got, want), f"{label}: the gated scan differs from the unfused chain "
+                                        f"by up to {float((got.float() - want.float()).abs().max()):.3e}")
+        require(torch.equal(got, fused()), f"{label}: the gated scan's rerun differs")
+        del got, want
+        if timed:
+            ms = time_ms(fused, reps=5, warmup=1)
+            g_ms, g_by = _gated_scan_bound(*x1.shape, a.shape[1], x1.element_size())
+            log(f"[ssm] {label}: the gated scan at {shape}, equal to the unfused chain bit for "
+                f"bit: {ms:.3f} ms, bound {g_ms:.3f} ms ({g_by}), {ms / g_ms:.1f}x")
     return err / scale
 
 
@@ -4265,7 +4348,8 @@ def _ssm_layerwise(cfg, params, tokens, label: str, scan_layers=None) -> dict:
             h, _ = lm._apply_block_train(cfg, blk, p, h)
     log(f"[ssm] {label} layer by layer (B={tokens.shape[0]}, S={tokens.shape[1]}): scan kernel "
         f"vs plain max |diff| / scale {worst} over layers "
-        f"{ {m: sorted(c) for m, c in check.items() if c} } (tolerance {SCAN_TOL}); reruns "
+        f"{ {m: sorted(c) for m, c in check.items() if c} } (tolerance {SCAN_TOL}); "
+        f"{'mamba gated scans equal to the unfused chain; ' if 'mamba' in worst else ''}reruns "
         f"bit-equal")
     return worst
 

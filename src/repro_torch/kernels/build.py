@@ -81,7 +81,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
                                             _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _F]),
     },
     "selective_scan": {
-        "selective_scan_launch": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
+        "selective_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I]),
+        "selective_scan_occupancy": (_I, [_I, _I, _I, _I, _P]),
     },
     "slstm_scan": {
         "slstm_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _P, _P] + [_I] * 8),

@@ -268,6 +268,23 @@ def selective_scan_plain(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return torch.stack(ys, dim=1)
 
 
+def selective_scan_gated_plain(x1: torch.Tensor, z: torch.Tensor, dt_raw: torch.Tensor,
+                               dt_bias: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                               cmat: torch.Tensor, dd: torch.Tensor, out_dtype: torch.dtype,
+                               chunk: int = 1024, scan=selective_scan_plain) -> torch.Tensor:
+    """The plain version of ``selective_scan_gated``: ``mamba_train``'s ops
+    around the scan, as the reference rounds them (``repro/models/ssm.py:
+    53, 110-111``): ``dt = softplus(dt_raw + dt_bias)``, ``ys = scan(x1, dt,
+    a, bmat, cmat)``, then ``(ys + dd x1)`` and ``* silu(z)`` in float32,
+    cast to ``out_dtype``.  ``scan`` is the plain scan; on the card the
+    scan-only kernel in its place gives the composition the gated kernel
+    is held to."""
+    dt = softplus(dt_raw + dt_bias)
+    y = scan(x1, dt, a, bmat, cmat, chunk=chunk)
+    y = y + dd * x1.to(torch.float32)
+    return (y * silu(z.to(torch.float32))).to(out_dtype)
+
+
 def slstm_cell(xt: torch.Tensor, hprev: torch.Tensor, state, wr: torch.Tensor,
                bias: torch.Tensor):
     """One sLSTM step (``_slstm_cell`` and ``_slstm_step``): ``xt`` (B, 4d)

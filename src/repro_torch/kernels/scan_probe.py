@@ -1,10 +1,11 @@
-"""Where the sLSTM scan kernel spends its time, on the card.
+"""Where the scan kernels spend their time, on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.scan_probe [--paired DIR | --plans]
+    PYTHONPATH=src python -m repro_torch.kernels.scan_probe --selective [--paired DIR]
 
-At xlstm-350m's layer (:data:`SHAPES`: 16 rows of 2,048 positions, 4 heads
-of 256 units, bf16, ``chip_smoke.SLSTM_SHAPE``), its 64-token prompt and 12
-rows of the layer:
+The sLSTM scan (``csrc/slstm_scan.cu``), by default: at xlstm-350m's layer
+(:data:`SHAPES`: 16 rows of 2,048 positions, 4 heads of 256 units, bf16,
+``chip_smoke.SLSTM_SHAPE``), its 64-token prompt and 12 rows of the layer:
 
 - **variants**: ``csrc/slstm_scan.cu`` patched to drop one part at a time
   (the recurrent product; the loads of h in it; h crossing CTAs, each CTA
@@ -28,6 +29,35 @@ of its own, in turns (this, DIR, DIR, this, twice): the device ms a call at
 the layer and the prompt, and a digest of ``hs`` on the same seeded inputs,
 so the two trees' outputs are compared bit for bit.
 
+``--selective`` probes the selective scan (``csrc/selective_scan.cu``) at
+jamba-1.5-large's layer (:data:`SEL_SHAPES`: ``chip_smoke.SCAN_SHAPE``, 16
+rows of 2,048 positions, di 16,384, 16 states, bf16 x1 and z, and its
+64-token prompt), each build compiling the 16-state instances only:
+
+- **variants** (:data:`SEL_VARIANTS`): the source patched to drop one part
+  at a time (the exponential, a multiply in its place; y's sum, and with it
+  the loads of c; the loads of b and c, made in registers; the producer's
+  copies, the compute warps reading whatever the ring holds; the gated
+  entry's softplus and gate), or to take another shape (the positions of a
+  stage not unrolled; a register target of 6 or 5 blocks an SM; two
+  channels a thread; 8 positions a stage); each one's registers and spills
+  (``-Xptxas -v``) and resident blocks, and both entries' ms a call by CUDA
+  events around 10 (the layer) or 50 (the prompt) back-to-back calls, two
+  rounds;
+- **counts**: the SASS (``cuobjdump -sass``) of each
+  variant's 16-state bf16 instances: the instructions of the loop over
+  positions, per position and per state and position, and the issue floor
+  they give at 128 issues a clock per SM and 1,980 MHz on the card's SMs.
+
+``--selective --paired DIR`` times this tree against ``DIR`` in turns, each
+run a process of its own, by CUDA events around back-to-back calls (the
+profiler's per-kernel sums dropped a launch now and then at these
+shapes): the scan-only entry at both shapes, and at the
+layer the gated entry where a tree has it, else the ops it replaced
+(``ref.softplus``, the scan-only kernel, the skip term, the gate and the
+cast: the parent's ``mamba_train``); each with a digest of its output on
+the same seeded inputs, so the trees are compared bit for bit.
+
 A patch that no longer finds its text in the source raises; the CPU test
 ``tests/test_torch_ssm.py::test_scan_probe_patches_apply`` applies every
 patch without building.  The patched kernels compute wrong results on
@@ -38,6 +68,8 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -316,6 +348,358 @@ def time_plans(torch, shape) -> None:
     print(f"[plans] {shape}: plan() chooses {chosen}", flush=True)
 
 
+# ---- the selective scan ----------------------------------------------------
+
+SEL_SOURCE = build.CSRC / "selective_scan.cu"
+SEL_NAME = "selective_scan"
+# (B, S, di, n), bf16 x1 and z: jamba-1.5-large's layer at the long prompt
+# (chip_smoke.SCAN_SHAPE) and at serve()'s 64-token prompt.
+SEL_SHAPES = {"layer": (16, 2048, 16384, 16), "prompt": (16, 64, 16384, 16)}
+SEL_STATES = 16  # the probe's builds compile this instance only
+CLOCK_HZ = 1.98e9  # the H100's SM clock at its maximum
+INSTRS_PER_CLOCK = 128  # an SM's thread instructions a clock: 4 schedulers, a warp each
+
+
+def _sel_patch(old: str, new: str) -> Callable[[str], str]:
+    return lambda src: _sub(src, old, new)
+
+
+_ROLLED = ("#pragma unroll\n      for (int q = 0; q < kSpan; ++q) {",
+           "#pragma unroll 1\n      for (int q = 0; q < kSpan; ++q) {")
+SEL_VARIANTS: Dict[str, Callable[[str], str]] = {
+    "kernel": lambda src: src,
+    "positions not unrolled": _sel_patch(*_ROLLED),
+    "6 blocks an SM, not unrolled": _chain(
+        _sel_patch("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 6;"),
+        _sel_patch(*_ROLLED)),
+    "6 blocks an SM": _sel_patch("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 6;"),
+    "5 blocks an SM": _sel_patch("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 5;"),
+    "two channels a thread": _sel_patch("constexpr int kPer = 1;", "constexpr int kPer = 2;"),
+    "8 positions a stage": _sel_patch("constexpr int kSpan = 4;", "constexpr int kSpan = 8;"),
+    "no exp": _sel_patch("const float decay = expf(__fmul_rn(d[e], av[e][k]));",
+                         "const float decay = __fmul_rn(d[e], av[e][k]);"),
+    "no y sum": _sel_patch("y[e] = fmaf(h[e][k], ck[kk], y[e]);", "y[e] = h[e][k];"),
+    "no b or c loads": _sel_patch(
+        "const float4 b4 = sb[k4], c4 = sc[k4];",
+        "const float4 b4 = make_float4(0.5f * q, 0.25f * k4, 0.125f, 0.0625f), c4 = b4; "
+        "(void)sb; (void)sc;"),
+    "no copies": _chain(
+        _sel_patch("if (lane == 0) mbar_expect_tx(full, np * (xb + 4 * cnt + (G ? xb : 0) + 8 * N));",
+                   "if (lane == 0) mbar_expect_tx(full, 0);"),
+        _sel_patch("if (lane < np) {  // lane q copies", "if (lane < 0) {  // lane q copies"),
+        _sel_patch("} else if (lane == 31) {  // the span's b and c rows",
+                   "} else if (lane < 0) {  // the span's b and c rows")),
+    "no softplus or gate": _chain(
+        _sel_patch("d[e] = __fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t))));", "d[e] = t;"),
+        _sel_patch("const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-zv[e])));",
+                   "const float sig = zv[e];")),
+}
+
+
+def sel_patches() -> Dict[str, str]:
+    """Every patched selective-scan source by name (no build)."""
+    src = SEL_SOURCE.read_text()
+    return {name: patch(src) for name, patch in SEL_VARIANTS.items()}
+
+
+def _sel_build(sources: Dict[str, str]) -> Dict[str, tuple]:
+    """Each source's 16-state build, in parallel: its library and the
+    compiler's log."""
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, (name, text) in enumerate(sources.items()):
+        cu, so = PROBE_DIR / f"sel{i}.cu", PROBE_DIR / f"sel{i}.so"
+        cu.write_text(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-DSCAN_ONE_STATE_COUNT={SEL_STATES}", "-I",
+               str(build.CSRC), "-o", str(so), str(cu)]
+        jobs.append((name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    out = {}
+    for name, so, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise build.KernelBuildError(f"{name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn, (restype, argtypes) in build.SIGNATURES[SEL_NAME].items():
+            f = getattr(lib, fn)
+            f.restype, f.argtypes = restype, argtypes
+        out[name] = (lib, so, log)
+    return out
+
+
+def ptxas_lines(log: str, states: int = SEL_STATES) -> List[str]:
+    """The registers and spills ``-Xptxas -v`` reports for each kernel of
+    ``states`` states: one line a kernel."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and f"ILi{states}E" in line:
+            name = re.search(rf"scan_kernelILi{states}E(\w+?)EEvNS", line)
+            info = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                            if "registers" in x or "spill" in x)
+            out.append(f"{name.group(1) if name else line.strip()}: {info}")
+    return out
+
+
+def _cuobjdump() -> str:
+    """``cuobjdump`` from the CUDA toolkit beside ``nvcc`` or on the path, or
+    the one Triton's package carries; empty if there is none."""
+    cands = [str(Path(build._nvcc()).parent / "cuobjdump"), shutil.which("cuobjdump") or ""]
+    try:
+        import triton
+
+        cands.append(str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" /
+                         "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and os.path.exists(c)), "")
+
+
+def sass_functions(so: Path) -> Dict[str, list]:
+    """Each kernel's SASS instructions (address, opcode and operands) by
+    mangled name, from ``cuobjdump -sass``; empty without it."""
+    tool = _cuobjdump()
+    if not tool:
+        return {}
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True).stdout
+    out: Dict[str, list] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def loop_counts(instrs, states: int, gated: bool) -> dict:
+    """The loop over positions: the smallest backward branch's body that
+    holds at least ``states`` MUFU.EX2 (one a state, and the softplus's and
+    the gate's when gated); its instructions per position and per state
+    and position, and its MUFU.EX2 a position."""
+    best = None
+    for at, text in instrs:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) >= at:
+            continue
+        body = [t for a, t in instrs if int(m.group(1), 16) <= a <= at]
+        ex2 = sum("MUFU.EX2" in t for t in body)
+        if ex2 >= states and (best is None or len(body) < len(best[0])):
+            best = (body, ex2)
+    if best is None:
+        return {}
+    body, ex2 = best
+    per_pos = ex2 / (states + (2 if gated else 0))
+    return dict(instructions=len(body), positions=per_pos,
+                per_position=len(body) / per_pos, per_state=len(body) / per_pos / states,
+                ex2=ex2 / per_pos, lds=sum(t.startswith("LDS") for t in body) / per_pos)
+
+
+def sass_counts(so: Path, states: int = SEL_STATES) -> Dict[str, dict]:
+    """:func:`loop_counts` of the bf16 instances of ``states`` states in the
+    library at ``so``, by entry (``scan``, ``gated``)."""
+    out = {}
+    for name, instrs in sass_functions(so).items():
+        m = re.search(rf"scan_kernelILi{states}E13__nv_bfloat16Lb([01])E", name)
+        if m:
+            out["gated" if m.group(1) == "1" else "scan"] = loop_counts(instrs, states,
+                                                                         m.group(1) == "1")
+    return out
+
+
+def issue_floor_ms(shape, per_position: float, sms: int) -> float:
+    """The schedulers' least ms: B S di positions and channels, each
+    ``per_position`` instructions, at INSTRS_PER_CLOCK a clock on ``sms`` SMs."""
+    b, s, di, _ = shape
+    return b * s * di * per_position / (sms * INSTRS_PER_CLOCK * CLOCK_HZ) * 1e3
+
+
+def sel_inputs(torch, shape, seed: int = 9):
+    """Seeded inputs on the card, as ``chip_smoke._kernel_selective_scan``
+    makes them: x1 = silu of bf16 noise, dt = softplus of noise, a = -e,
+    b and c noise; for the gated entry z (a view of a (B, S, 2 di) bf16
+    tensor), the raw dt (noise), dt_bias and dd."""
+    from repro_torch.kernels import ref
+
+    b, s, di, n = shape
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x1 = ref.silu(torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16))
+    dt_raw = torch.randn((b, s, di), generator=gen, device=dev)
+    a = -torch.exp(torch.ones((di, n), device=dev))
+    bmat = torch.randn((b, s, n), generator=gen, device=dev)
+    cmat = torch.randn((b, s, n), generator=gen, device=dev)
+    z = torch.randn((b, s, 2 * di), generator=gen, device=dev).to(torch.bfloat16)[..., di:]
+    dt_bias = torch.randn((di,), generator=gen, device=dev) * 0.1
+    dd = torch.randn((di,), generator=gen, device=dev)
+    return dict(x1=x1, dt=ref.softplus(dt_raw), a=a, bmat=bmat, cmat=cmat, z=z, dt_raw=dt_raw,
+                dt_bias=dt_bias, dd=dd)
+
+
+# The script each tree runs in ``sel_paired``: it reads only what every
+# commit since the scan came has (``selective_scan``'s signature, ``ref``'s
+# softplus and silu), makes its inputs as ``sel_inputs`` does, and profiles
+# the calls itself.  "gated" is the tree's selective_scan_gated where it has
+# one, else the parent's mamba_train ops around its scan-only kernel.
+SEL_PAIRED_SCRIPT = """
+import hashlib, json, sys, torch
+from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as SS
+dev = torch.device("cuda")
+
+def device_ms(fn, calls):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+def digest(t, label):
+    d = hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()[:16]
+    torch.save(t.cpu(), f"{sys.argv[2]}/sel-{label}-{d}.pt")
+    return d
+
+out = {}
+for label, (b, s, di, n) in json.loads(sys.argv[1]).items():
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x1 = ref.silu(torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16))
+    dt_raw = torch.randn((b, s, di), generator=gen, device=dev)
+    a = -torch.exp(torch.ones((di, n), device=dev))
+    bm = torch.randn((b, s, n), generator=gen, device=dev)
+    cm = torch.randn((b, s, n), generator=gen, device=dev)
+    z = torch.randn((b, s, 2 * di), generator=gen, device=dev).to(torch.bfloat16)[..., di:]
+    bias = torch.randn((di,), generator=gen, device=dev) * 0.1
+    dd = torch.randn((di,), generator=gen, device=dev)
+    dt = ref.softplus(dt_raw)
+    calls = 10 if s > 256 else 50
+    scan = lambda: SS.selective_scan(x1, dt, a, bm, cm)
+    out["scan " + label] = [round(device_ms(scan, calls), 4), digest(scan(), "scan-" + label)]
+    if s <= 256:
+        continue
+    del dt
+    if hasattr(SS, "selective_scan_gated"):
+        gated = lambda: SS.selective_scan_gated(x1, z, dt_raw, bias, a, bm, cm, dd, x1.dtype)
+        kind = "gated entry"
+    else:
+        def gated():
+            y = SS.selective_scan(x1, ref.softplus(dt_raw + bias), a, bm, cm)
+            y = y + dd * x1.to(torch.float32)
+            return (y * ref.silu(z.to(torch.float32))).to(x1.dtype)
+        kind = "unfused chain"
+    out["gated " + label] = [round(device_ms(gated, calls), 4), digest(gated(), "gated-" + label),
+                             kind]
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def sel_paired(trees: List[Path], rounds: int = 2) -> Dict[str, Dict[str, list]]:
+    """Each case's [device ms, digest(, kind)] in every tree, in turns
+    (``trees``, then reversed, ``rounds`` times over), each run a process of
+    its own; each distinct output is kept in PROBE_DIR."""
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    order: List[Path] = []
+    for _ in range(rounds):
+        order += list(trees) + list(trees)[::-1]
+    out: Dict[str, Dict[str, list]] = {str(t): {} for t in trees}
+    for tree in order:
+        env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+        proc = subprocess.run([sys.executable, "-c", SEL_PAIRED_SCRIPT, json.dumps(SEL_SHAPES),
+                               str(PROBE_DIR)], cwd=str(tree), env=env, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"paired run in {tree} failed:\n{proc.stderr[-4000:]}")
+        for label, got in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            out[str(tree)].setdefault(label, []).append(got)
+    return out
+
+
+def _spread(values: List[float]) -> str:
+    return f"{min(values):.4f}-{max(values):.4f} (median {sorted(values)[len(values) // 2]:.4f})"
+
+
+def selective_main(torch) -> int:
+    """``--selective``: the variants and counts, or with ``--paired DIR``
+    the paired runs."""
+    from repro_torch.kernels import selective_scan as SEL
+
+    if "--paired" in sys.argv:
+        other = Path(sys.argv[sys.argv.index("--paired") + 1]).resolve()
+        here = Path(__file__).resolve().parents[3]
+        runs = sel_paired([here, other])
+        for tree, got in runs.items():
+            print(f"[sel paired] {tree}: {got}", flush=True)
+        mine, theirs = runs[str(here)], runs[str(other)]
+        for label in mine:
+            a = [ms for ms, *_ in mine[label]]
+            b = [ms for ms, *_ in theirs[label]]
+            digests = {d for got in runs.values() for _, d, *_ in got[label]}
+            reruns = all(len({d for _, d, *_ in got[label]}) == 1 for got in runs.values())
+            print(f"[sel paired] {label}: this tree ({mine[label][0][2:] or 'kernel'}) "
+                  f"{_spread(a)} ms, other ({theirs[label][0][2:] or 'kernel'}) {_spread(b)} ms, "
+                  f"ratio of medians {sorted(a)[len(a) // 2] / sorted(b)[len(b) // 2]:.3f}; "
+                  f"outputs equal bit for bit across trees: {len(digests) == 1}; reruns of "
+                  f"each tree bit-equal: {reruns}", flush=True)
+        _smi()
+        return 0
+
+    built = _sel_build(sel_patches())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (lib, so, log) in built.items():
+        occ = {}
+        for gated in (0, 1):
+            buf = (ctypes.c_int * 5)()
+            build.check(lib.selective_scan_occupancy(0, 1, gated, SEL_STATES, buf), name)
+            occ["gated" if gated else "scan"] = list(buf)
+        print(f"[sel build] {name}: {'; '.join(ptxas_lines(log))}; occupancy [blocks an SM, "
+              f"SMs, shared bytes, threads, channels a unit] {occ}", flush=True)
+        for entry, c in sass_counts(so).items():
+            if not c:
+                print(f"[sel sass] {name} {entry}: no loop found", flush=True)
+                continue
+            print(f"[sel sass] {name} {entry}: loop of {c['instructions']} instructions for "
+                  f"{c['positions']:g} positions: {c['per_position']:.1f} a position, "
+                  f"{c['per_state']:.2f} a state and position ({c['ex2']:g} MUFU.EX2, "
+                  f"{c['lds']:g} LDS a position); issue floor at the layer "
+                  f"{issue_floor_ms(SEL_SHAPES['layer'], c['per_position'], sms):.3f} ms",
+                  flush=True)
+    if not _cuobjdump():
+        print("[sel sass] no cuobjdump on this machine: the SASS is not counted", flush=True)
+    kept = build._LIBS.get(SEL_NAME)
+    try:
+        for rnd in range(2):
+            for label, shape in SEL_SHAPES.items():
+                d = sel_inputs(torch, shape)
+                calls = 10 if shape[1] > 256 else 50
+                scan = lambda: SEL.selective_scan(d["x1"], d["dt"], d["a"], d["bmat"], d["cmat"])
+                gated = lambda: SEL.selective_scan_gated(
+                    d["x1"], d["z"], d["dt_raw"], d["dt_bias"], d["a"], d["bmat"], d["cmat"],
+                    d["dd"])
+                for name, (lib, _, _) in built.items():
+                    build._LIBS[SEL_NAME] = lib
+                    times = {entry: _event_ms(torch, fn, calls)
+                             for entry, fn in (("scan", scan), ("gated", gated))}
+                    print(f"[sel variants] round {rnd}, {label} {shape}, {name}: scan "
+                          f"{times['scan']:.4f} ms, gated {times['gated']:.4f} ms", flush=True)
+                del d
+                torch.cuda.empty_cache()
+    finally:
+        if kept is None:
+            build._LIBS.pop(SEL_NAME, None)
+        else:
+            build._LIBS[SEL_NAME] = kept
+    _smi()
+    return 0
+
+
 def _event_ms(torch, fn, reps: int) -> float:
     for _ in range(2):
         fn()
@@ -340,6 +724,9 @@ def main() -> int:
 
     from repro_torch.kernels import measure
     from repro_torch.kernels import slstm_scan as SS
+
+    if "--selective" in sys.argv:
+        return selective_main(torch)
 
     if "--paired" in sys.argv:
         other = Path(sys.argv[sys.argv.index("--paired") + 1]).resolve()

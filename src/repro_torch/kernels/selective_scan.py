@@ -1,72 +1,119 @@
-"""The selective scan (Mamba-1): the wrapper of ``csrc/selective_scan.cu``.
+"""The selective scan (Mamba-1): the wrappers of ``csrc/selective_scan.cu``.
 
 It replaces no Pallas kernel: the reference's ``mamba_train``
 (``repro/models/ssm.py:58``) runs the scan as two nested ``lax.scan``s,
 and a per-step loop of torch ops would launch a few kernels a position and
 materialize (B, chunk, di, n) float32 ``decay`` and ``drive`` tensors, 17.2
-GB each at jamba-1.5-large's width with 16 rows of 1,024 positions.  The
-kernel keeps the state in registers and walks every position in one
-launch; the source says what bounds it.
+GB each at jamba-1.5-large's width with 16 rows of 1,024 positions.
 
-A CPU tensor goes to the plain version (``ref.selective_scan_plain``),
-which autograd differentiates; a CUDA tensor goes to the kernel, or the
-call raises.  Under autograd on the card the kernel runs inside an
-autograd function whose backward raises: the scan's backward kernel waits
-for ROADMAP A7.4b.
+Two entries launch the one kernel (a template with the gate on or off),
+one launch a call, both counted under ``LAUNCH_COUNTS["selective_scan"]``:
+
+- :func:`selective_scan` takes the post-softplus ``dt`` and returns the
+  float32 ``ys``;
+- :func:`selective_scan_gated` is ``mamba_train`` from the einsum's raw
+  ``dt`` to the gated output in the model's dtype: the softplus of ``dt +
+  dt_bias``, the scan, the skip term ``dd x1``, the ``silu(z)`` gate and the
+  cast, rounded as the torch ops around the scan-only entry round them, so
+  the float32 ``dt`` and ``ys`` never go through device memory.
+
+On the card the number of states is a template parameter (1 to 16), a
+producer warp feeds a ring of stages in shared memory by bulk copies on
+mbarriers, and each compute thread keeps its channel's states and row of
+``a`` in registers; the source says what bounds it.
+
+A CPU tensor goes to the plain versions (``ref.selective_scan_plain``,
+``ref.selective_scan_gated_plain``), which autograd differentiates; a CUDA
+tensor goes to the kernel, or the call raises.  Under autograd on the card
+the kernel runs inside an autograd function whose backward raises: the
+scan's backward kernel waits for ROADMAP A7.4b.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import selective_scan_plain
+from repro_torch.kernels.ref import selective_scan_gated_plain, selective_scan_plain
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "selective_scan"
 MAX_STATE = 16  # states a channel keeps in registers (the source's kMaxState)
+MAX_BATCH = 65535
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BACKWARD_WAITS = ("the selective scan's backward on the card waits for its kernel "
                   "(ROADMAP A7.4b); train on the CPU, where autograd differentiates the "
                   "plain version")
 
 
-def _check(x1, dt, a, bmat, cmat) -> None:
+def _check(x1, dt, a, bmat, cmat, **gated) -> None:
+    """Refuse, on every device, what the kernel does not take; ``gated``
+    holds ``z``, ``dt_bias``, ``dd`` and ``out_dtype`` for the gated entry."""
     if x1.dim() != 3:
         raise ValueError(f"x1 must be (B, S, di), got {tuple(x1.shape)}")
     b, s, di = x1.shape
-    n = a.shape[-1]
-    want = {"dt": (dt, (b, s, di)), "a": (a, (di, n)), "bmat": (bmat, (b, s, n)),
-            "cmat": (cmat, (b, s, n))}
+    if a.dim() != 2 or a.shape[0] != di:
+        raise ValueError(f"a has shape {tuple(a.shape)}, expected ({di}, n)")
+    n = a.shape[1]
+    if x1.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x1 has dtype {x1.dtype}: the kernel reads float32 or bfloat16")
+    want = {"dt": (dt, (b, s, di)), "bmat": (bmat, (b, s, n)), "cmat": (cmat, (b, s, n))}
+    if gated:
+        want.update(dt_bias=(gated["dt_bias"], (di,)), dd=(gated["dd"], (di,)))
+        z, out_dtype = gated["z"], gated["out_dtype"]
+        if tuple(z.shape) != (b, s, di):
+            raise ValueError(f"z has shape {tuple(z.shape)}, expected {(b, s, di)}")
+        if z.dtype != x1.dtype or out_dtype != x1.dtype:
+            raise TypeError(f"z ({z.dtype}) and the output ({out_dtype}) must have x1's dtype "
+                            f"({x1.dtype})")
+        if z.device != x1.device:
+            raise ValueError(f"z lies on {z.device}, x1 on {x1.device}")
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    for name, t in [("a", a)] + [(name, t) for name, (t, _) in want.items()]:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} has dtype {t.dtype}, expected torch.float32")
         if t.device != x1.device:
             raise ValueError(f"{name} lies on {t.device}, x1 on {x1.device}")
-    if x1.dtype not in _DTYPE_CODES:
-        raise TypeError(f"x1 has dtype {x1.dtype}: the kernel reads float32 or bfloat16")
-
-
-def _launch(x1, dt, a, bmat, cmat) -> torch.Tensor:
-    b, s, di = x1.shape
-    n = a.shape[-1]
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"{n} states a channel: the kernel keeps 1 to {MAX_STATE}")
-    if b > 65535:
-        raise ValueError(f"{b} batch rows: the grid's y axis holds 65,535")
+    if b > MAX_BATCH:
+        raise ValueError(f"{b} batch rows: the kernel takes at most {MAX_BATCH}")
+
+
+def _z_rows(z: torch.Tensor):
+    """z and the elements between its position rows: a view whose last axis
+    is contiguous and whose rows are evenly spaced (``xz``'s second half)
+    is read in place; anything else is made contiguous."""
+    b, s, di = z.shape
+    if z.stride(2) == 1 and z.stride(1) >= di and z.stride(0) == s * z.stride(1):
+        return z, z.stride(1)
+    return z.contiguous(), di
+
+
+def _launch(x1, dt, a, bmat, cmat, z=None, dt_bias=None, dd=None) -> torch.Tensor:
+    b, s, di = x1.shape
     dev = x1.device
+    gated = z is not None
     x1, dt, a, bmat, cmat = (t.contiguous() for t in (x1, dt, a, bmat, cmat))
-    ys = torch.empty((b, s, di), dtype=torch.float32, device=dev)
-    if ys.numel() == 0:
-        return ys
+    out = torch.empty((b, s, di), dtype=x1.dtype if gated else torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    if gated:
+        z, z_step = _z_rows(z)
+        dt_bias, dd = dt_bias.contiguous(), dd.contiguous()
+        ptrs = (z.data_ptr(), z_step, dt.data_ptr(), dt_bias.data_ptr(), a.data_ptr(),
+                bmat.data_ptr(), cmat.data_ptr(), dd.data_ptr())
+    else:
+        ptrs = (None, di, dt.data_ptr(), None, a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+                None)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     err = build.library(NAME).selective_scan_launch(
-        index, build.stream_handle(dev), _DTYPE_CODES[x1.dtype], x1.data_ptr(), dt.data_ptr(),
-        a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), ys.data_ptr(), b, s, di, n)
+        index, build.stream_handle(dev), _DTYPE_CODES[x1.dtype], int(gated), x1.data_ptr(),
+        *ptrs, out.data_ptr(), b, s, di, a.shape[1])
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
-    return ys
+    return out
 
 
 class _SelectiveScan(torch.autograd.Function):
@@ -81,15 +128,28 @@ class _SelectiveScan(torch.autograd.Function):
         raise NotImplementedError(BACKWARD_WAITS)
 
 
+class _SelectiveScanGated(torch.autograd.Function):
+    """The gated kernel under autograd on the card; its backward raises."""
+
+    @staticmethod
+    def forward(ctx, x1, z, dt_raw, dt_bias, a, bmat, cmat, dd):
+        return _launch(x1, dt_raw, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(BACKWARD_WAITS)
+
+
 def selective_scan(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                    cmat: torch.Tensor, *, chunk: int = 1024) -> torch.Tensor:
     """``ys`` (B, S, di) float32 of the Mamba-1 recurrence from a zero state:
     ``h = h exp(dt a) + (dt x1) b`` and ``y = sum_n h c`` at every position.
 
     ``x1`` (B, S, di) float32 or bfloat16 (read as float32), ``dt`` (B, S,
-    di), ``a`` (di, n), ``bmat`` and ``cmat`` (B, S, n) float32.  ``chunk``
-    is the plain version's (the CPU's) memory bound, the reference's
-    ``mamba_train`` chunk; the kernel walks all S positions at once.
+    di), ``a`` (di, n) with 1 <= n <= 16, ``bmat`` and ``cmat`` (B, S, n)
+    float32.  ``chunk`` is the plain version's (the CPU's) memory bound, the
+    reference's ``mamba_train`` chunk; the kernel walks all S positions at
+    once.
     """
     _check(x1, dt, a, bmat, cmat)
     if x1.device.type == "cpu":
@@ -97,3 +157,27 @@ def selective_scan(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: to
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x1, dt, a, bmat, cmat)):
         return _SelectiveScan.apply(x1, dt, a, bmat, cmat)
     return _launch(x1, dt, a, bmat, cmat)
+
+
+def selective_scan_gated(x1: torch.Tensor, z: torch.Tensor, dt_raw: torch.Tensor,
+                         dt_bias: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                         cmat: torch.Tensor, dd: torch.Tensor, out_dtype: torch.dtype = None,
+                         *, chunk: int = 1024) -> torch.Tensor:
+    """``mamba_train``'s scan with its neighbours: ``dt = softplus(dt_raw +
+    dt_bias)`` (``ref.softplus``'s form), the scan of :func:`selective_scan`,
+    then ``((ys + dd x1) * silu(z))`` in float32, cast to ``out_dtype``.
+
+    ``x1`` and ``z`` (B, S, di) in the model's dtype (float32 or bfloat16;
+    ``z`` may be a view with evenly spaced position rows), ``dt_raw`` (B, S,
+    di), ``dt_bias`` and ``dd`` (di,), ``a`` (di, n), ``bmat`` and ``cmat``
+    (B, S, n) float32; ``out_dtype`` (x1's dtype, the default) is the
+    output's.  ``chunk`` bounds the plain version's memory on the CPU.
+    """
+    out_dtype = x1.dtype if out_dtype is None else out_dtype
+    _check(x1, dt_raw, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd, out_dtype=out_dtype)
+    args = (x1, z, dt_raw, dt_bias, a, bmat, cmat, dd)
+    if x1.device.type == "cpu":
+        return selective_scan_gated_plain(*args, out_dtype, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScanGated.apply(*args)
+    return _launch(x1, dt_raw, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd)

@@ -5,11 +5,12 @@ decodes one position against an O(1) state.
 
 The names, layouts and rounding points are the reference's.  The two
 sequential scans run hand-written kernels on the card:
-:func:`mamba_train`'s selective scan (``kernels/selective_scan.py``) and
+:func:`mamba_train`'s selective scan with the softplus of dt before it and
+the skip term and gate after it (``kernels/selective_scan.py``) and
 :func:`slstm_train`'s recurrence (``kernels/slstm_scan.py``); on a CPU
 tensor each runs its plain version (``kernels/ref.py``), which autograd
-differentiates.  The gates' products, the convolution, the skip term and
-the projections around them are torch ops, as they are einsums around the
+differentiates.  The gates' products, the convolution and the
+projections around them are torch ops, as they are einsums around the
 scans in the reference.  The mLSTM's chunkwise form is matrix products over
 S / chunk chunks and stays torch ops; so does every decode step.
 
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import log_sigmoid, sigmoid, silu, slstm_cell, softplus
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.selective_scan import selective_scan_gated
 from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import norm_params, rmsnorm
@@ -63,23 +64,31 @@ def mamba_params(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _mamba_gates(p, x1: torch.Tensor):
-    """B, C, dt from the post-conv activations ``x1`` (..., di), float32."""
+def _mamba_gates_raw(p, x1: torch.Tensor):
+    """B, C, the raw dt (the einsum's, before ``dt_bias`` and the softplus)
+    and a from the post-conv activations ``x1`` (..., di), float32."""
     xf = x1.to(F32)
     bmat = torch.einsum("...i,in->...n", xf, p["wb"].to(F32))
     cmat = torch.einsum("...i,in->...n", xf, p["wc"].to(F32))
     dt = torch.einsum("...i,ir->...r", xf, p["wdt_lo"].to(F32))
     dt = torch.einsum("...r,ri->...i", dt, p["wdt_hi"].to(F32))
-    dt = softplus(dt + p["dt_bias"].to(F32))
     a = -torch.exp(p["a_log"].to(F32))  # (di, n)
     return bmat, cmat, dt, a
 
 
-def mamba_scan_inputs(p, cfg: ModelConfig, x: torch.Tensor):
-    """What :func:`mamba_train` hands the scan, from x (B, S, d): ``(x1, z,
-    dt, a, bmat, cmat)``.  The causal depthwise convolution is a sum of
-    shifted products in the model's dtype, then ``silu`` in that dtype
-    (``x1``); the gates over the whole sequence in float32."""
+def _mamba_gates(p, x1: torch.Tensor):
+    """B, C, dt from the post-conv activations ``x1`` (..., di), float32."""
+    bmat, cmat, dt, a = _mamba_gates_raw(p, x1)
+    return bmat, cmat, softplus(dt + p["dt_bias"].to(F32)), a
+
+
+def mamba_gated_inputs(p, cfg: ModelConfig, x: torch.Tensor):
+    """What :func:`mamba_train` hands :func:`selective_scan_gated`, from x
+    (B, S, d): ``(x1, z, dt_raw, dt_bias, a, bmat, cmat, dd)``.  The causal
+    depthwise convolution is a sum of shifted products in the model's dtype,
+    then ``silu`` in that dtype (``x1``); ``z`` is a view of the in_proj
+    output; the gates over the whole sequence in float32, ``dt`` before its
+    bias and softplus, which the gated scan applies."""
     s = x.shape[1]
     di = cfg.ssm_expand * x.shape[2]
     h = rmsnorm(p["ln"], x)
@@ -93,19 +102,25 @@ def mamba_scan_inputs(p, cfg: ModelConfig, x: torch.Tensor):
     for i in range(1, k):
         conv = conv + xpad[:, i:i + s] * w[i]
     x1 = silu(conv)
-    bmat, cmat, dtv, a = _mamba_gates(p, x1)
-    return x1, z, dtv, a, bmat, cmat
+    bmat, cmat, dt_raw, a = _mamba_gates_raw(p, x1)
+    return x1, z, dt_raw, p["dt_bias"].to(F32), a, bmat, cmat, p["dd"].to(F32)
+
+
+def mamba_scan_inputs(p, cfg: ModelConfig, x: torch.Tensor):
+    """What the scan-only ``selective_scan`` takes for :func:`mamba_train`'s
+    scan, from x (B, S, d): ``(x1, z, dt, a, bmat, cmat)``, ``dt`` after
+    its bias and softplus (:func:`mamba_gated_inputs` otherwise)."""
+    x1, z, dt_raw, dt_bias, a, bmat, cmat, _ = mamba_gated_inputs(p, cfg, x)
+    return x1, z, softplus(dt_raw + dt_bias), a, bmat, cmat
 
 
 def mamba_train(p, cfg: ModelConfig, x: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
-    """Mamba over a full sequence, x (B, S, d): :func:`mamba_scan_inputs`,
-    then :func:`selective_scan` (the reference's chunked scans: the kernel
-    on the card, the plain version with its ``chunk`` on the CPU), the skip
-    term ``dd x1``, the ``silu(z)`` gate and the output projection."""
-    x1, z, dtv, a, bmat, cmat = mamba_scan_inputs(p, cfg, x)
-    y = selective_scan(x1, dtv, a, bmat, cmat, chunk=chunk)  # (B, S, di) float32
-    y = y + p["dd"].to(F32) * x1.to(F32)
-    y = (y * silu(z.to(F32))).to(x.dtype)
+    """Mamba over a full sequence, x (B, S, d): :func:`mamba_gated_inputs`,
+    then :func:`selective_scan_gated` (the softplus of dt, the reference's
+    chunked scans, the skip term ``dd x1`` and the ``silu(z)`` gate: one
+    kernel on the card, the plain ops with the scan's ``chunk`` on the CPU)
+    and the output projection."""
+    y = selective_scan_gated(*mamba_gated_inputs(p, cfg, x), x.dtype, chunk=chunk)
     return x + torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
 
 

@@ -39,6 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import (lm_params_from_numpy, lm_params_to_numpy, train_state_from_numpy,
                                  train_state_to_numpy)
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as TK
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.launch import serve as tserve
@@ -238,6 +239,82 @@ def test_ref_scans_match_the_reference_scans():
         assert_close(got, want, "float32")
 
 
+def _gated_args(b: int, s: int, di: int, n: int, dtype: torch.dtype, seed: int):
+    """Seeded numpy inputs of ``selective_scan_gated`` as CPU tensors: x1, z,
+    the raw dt, dt_bias, a, bmat, cmat, dd."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x1 = ref.silu(f(b, s, di)).to(dtype)
+    z = f(b, s, di).to(dtype)
+    a = -torch.exp(torch.from_numpy(rng.uniform(0, 2, (di, n)).astype(np.float32)))
+    return x1, z, f(b, s, di) - 1, f(di) * 0.5, a, f(b, s, n), f(b, s, n), f(di)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_gated_on_the_cpu_is_mamba_trains_old_composition(dtype):
+    """On a CPU tensor the gated entry is, bit for bit, what ``mamba_train``
+    ran around the scan before the gate moved into the kernel: the softplus
+    of the raw dt plus its bias, the plain scan, the skip term, the gate and
+    the cast."""
+    x1, z, dt_raw, dt_bias, a, bmat, cmat, dd = _gated_args(2, 37, 24, 4, dtype, 21)
+    ys = ref.selective_scan_plain(x1, ref.softplus(dt_raw + dt_bias), a, bmat, cmat, chunk=16)
+    y = ys + dd * x1.to(torch.float32)
+    want = (y * ref.silu(z.to(torch.float32))).to(dtype)
+    got = TK.selective_scan_gated(x1, z, dt_raw, dt_bias, a, bmat, cmat, dd, dtype, chunk=16)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_train_is_unchanged_on_the_cpu(dtype):
+    """``mamba_train`` through the gated entry equals, bit for bit, the
+    scan-only entry with the skip term, gate, cast and projection as torch
+    ops (what it ran before), at the jamba smoke config."""
+    _, _, cfg, p = _mixer("mamba", dtype)
+    x = _x(cfg, 2, 19, dtype)[1]
+    x1, z, dtv, a, bmat, cmat = TS.mamba_scan_inputs(p, cfg, x)
+    y = selective_scan(x1, dtv, a, bmat, cmat, chunk=8)
+    y = y + p["dd"].to(torch.float32) * x1.to(torch.float32)
+    y = (y * ref.silu(z.to(torch.float32))).to(x.dtype)
+    want = x + torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
+    assert torch.equal(TS.mamba_train(p, cfg, x, chunk=8), want)
+
+
+def _refusal_cases():
+    """(entry, arguments, error) the wrappers refuse on any device."""
+    base = _gated_args(1, 4, 8, 4, torch.float32, 22)
+    x1, z, dt, bias, a, bmat, cmat, dd = base
+    cases = []
+    for n in (0, 17):
+        an, bn = torch.zeros((8, n)), torch.zeros((1, 4, n))
+        cases += [("scan", (x1, dt, an, bn, bn), ValueError),
+                  ("gated", (x1, z, dt, bias, an, bn, bn, dd), ValueError)]
+    cases += [
+        ("scan", (x1.half(), dt, a, bmat, cmat), TypeError),
+        ("scan", (x1, dt.to(torch.bfloat16), a, bmat, cmat), TypeError),
+        ("scan", (x1, dt[:, :3], a, bmat, cmat), ValueError),
+        ("scan", (x1, dt, a[:4], bmat, cmat), ValueError),
+        ("scan", (x1, dt, a, bmat, cmat[..., :3]), ValueError),
+        ("gated", (x1, z.to(torch.bfloat16), dt, bias, a, bmat, cmat, dd), TypeError),
+        ("gated", (x1, z, dt, bias, a, bmat, cmat, dd, torch.bfloat16), TypeError),
+        ("gated", (x1, z, dt, bias.double(), a, bmat, cmat, dd), TypeError),
+        ("gated", (x1, z[:, :2], dt, bias, a, bmat, cmat, dd), ValueError),
+        ("gated", (x1, z, dt, bias[:4], a, bmat, cmat, dd), ValueError),
+        ("gated", (x1, z, dt, bias, a, bmat, cmat, dd[:7]), ValueError),
+    ]
+    return cases
+
+
+@pytest.mark.parametrize("case", range(len(_refusal_cases())))
+def test_selective_scan_wrappers_refuse_what_the_kernel_does_not_take(case):
+    """Both entries refuse, on the CPU as on the card, 0 or 17 states, a
+    wrong dtype and mismatched shapes (the kernel would; the plain versions
+    never see them)."""
+    entry, args, error = _refusal_cases()[case]
+    fn = selective_scan if entry == "scan" else TK.selective_scan_gated
+    with pytest.raises(error):
+        fn(*args)
+
+
 # The shapes of tests/test_torch_ssm_card.py and of xlstm-350m's layer: (B, H, uh).
 PLAN_SHAPES = [(2, 4, 16), (3, 2, 8), (1, 1, 1), (2, 3, 40), (2, 4, 256), (16, 4, 256),
                (3, 4, 256), (5, 4, 256), (2, 2, 70), (1, 4, 256), (64, 4, 256), (9, 2, 200)]
@@ -350,9 +427,10 @@ def test_slstm_scan_split_order_matches_the_reference():
 
 
 def test_scan_probe_patches_apply():
-    """``kernels/scan_probe.py`` patches the kernel source by text: every
-    variant still finds its anchors and differs from the kernel and from the
-    others, and the instrumented copy marks every section once."""
+    """``kernels/scan_probe.py`` patches the scan kernels' sources by text:
+    every variant of the sLSTM scan and of the selective scan still finds
+    its anchors and differs from the kernel and from the others, and the
+    sLSTM's instrumented copy marks every section once."""
     from repro_torch.kernels import scan_probe
 
     sources = scan_probe.all_patches()
@@ -363,6 +441,12 @@ def test_scan_probe_patches_apply():
     assert len(set(sources.values())) == len(sources)
     marks = [int(m) for m in re.findall(r"MARK\((\d+)\);", sources["sections"])]
     assert sorted(marks) == list(range(len(scan_probe.SECTIONS)))
+    sel = scan_probe.sel_patches()
+    kernel = sel.pop("kernel")
+    assert kernel == scan_probe.SEL_SOURCE.read_text()
+    assert set(sel) == set(scan_probe.SEL_VARIANTS) - {"kernel"}
+    assert all(text != kernel for text in sel.values())
+    assert len(set(sel.values())) == len(sel)
 
 
 def test_activations_round_where_jax_rounds_in_bf16():

@@ -2,7 +2,10 @@
 ``slstm_scan`` against their plain versions (``kernels/ref.py``) on CUDA
 tensors at small shapes, at a ragged sequence length and at one full-width
 layer of each config (jamba-1.5-large's mamba, xlstm-350m's sLSTM), equal
-bits on reruns, and a backward through either kernel raising.  Needs an
+bits on reruns, and a backward through either kernel raising; the gated
+``selective_scan_gated`` against the same ops around the scan-only kernel,
+bit for bit (the kernel rounds the softplus, skip, gate and cast as torch's
+CUDA ops do: ``expf``, ``log1pf`` and IEEE division, no contraction).  Needs an
 NVIDIA GPU (``cuda`` marker; skips without one).  Imports nothing of JAX:
 the CPU twins against the reference are in ``test_torch_ssm.py``.
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import measure, ref
 from repro_torch.kernels import slstm_scan as SS
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.selective_scan import selective_scan, selective_scan_gated
 from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.models import ssm
 from repro_torch.models.params import init_params
@@ -49,6 +52,27 @@ def _mamba_inputs(b, s, di, n, x_dtype, seed, dev):
     bmat = torch.randn((b, s, n), generator=gen, device=dev)
     cmat = torch.randn((b, s, n), generator=gen, device=dev)
     return x1, dt, a, bmat, cmat
+
+
+def _gated_inputs(b, s, di, n, dtype, seed, dev):
+    """x1, z (a view of a (B, S, 2 di) in_proj output, as mamba_train's),
+    the raw dt, dt_bias, a, bmat, cmat and dd."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x1 = ref.silu(torch.randn((b, s, di), generator=gen, device=dev)).to(dtype)
+    z = torch.randn((b, s, 2 * di), generator=gen, device=dev).to(dtype)[..., di:]
+    dt_raw = torch.randn((b, s, di), generator=gen, device=dev) - 1
+    dt_bias = torch.randn((di,), generator=gen, device=dev) * 0.5
+    a = -torch.exp(torch.rand((di, n), generator=gen, device=dev) * 2)
+    bmat = torch.randn((b, s, n), generator=gen, device=dev)
+    cmat = torch.randn((b, s, n), generator=gen, device=dev)
+    dd = torch.randn((di,), generator=gen, device=dev)
+    return x1, z, dt_raw, dt_bias, a, bmat, cmat, dd
+
+
+def _composition(*args):
+    """mamba_train's ops around the scan-only kernel: ref.softplus, the
+    kernel, the skip term, the gate and the cast, as torch's ops round them."""
+    return ref.selective_scan_gated_plain(*args, args[0].dtype, scan=selective_scan)
 
 
 def _slstm_inputs(b, s, hh, uh, dtype, seed, dev):
@@ -81,6 +105,29 @@ def test_selective_scan_kernel_matches_plain(cuda, b, s, di, n, x_dtype):
     assert LAUNCH_COUNTS["selective_scan"] == before + 1
     _close(got, ref.selective_scan_plain(*args, chunk=16))
     assert torch.equal(got, selective_scan(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n", [(2, 40, 128, 4), (3, 37, 200, 16), (1, 1, 64, 1),
+                                      (2, 70, 96, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_gated_kernel_equals_the_composition(cuda, b, s, di, n, dtype):
+    """The gated entry (softplus of the raw dt, the scan, skip, gate and
+    cast in one kernel) against the same ops around the scan-only kernel:
+    equal bits; one launch counted a call, and no memory allocated but the
+    output (z read in place as a view, no float32 dt or ys); equal bits on
+    a rerun."""
+    args = _gated_inputs(b, s, di, n, dtype, 13, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, held = LAUNCH_COUNTS["selective_scan"], torch.cuda.memory_allocated()
+    got = selective_scan_gated(*args)
+    assert LAUNCH_COUNTS["selective_scan"] == before + 1
+    assert torch.cuda.max_memory_allocated() - held == torch.cuda.memory_allocated() - held
+    assert torch.cuda.memory_allocated() - held >= got.numel() * got.element_size()
+    assert got.dtype == dtype and got.shape == (b, s, di) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, _composition(*args))
+    assert torch.equal(got, selective_scan_gated(*args))
 
 
 @pytest.mark.cuda
@@ -154,6 +201,25 @@ def test_selective_scan_at_jamba_width(cuda):
 
 
 @pytest.mark.cuda
+def test_selective_scan_gated_at_jamba_width(cuda):
+    """One jamba-1.5-large mamba layer at full width through mamba_train's
+    own inputs (bf16 weights, 2 rows of 300 positions): the gated entry
+    against the composition around the scan-only kernel, equal bits, and
+    the scan-only kernel against its plain version."""
+    cfg = get_config("jamba-1.5-large-398b")
+    p = init_params(ssm.mamba_params(cfg), torch.bfloat16, seed=3, device=cuda)
+    p = {**p, "dt_bias": p["dt_bias"] + 0.1, "dd": p["dd"] * 0.5}  # neither 0 nor 1
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 300, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+    args = ssm.mamba_gated_inputs(p, cfg, x)
+    got = selective_scan_gated(*args, torch.bfloat16)
+    assert torch.equal(got, _composition(*args))
+    x1, _, dt, a, bmat, cmat = ssm.mamba_scan_inputs(p, cfg, x)
+    _close(selective_scan(x1, dt, a, bmat, cmat),
+           ref.selective_scan_plain(x1, dt, a, bmat, cmat, chunk=128))
+
+
+@pytest.mark.cuda
 def test_slstm_scan_at_xlstm_width(cuda):
     """One xlstm-350m sLSTM layer's scan at full width (4 heads of 256
     units), bf16 weights at the model's initial scales, 2 rows of 300
@@ -179,6 +245,13 @@ def test_a_gradient_through_either_kernel_raises(cuda):
     assert LAUNCH_COUNTS["selective_scan"] == before + 1 and ys.requires_grad
     with pytest.raises(NotImplementedError, match="ROADMAP A7.4b"):
         ys.sum().backward()
+    args = _gated_inputs(1, 8, 32, 4, torch.bfloat16, 7, cuda)
+    args[3].requires_grad_()  # dt_bias
+    before = LAUNCH_COUNTS["selective_scan"]
+    out = selective_scan_gated(*args)
+    assert LAUNCH_COUNTS["selective_scan"] == before + 1 and out.requires_grad
+    with pytest.raises(NotImplementedError, match="ROADMAP A7.4b"):
+        out.float().sum().backward()
     xproj, wr, bias = _slstm_inputs(1, 8, 2, 8, torch.float32, 8, cuda)
     wr.requires_grad_()
     hs = slstm_scan(xproj, wr, bias)
@@ -193,6 +266,19 @@ def test_the_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         selective_scan(x1, dt, a, bmat, cmat)  # n = 17 > 16 states
     with pytest.raises(TypeError):
         selective_scan(x1, dt.half(), a, bmat, cmat)
+    for n in (0, 17):
+        x1, z, dt, bias, a, bmat, cmat, dd = _gated_inputs(1, 4, 32, 4, torch.bfloat16, 9, cuda)
+        a = torch.zeros((32, n), device=cuda)
+        bmat = cmat = torch.zeros((1, 4, n), device=cuda)
+        with pytest.raises(ValueError):
+            selective_scan_gated(x1, z, dt, bias, a, bmat, cmat, dd)
+    x1, z, dt, bias, a, bmat, cmat, dd = _gated_inputs(1, 4, 32, 4, torch.bfloat16, 9, cuda)
+    with pytest.raises(TypeError):
+        selective_scan_gated(x1, z.float(), dt, bias, a, bmat, cmat, dd)
+    with pytest.raises(TypeError):
+        selective_scan_gated(x1, z, dt, bias, a, bmat, cmat, dd, torch.float32)
+    with pytest.raises(ValueError):
+        selective_scan_gated(x1, z, dt, bias[:16], a, bmat, cmat, dd)
     xproj, wr, bias = _slstm_inputs(1, 4, 1, 257, torch.float32, 10, cuda)
     with pytest.raises(ValueError):
         slstm_scan(xproj, wr, bias)  # uh = 257 > 256 units

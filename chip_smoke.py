@@ -19,7 +19,12 @@ rerun, beside SDPA's backward; and the two recurrent scans at phase 13's
 long prefill, jamba-1.5-large's selective scan and xlstm-350m's sLSTM
 scan, with equal bits on a rerun, the selective scan also as its gated
 entry, bit for bit against the unfused chain it replaces and timed beside
-it, with the blocks an SM holds and the issue floor its SASS gives).
+it, with the blocks an SM holds and the issue floor its SASS gives; and
+their backward kernels, the sLSTM's at xlstm-350m's training microbatch of
+4 rows and at 16, the gated selective scan's at jamba's cut's 1 row and at
+16, each from the forward kernel's residuals against the plain backward
+within SCAN_GRAD_TOL, with equal bits on a rerun, and the sLSTM's dwr
+product timed apart).
 Phase 3 runs ``PBDSEngine.run`` (CB-OPT-GB, 100 ranges, theta 0.05) over a
 Chicago-Crime-sized table (6.7M rows x 9 int32 columns on the device),
 replaying a generated workload, and checks every result against execution
@@ -81,17 +86,17 @@ capture, the fused results against the host loop's bit for bit, and kernels
 1-5 must each launch.  Phase 8 drives every selection strategy of the
 paper: on phase 3's crimes table a fresh ``PBDSEngine`` (100 ranges, theta
 0.05) for NO-PS and each of the five random, three cost-based strategies
-and OPT over three generated queries and their replay, and a ``run_batch``
+and OPT over two generated queries and their replay, and a ``run_batch``
 burst under RAND-GB; Fig. 9's mix (NO-PS, RAND-PK, RAND-GB, CB-OPT-GB,
-24 runs of 8 generated queries) over phase 7's TPC-H ``lineitem`` and a
+12 runs of 4 generated queries) over phase 7's TPC-H ``lineitem`` and a
 6.7M-row ``make_stars`` table, each engine's maintainer builds and group
-encodings timed on the host; and four two-attribute Q-AGH queries
+encodings timed on the host; and two two-attribute Q-AGH queries
 through ``select_composite_gb``, ``capture_composite`` and
 ``execute_with_composite``.  It checks every result against full-table
 execution, every random pick against its candidate pool and a second
 engine's, the batch against the sequential runs, each composite sketch
 against the single sketches of its parts and the plain bitmap, and that
-kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6, 11, 12, 13.  Phase 6 serves ``stablelm-1.6b`` at full
+kernels 1-4 each launch.  Phases run in the order 1-5, 9, 10, 7, 8, 6, 11, 12, 13, 14.  Phase 6 serves ``stablelm-1.6b`` at full
 width and depth (24 layers, d_model 2048, 32 heads, vocab 100,352, bf16,
 random weights from the seed) through ``launch.serve.serve``: sketch-filtered
 admission of 16 requests out of 5,000, a 64-token prefill whose 24 attention
@@ -136,6 +141,19 @@ for bit), decode
 against prefill layer by layer on float32 copies of xlstm's weights, a
 2,048-token prefill (its scans checked on the first and last layers),
 warm prefill and decode times beside decode's bound, and the peak memory.
+Phase 14 trains ``xlstm-350m`` at full width and depth on the card (bf16,
+``remat="full"``, phase 11's batch of 8 x 2,048 in 2 microbatches and 6
+steps, curation as phase 11's): the sLSTM's gradients at its first and last
+layer, each on its own input, through the scan kernels against autograd
+through the plain loop (bf16 weights and f32 copies); a checkpoint after
+step 3 and a resume to 6 equal to the straight run bit for bit; every loss
+finite; exactly 48 sLSTM forwards a step, of them only the 24
+recomputations writing residuals, and 24 backward kernels; the training
+CLI fresh and resumed; then ``jamba-1.5-large-398b`` cut to one (mamba,
+MLP) block at full width (2.09 B parameters): the layer's gradients through
+the gated scan's kernels against the plain version's autograd, the first
+microbatch's gradients taken twice equal bit for bit, 3 steps of 2 x 2,048
+with finite losses and one backward kernel a microbatch.
 Any failed check raises, so the exit code is
 not 0.
 
@@ -192,6 +210,12 @@ KERNELS = (
      "src/repro/models/ssm.py:58"),
     ("slstm_scan", "src/repro_torch/kernels/csrc/slstm_scan.cu",
      "src/repro/models/ssm.py:412"),
+    # No Pallas kernel: autodiff of mamba_train's scans, and the sLSTM's
+    # custom-VJP backward lax.scan.
+    ("selective_scan_bwd", "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+     "src/repro/models/ssm.py:58"),
+    ("slstm_scan_bwd", "src/repro_torch/kernels/csrc/slstm_scan_bwd.cu",
+     "src/repro/models/ssm.py:375"),
 )
 N_SHARDS = 4
 SHARD_ATTR = "community"  # the partition phase 4's waves chose
@@ -486,6 +510,8 @@ def phase_kernels(n: int, seed: int) -> dict:
     rows["flash_attention_bwd"] = _kernel_flash_attention_bwd(seed)
     rows["selective_scan"] = _kernel_selective_scan(seed)
     rows["slstm_scan"] = _kernel_slstm_scan(seed)
+    rows["selective_scan_bwd"] = _kernel_selective_scan_bwd(seed)
+    rows["slstm_scan_bwd"] = _kernel_slstm_scan_bwd(seed)
     return rows
 
 
@@ -873,10 +899,11 @@ def _slstm_scan_bound(b: int, s: int, hh: int, uh: int, x_bytes: int, w_bytes: i
 
 
 def _scan_row(label: str, kernel, plain, b_ms: float, b_by: str, err: float,
-              plain_reps: int = 2) -> dict:
+              plain_reps: int = 2, plain_ms: float = None) -> dict:
     """A scan kernel's JSON row: its CUDA-event and device times beside the
-    plain version's time and the bound; no single PyTorch call computes a
-    scan, so ``library_ms`` is None."""
+    plain version's time (``plain_ms`` where the caller timed it) and the
+    bound; no single PyTorch call computes a scan, so ``library_ms`` is
+    None."""
     import torch
 
     from repro_torch.kernels import measure
@@ -884,8 +911,10 @@ def _scan_row(label: str, kernel, plain, b_ms: float, b_by: str, err: float,
     ms = time_ms(kernel, reps=10)
     card = card_state()
     per = {k: round(v, 4) for k, v in measure.device_ms(torch, kernel, calls=5).items()}
-    row = dict(max_abs_err=err, ms=ms, plain_ms=time_ms(plain, reps=plain_reps, warmup=1),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    if plain_ms is None:
+        plain_ms = time_ms(plain, reps=plain_reps, warmup=1)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
     log(f"[kernels] {label}: kernel {ms:.4f} ms, device {sum(per.values()):.4f} ms {per} (bound "
         f"{b_ms:.4f} ms, {b_by}; SM clock, power after it: {card}); no single PyTorch call "
         f"computes it; {row}")
@@ -1023,6 +1052,193 @@ def _kernel_slstm_scan(seed: int) -> dict:
                     lambda: ref.slstm_scan_plain(xproj, wr, bias), b_ms, b_by, err, plain_reps=1)
     del xproj, wr, bias, got
     torch.cuda.empty_cache()
+    return row
+
+
+# The backward kernels against their plain backwards, float32, of each
+# gradient's largest magnitude (phase 11's TRAIN_TOL["float32"]; derived in
+# tests/test_torch_ssm_card.py); a bf16 gradient also within one bf16 ulp of
+# each element.  The training microbatches: xlstm-350m's 4 rows (phase 14's
+# TRAIN_BATCH / TRAIN_MICRO) and jamba's cut's 1 row of 2,048, beside the
+# forward rows' 16.
+SCAN_GRAD_TOL = 1e-4
+SLSTM_BWD_BATCHES = (4, 16)  # the JSON row: the first
+SCAN_BWD_BATCHES = (1, 16)  # the JSON row: the first
+
+
+def _once_ms(fn):
+    """``(fn(), its ms)``: one call between CUDA events (a plain backward,
+    too slow to time again)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _grads_within(label: str, got, want, names):
+    """Each gradient against its plain version within SCAN_GRAD_TOL of its
+    scale (bf16 ones also within 2^-7 of each element); returns the largest
+    |diff| and the worst |diff| over scale."""
+    import torch
+
+    worst = err = 0.0
+    for name, g, w in zip(names, got, want):
+        require(g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+                f"{label}: {name} is not a finite {w.dtype} {tuple(w.shape)}")
+        gf, wf = g.float(), w.float()
+        scale = max(float(wf.abs().max()), 1e-30)
+        diff = (gf - wf).abs()
+        slack = SCAN_GRAD_TOL * scale + (2.0 ** -7 * wf.abs() if g.dtype == torch.bfloat16 else 0)
+        require(not bool((diff > slack).any()),
+                f"{label}: {name} max |kernel - plain| {float(diff.max()):.3e} at scale {scale:.3e}")
+        worst = max(worst, float(diff.max()) / scale)
+        err = max(err, float(diff.max()))
+    return err, worst
+
+
+def _slstm_bwd_bound(b: int, s: int, hh: int, uh: int, w_bytes: int):
+    """slstm_scan_bwd's least ms: the recurrent product's 2 B S H uh 4uh
+    float32 operations at 67 TFLOP/s against its bytes (pre, c, n, m, dhs
+    and dpre a position and unit, wr)."""
+    d = hh * uh
+    return bound(48 * b * s * d + w_bytes * hh * uh * 4 * uh, 2 * b * s * hh * uh * 4 * uh)
+
+
+def _gated_bwd_bound(b: int, s: int, di: int, n: int, x_bytes: int):
+    """selective_scan_bwd's least ms (gated): the bytes of the gradient's
+    own operands (x1, the raw dt, z, dout, dx1, dz and ddt_raw a position
+    and channel; b, c, db and dc a position; a, da, dd, ddd, dt_bias and its
+    gradient) at 3.35 TB/s against its 2 B S di n exponentials (the states
+    recomputed, then decay in the walk) at the special-function units'
+    rate.  The states the forward saves for it (n bytes a position and
+    channel at one every 4 positions) are the design's cost, not the
+    function's, and are not counted."""
+    per = 5 * x_bytes + 8
+    return bound(per * b * s * di + 16 * b * s * n + 4 * di * (2 * n + 4), 2 * b * s * di * n,
+                 SFU_OPS_PER_S)
+
+
+def _kernel_slstm_scan_bwd(seed: int) -> dict:
+    """slstm_scan_bwd at xlstm-350m's width (4 heads of 256 units, bf16
+    xproj and wr at the model's initial scale) and SLSTM_BWD_BATCHES rows of
+    2,048 positions: its gradients from the forward kernel's residuals
+    against ref.slstm_scan_bwd_plain's from the plain forward's, within
+    SCAN_GRAD_TOL; equal bits on a rerun; the kernel (its dpre) timed beside
+    its bound, the plain backward and, as its own line, dwr's float32
+    matrix product."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as SS
+    from repro_torch.kernels.ref import slstm_weight_grads
+
+    _, s, hh, uh = SLSTM_SHAPE
+    d = hh * uh
+    dev = torch.device("cuda")
+    row = None
+    for b in SLSTM_BWD_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(seed + 3)
+        xproj = torch.randn((b, s, 4 * d), generator=gen, device=dev).to(torch.bfloat16)
+        wr = (torch.randn((hh, uh, 4 * uh), generator=gen, device=dev) / uh ** 0.5).to(
+            torch.bfloat16)
+        bias = (torch.randn((4 * d,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        dhs = torch.randn((b, s, hh, uh), generator=gen, device=dev)
+        hs, pre, states = SS.slstm_scan_residuals(xproj, wr, bias)
+        got = SS.slstm_scan_bwd(xproj, wr, bias, pre, states, hs, dhs)
+        again = SS.slstm_scan_bwd(xproj, wr, bias, pre, states, hs, dhs)
+        require(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+                f"slstm_scan_bwd B={b}: a rerun gave other bits")
+        p_hs, p_pre, p_states = ref.slstm_scan_fwd_plain(xproj, wr, bias)
+        plain = lambda: ref.slstm_scan_bwd_plain(xproj, wr, bias, p_pre, p_states, p_hs, dhs)
+        want, plain_ms = _once_ms(plain)
+        label = f"slstm_scan_bwd B={b} S={s} H={hh} uh={uh} bf16"
+        err, rel = _grads_within(label, got, want, ("dxproj", "dwr", "dbias"))
+        del got, again, want
+        p = SS.card_plan(0, 0, 1, b, hh, uh, backward=True)
+        log(f"[kernels] {label}: dxproj, dwr, dbias within {SCAN_GRAD_TOL} of each scale of the "
+            f"plain backward (bf16 dxproj also within one bf16 ulp of each element): max "
+            f"|diff| {err:.3e}, worst {rel:.2e} of a gradient's scale; rerun bit-equal; plan {p}")
+        dpre = SS._launch_bwd(wr, pre, states, dhs).view(b, s, hh, 4 * uh)
+        mm_ms = time_ms(lambda: slstm_weight_grads(hs, dpre), reps=10)
+        log(f"[kernels] {label}: dwr and dbias (ref.slstm_weight_grads: a float32 torch.matmul "
+            f"a head of (uh, B S) by (B S, 4 uh), and a sum) {mm_ms:.4f} ms")
+        b_ms, b_by = _slstm_bwd_bound(b, s, hh, uh, wr.element_size())
+        r = _scan_row(label + " (the kernel: dpre)", lambda: SS._launch_bwd(wr, pre, states, dhs),
+                      plain, b_ms, b_by, err, plain_ms=plain_ms)
+        r["weight_grads_ms"] = mm_ms
+        row = row or r
+        del xproj, wr, bias, dhs, hs, pre, states, p_hs, p_pre, p_states, dpre
+        torch.cuda.empty_cache()
+    return row
+
+
+def _kernel_selective_scan_bwd(seed: int) -> dict:
+    """selective_scan_gated's backward at jamba-1.5-large's width (di
+    16,384, n 16, bf16 x1, z a view of the in_proj output, bf16 dout) and
+    SCAN_BWD_BATCHES rows of 2,048 positions: its eight gradients from the
+    forward kernel's saved states against
+    ref.selective_scan_gated_bwd_plain's, within SCAN_GRAD_TOL; equal bits
+    on a rerun; timed beside its bound and the plain backward."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import selective_scan as SEL
+
+    _, s, di, n = SCAN_SHAPE
+    dev = torch.device("cuda")
+    row = None
+    names = ("dx1", "dz", "ddt_raw", "ddt_bias", "da", "dbmat", "dcmat", "ddd")
+    for b in SCAN_BWD_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(seed + 4)
+        x1 = ref.silu(torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16))
+        z = torch.randn((b, s, 2 * di), generator=gen, device=dev).to(torch.bfloat16)[..., di:]
+        dt_raw = torch.randn((b, s, di), generator=gen, device=dev)
+        dt_bias = torch.randn((di,), generator=gen, device=dev) * 0.1
+        a = -torch.exp(torch.ones((di, n), device=dev))
+        bmat = torch.randn((b, s, n), generator=gen, device=dev)
+        cmat = torch.randn((b, s, n), generator=gen, device=dev)
+        dd = torch.randn((di,), generator=gen, device=dev)
+        dout = torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16)
+        args = (x1, z, dt_raw, dt_bias, a, bmat, cmat, dd)
+        out, hsave = SEL.selective_scan_states_of(x1, dt_raw, a, bmat, cmat, z, dt_bias, dd)
+        require(torch.equal(out, SEL.selective_scan_gated(*args)),
+                f"selective_scan_gated B={b}: saving the states changed the output's bits")
+        require(torch.equal(hsave, ref.selective_scan_states(x1, ref.softplus(dt_raw + dt_bias),
+                                                             a, bmat)),
+                f"selective_scan_gated B={b}: the saved states differ from the plain version's")
+        del out
+        kernel = lambda: SEL.selective_scan_gated_bwd(*args, dout, hsave)
+        got, again = kernel(), kernel()
+        require(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+                f"selective_scan_bwd B={b}: a rerun gave other bits")
+        del again
+        plain = lambda: ref.selective_scan_gated_bwd_plain(*args, dout, hsave,
+                                                           chunk=SCAN_PLAIN_CHUNK)
+        want, plain_ms = _once_ms(plain)
+        label = f"selective_scan_bwd (gated) B={b} S={s} di={di} n={n} bf16"
+        err, rel = _grads_within(label, got, want, names)
+        del got, want
+        torch.cuda.empty_cache()
+        buf = (ctypes.c_int * 5)()
+        build.check(build.library(SEL.BWD_NAME).selective_scan_bwd_occupancy(0, 1, 1, n, buf),
+                    "selective_scan_bwd_occupancy")
+        log(f"[kernels] {label}: its 8 gradients within {SCAN_GRAD_TOL} of each scale of the "
+            f"plain backward (bf16 dx1 and dz also within one bf16 ulp of each element): max "
+            f"|diff| {err:.3e}, worst {rel:.2e} of a gradient's scale; rerun bit-equal; saved states (B, {hsave.shape[1]}, "
+            f"{n}, {di}) {hsave.numel() * 4 / 1e9:.3f} GB equal to the plain version's; plan "
+            f"[blocks an SM, SMs, shared bytes, threads, channels a unit] {list(buf)}")
+        b_ms, b_by = _gated_bwd_bound(b, s, di, n, x1.element_size())
+        r = _scan_row(label, kernel, plain, b_ms, b_by, err, plain_ms=plain_ms)
+        row = row or r
+        del x1, z, dt_raw, dt_bias, a, bmat, cmat, dd, dout, args, hsave
+        torch.cuda.empty_cache()
     return row
 
 
@@ -3044,15 +3260,17 @@ def phase_join(n_lineitem: int, seed: int, device: str = "cuda", db=None) -> dic
 # ---------------------------------------------------------------------------
 
 # 8a: generated CRIMES_SPEC queries, each replayed once (cut from 4 to 3 to
-# keep the script inside its limit: 8b's TPC-H misses are slow on the host).
-STRATEGY_QUERIES, STRATEGY_SEED = 3, 33
+# keep the script inside its limit: 8b's TPC-H misses are slow on the host;
+# and from 3 to 2 when phase 14 came).
+STRATEGY_QUERIES, STRATEGY_SEED = 2, 33
 STARS_ROWS = ROWS  # 8b's stars table: generated, at the crimes row count
-# 8b: benchmarks/bench_fig9_endtoend.py's draw (8 unique queries at seed 9,
-# runs picked by default_rng(9).integers), n_repeat cut from 5 to 3.
-FIG9_UNIQUE, FIG9_REPEAT, FIG9_SEED = 8, 3, 9
+# 8b: benchmarks/bench_fig9_endtoend.py's draw (its 8 unique queries at seed
+# 9, cut to 4 when phase 14 came; runs picked by default_rng(9).integers),
+# n_repeat cut from 5 to 3.
+FIG9_UNIQUE, FIG9_REPEAT, FIG9_SEED = 4, 3, 9
 FIG9_STRATEGIES = ("NO-PS", "RAND-PK", "RAND-GB", "CB-OPT-GB")
-COMPOSITE_GROUPBYS = (("district", "year"), ("community", "month"), ("ward", "year"),
-                      ("district", "month"))
+# 8c: two of the four two-attribute group-bys since phase 14 came.
+COMPOSITE_GROUPBYS = (("district", "year"), ("community", "month"))
 STRATEGY_KERNELS = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
                     "fragment_bitmap_batch")
 
@@ -3101,7 +3319,7 @@ def phase_strategies(n_rows: int, seed: int, crimes_db=None, tpch_db=None,
     ``ALL_STRATEGIES`` over ``n_queries`` generated crimes queries and their
     replay, and one ``run_batch`` burst under RAND-GB; 8b: Fig. 9's mix
     (NO-PS, RAND-PK, RAND-GB, CB-OPT-GB over TPC-H ``lineitem`` and stars,
-    24 runs of 8 queries); 8c: four two-attribute Q-AGH queries through
+    12 runs of 4 queries); 8c: two two-attribute Q-AGH queries through
     ``select_composite_gb``, ``capture_composite`` and
     ``execute_with_composite``.  Every result is checked against full-table
     execution, every random pick against its candidate pool and a second
@@ -3739,24 +3957,24 @@ def _cli(args, ckpt: str, device: str) -> "subprocess.Popen":
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _cli_chain(ckpt: str, device: str) -> dict:
-    """Check (f), run beside the checkpoint's IO: TRAIN_CLI's runs in turn;
-    returns each run's exit code, output and wall."""
+def _cli_chain(ckpt: str, device: str, arch: str = SERVE_ARCH) -> dict:
+    """Check (f), run beside the checkpoint's IO: TRAIN_CLI's runs of
+    ``arch`` in turn; returns each run's exit code, output and wall."""
     out = {}
     for label, args in TRAIN_CLI.items():
         t0 = time.perf_counter()
-        proc = _cli(args, ckpt, device)
+        proc = _cli(("--arch", arch, *args), ckpt, device)
         text, _ = proc.communicate(timeout=600)
         out[label] = (proc.returncode, text, time.perf_counter() - t0)
     return out
 
 
-def _check_cli(runs: dict) -> None:
+def _check_cli(runs: dict, arch: str = SERVE_ARCH, tag: str = "[train]") -> None:
     for label, (rc, text, wall) in runs.items():
         lines = [ln for ln in text.splitlines() if ln.startswith("[train]")]
-        log(f"[train] CLI {label} (exit {rc}, {wall:.1f} s): " + " | ".join(lines))
+        log(f"{tag} CLI {label} (exit {rc}, {wall:.1f} s): " + " | ".join(lines))
         require(rc == 0, f"the training CLI ({label}) exited {rc}:\n{text[-3000:]}")
-        require(len(lines) >= 4 and lines[0].startswith("[train] arch=stablelm-1.6b-smoke params=")
+        require(len(lines) >= 4 and lines[0].startswith(f"[train] arch={arch}-smoke params=")
                 and lines[1].startswith("[train] curation: strategy=")
                 and lines[-1].startswith("[train] done: loss "),
                 f"the training CLI ({label}) printed other lines than the reference's")
@@ -3769,46 +3987,17 @@ def _check_cli(runs: dict) -> None:
             and resumed[-1].endswith("ckpts=[2, 4, 6]"), "the resumed CLI run did not resume")
 
 
-def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                device: str = "cuda") -> dict:
-    """Train stablelm-1.6b at full width and depth on the card (checks (a)-(f)
-    of the phase); returns the training path's launches: the straight run's
-    six steps and the curation before them.  ``cfg``, ``batch``, ``seq`` and
-    ``device`` serve a rehearsal on the CPU at a small size (``cuda``
-    calls stubbed, launch checks lenient: no kernel launches off the card)."""
-    import dataclasses
-    import shutil
-    import threading
-
+def _train_curation(cfg, seed: int, batch: int, seq: int, dev, tag: str):
+    """Check (a) of a training phase: curation as launch/train.py runs it,
+    on ``dev``, against the CPU pipeline and a plain numpy evaluation of the
+    query.  Returns the pipeline and curation's launches by kernel."""
     import numpy as np
-    import torch
 
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.checkpoint.checkpoint import host_copy
-    from repro_torch.configs import get_config
     from repro_torch.data import pipeline
     from repro_torch.device import to_host
     from repro_torch.kernels.build import KERNELS as BUILT
-    from repro_torch.kernels.flash_attention import (BWD_COPY_COUNTER, BWD_NAME, BWD_TC_COUNTER,
-                                                     COPY_COUNTER, NAME as FWD_NAME, TC_COUNTER)
-    from repro_torch.launch.train import make_batch_for
-    from repro_torch.models import lm
-    from repro_torch.models.params import leaves, tree_leaves, tree_unflatten
-    from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.guards import LAUNCH_COUNTS
-    from repro_torch.train.step import (TrainSpec, init_train_state, make_train_step,
-                                        microbatch_reshape)
 
-    t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    cfg = cfg or get_config(SERVE_ARCH)
-    dev = torch.device(device)
-    ckpt_dir = ROOT / "build" / "phase11_ckpt"
-    cli_dir = ROOT / "build" / "phase11_cli_ckpt"
-    for d in (ckpt_dir, cli_dir):
-        shutil.rmtree(d, ignore_errors=True)
-
-    # (a) Curation as launch/train.py runs it, on the card.
     for name in BUILT:
         LAUNCH_COUNTS[name] = 0
     t0 = time.perf_counter()
@@ -3819,7 +4008,7 @@ def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TR
     t_cur = time.perf_counter() - t0
     curation = {name: LAUNCH_COUNTS[name] for name in BUILT}
     ri = pipe.run_info
-    log(f"[train] curation: strategy={ri.strategy} attr={ri.attr} created={ri.created} "
+    log(f"{tag} curation: strategy={ri.strategy} attr={ri.attr} created={ri.created} "
         f"skipped={pipe.skipped_fraction:.1%} of {TRAIN_DOCS} docs "
         f"({len(pipe.selected_docs)} admitted) in {t_cur:.2f} s; launches {curation}")
     # The corpus is clustered (fragment-major), so the load is a slice of
@@ -3834,31 +4023,215 @@ def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TR
             "the card admitted other docs than the CPU pipeline")
     require(bool(np.isin(plain, pipe.selected_docs).all()),
             "the sketch dropped docs the curation query selects")
-    log(f"[train] (a) admitted docs equal the CPU pipeline's and contain all {len(plain)} "
+    log(f"{tag} (a) admitted docs equal the CPU pipeline's and contain all {len(plain)} "
         f"of the plain query's")
+    return pipe, curation
 
-    # The state: bf16 parameters, f32 master, m and v.
+
+def _train_state(cfg, seed: int, batch: int, seq: int, dev, tag: str):
+    """A training phase's TrainSpec (TRAIN_MICRO microbatches, AdamW over
+    TRAIN_STEPS) and state: ``cfg.dtype`` parameters, f32 master, m and v."""
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import TrainSpec, init_train_state
+
     spec = TrainSpec(microbatch=TRAIN_MICRO, opt=OptConfig(total_steps=TRAIN_STEPS))
     t0 = time.perf_counter()
     state = init_train_state(cfg, spec, seed=seed, device=dev)
     torch.cuda.synchronize()
     state_gb = sum(x.numel() * x.element_size() for x in tree_leaves(state)) / 1e9
-    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat}, loss_chunk "
         f"{cfg.loss_chunk}; state {state_gb:.2f} GB made in {time.perf_counter() - t0:.2f} s; "
         f"batch {batch} x {seq} tokens in {TRAIN_MICRO} microbatches")
+    return spec, state
 
+
+def _first_microbatch(cfg, pipe, seq: int, dev) -> dict:
+    """The pipeline's first batch in TRAIN_MICRO microbatches; the pipeline
+    is left at its start."""
+    from repro_torch.launch.train import make_batch_for
+    from repro_torch.train.step import microbatch_reshape
+
+    pipe.restore({"cursor": 0, "epoch": 0})
+    first = microbatch_reshape(make_batch_for(cfg, next(iter(pipe)), seq, dev), TRAIN_MICRO)
+    pipe.restore({"cursor": 0, "epoch": 0})
+    return first
+
+
+def _start_cli(cli_dir, device: str, arch: str):
+    """Check (f)'s CLI runs of ``arch`` in a thread: (the thread, the dict
+    its results go into)."""
+    import threading
+
+    cli = {}
+    thread = threading.Thread(target=lambda: cli.update(_cli_chain(str(cli_dir), device, arch)))
+    thread.start()
+    return thread, cli
+
+
+def _train_run(tag: str, cfg, spec, box: list, pipe, batch: int, seq: int, device: str,
+               mfu_params: float, paths, check_launches, ckpt_dir, cli_dir, arch: str,
+               t_phase: float, cli=None) -> dict:
+    """Checks (c)-(f) of a training phase: TRAIN_STEPS steps of ``box``'s
+    one state (taken out of it) from ``pipe`` with an async checkpoint after
+    step TRAIN_SAVE; ``check_launches(launches, kinds)`` on the straight
+    run's launches by kernel and by the counters ``paths`` (check (e)); the
+    CLI of ``arch``'s smoke config fresh and resumed as processes beside the
+    checkpoint's IO and the restore (f; ``cli``, a :func:`_start_cli`
+    started earlier, instead); the restore and the steps after it
+    again, whose losses, grad norms and every leaf must equal the straight
+    run's bit for bit (c); every loss and grad norm finite (d).  ``mfu`` =
+    6 ``mfu_params`` tokens / (wall x 989 TFLOP/s).  Returns the straight
+    run's launches by kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import host_copy
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.launch.train import make_batch_for
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+    from repro_torch.train.step import make_train_step, microbatch_reshape
+
+    dev = torch.device(device)
+    state = box.pop()
+    step_fn = make_train_step(cfg, spec)
+    tokens = batch * seq
+    pipe.restore({"cursor": 0, "epoch": 0})
     it = iter(pipe)
 
-    def next_batch():
+    def run_step(label, i, st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         raw = next(it)
-        return microbatch_reshape(make_batch_for(cfg, raw, seq, dev), TRAIN_MICRO)
+        batch_ = microbatch_reshape(make_batch_for(cfg, raw, seq, dev), TRAIN_MICRO)
+        st, met = step_fn(st, batch_)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        wall = time.perf_counter() - t
+        mfu = 6 * mfu_params * tokens / (wall * BF16_OPS_PER_S)
+        log(f"{tag} {label} step {i}: wall {wall * 1e3:.1f} ms, {tokens / wall:.0f} tok/s, "
+            f"loss {loss:.6f}, grad_norm {gnorm:.6f}, lr {float(met['lr']):.3e}, mfu {mfu:.4f}")
+        return st, (loss, gnorm, wall)
+
+    # (c) The straight run, with the step-3 checkpoint saved async.
+    ckpt_bytes = sum(x.numel() * max(4, x.element_size()) for x in tree_leaves(state))
+    for name in (*BUILT, *paths):
+        LAUNCH_COUNTS[name] = 0
+    straight = []
+    ckpt = CheckpointManager(str(ckpt_dir), keep=2)
+    for i in range(TRAIN_STEPS):
+        state, rec = run_step("straight", i, state)
+        straight.append(rec)
+        if i + 1 == TRAIN_SAVE:
+            free = shutil.disk_usage(ckpt_dir).free
+            require(free >= 1.5 * ckpt_bytes, f"{free / 1e9:.1f} GB free for a "
+                                              f"{ckpt_bytes / 1e9:.1f} GB checkpoint")
+            ckpt.save(TRAIN_SAVE, state, extra={"step": TRAIN_SAVE, "pipeline": pipe.state()})
+            log(f"{tag} save({TRAIN_SAVE}): host snapshot of {ckpt_bytes / 1e9:.2f} GB in "
+                f"{ckpt.last_snapshot_s:.2f} s ({free / 1e9:.1f} GB free); the IO runs behind "
+                f"the next steps")
+    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    check_launches(launches, {name: LAUNCH_COUNTS[name] for name in paths})
+
+    # (f) The CLI, beside the checkpoint's IO and the restore.
+    cli_thread, cli = cli or _start_cli(cli_dir, device, arch)
+
+    t = time.perf_counter()
+    ckpt.wait()
+    log(f"{tag} save({TRAIN_SAVE}) IO: {ckpt.last_io_s:.2f} s ({time.perf_counter() - t:.2f} s "
+        f"of it waited for after step {TRAIN_STEPS - 1})")
+    t = time.perf_counter()
+    final = [host_copy(x) for x in tree_leaves(state)]
+    log(f"{tag} the straight run's final state to the host in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    resumed, extra = ckpt.restore(state, step=TRAIN_SAVE)
+    del state
+    torch.cuda.synchronize()
+    log(f"{tag} restore({TRAIN_SAVE}) into the live structure in {time.perf_counter() - t:.2f} s")
+    require(extra["step"] == TRAIN_SAVE, f"the checkpoint's extra says step {extra['step']}")
+    pipe.restore(extra["pipeline"])
+    it = iter(pipe)
+    cli_thread.join()
+    _check_cli(cli, arch, tag)
+
+    again = []
+    for i in range(TRAIN_SAVE, TRAIN_STEPS):
+        resumed, rec = run_step("resumed", i, resumed)
+        again.append(rec)
+    for i, (a, b) in enumerate(zip(straight[TRAIN_SAVE:], again)):
+        require(a[:2] == b[:2], f"step {TRAIN_SAVE + i}: resumed loss/grad_norm {b[:2]} differ "
+                                f"from the straight run's {a[:2]}")
+    t = time.perf_counter()
+    leaves_ = tree_leaves(resumed)
+    for j, (want, got) in enumerate(zip(final, leaves_)):
+        w = torch.from_numpy(want).to(dev)
+        require(torch.equal(got.to(w.dtype), w), f"leaf {j} of the resumed state differs from "
+                                                 f"the straight run's")
+        del w
+    log(f"{tag} (c) resumed steps {TRAIN_SAVE}-{TRAIN_STEPS - 1}: losses, grad norms and all "
+        f"{len(leaves_)} leaves (params, master, m, v, step) equal the straight run's bit for "
+        f"bit (compared in {time.perf_counter() - t:.2f} s)")
+    all_steps = straight + again
+    require(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in all_steps),
+            "a loss or grad norm is not finite")
+    require(int(resumed["opt"]["step"]) == TRAIN_STEPS, f"opt.step is "
+                                                        f"{int(resumed['opt']['step'])}")
+    log(f"{tag} (d) every loss and grad norm finite, opt.step {TRAIN_STEPS}; losses "
+        f"{[round(r[0], 4) for r in straight]}")
+    warm = [r[2] for r in straight[1:]]
+    log(f"{tag} warm step wall median {sorted(warm)[len(warm) // 2] * 1e3:.1f} ms "
+        f"({tokens / sorted(warm)[len(warm) // 2]:.0f} tok/s); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del resumed, final, leaves_
+    for d in (ckpt_dir, cli_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                device: str = "cuda") -> dict:
+    """Train stablelm-1.6b at full width and depth on the card (checks (a)-(f)
+    of the phase); returns the training path's launches: the straight run's
+    six steps and the curation before them.  ``cfg``, ``batch``, ``seq`` and
+    ``device`` serve a rehearsal on the CPU at a small size (``cuda``
+    calls stubbed, launch checks lenient: no kernel launches off the card)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (BWD_COPY_COUNTER, BWD_NAME, BWD_TC_COUNTER,
+                                                     COPY_COUNTER, NAME as FWD_NAME, TC_COUNTER)
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves, tree_leaves, tree_unflatten
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or get_config(SERVE_ARCH)
+    dev = torch.device(device)
+    ckpt_dir = ROOT / "build" / "phase11_ckpt"
+    cli_dir = ROOT / "build" / "phase11_cli_ckpt"
+    for d in (ckpt_dir, cli_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # (a) Curation as launch/train.py runs it, on the card.
+    pipe, curation = _train_curation(cfg, seed, batch, seq, dev, "[train]")
+
+    spec, state = _train_state(cfg, seed, batch, seq, dev, "[train]")
 
     # (b) Attention gradients layer by layer, on the first microbatch.
     t0 = time.perf_counter()
-    first = next_batch()
-    pipe.restore({"cursor": 0, "epoch": 0})
-    it = iter(pipe)
+    first = _first_microbatch(cfg, pipe, seq, dev)
     _train_layerwise_check(cfg, state["params"], first["tokens"][0])
     log(f"[train] (b) done in {time.perf_counter() - t0:.1f} s")
     # Where the random model's gradient norm comes from: the first
@@ -3888,115 +4261,31 @@ def phase_train(seed: int = 0, cfg=None, batch: int = TRAIN_BATCH, seq: int = TR
         torch.cuda.empty_cache()
     del first
 
-    step_fn = make_train_step(cfg, spec)
-    tokens = batch * seq
-
-    def run_step(label, i, st):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        batch = next_batch()
-        st, met = step_fn(st, batch)
-        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
-        wall = time.perf_counter() - t
-        mfu = 6 * TRAIN_PARAMS * tokens / (wall * BF16_OPS_PER_S)
-        log(f"[train] {label} step {i}: wall {wall * 1e3:.1f} ms, {tokens / wall:.0f} tok/s, "
-            f"loss {loss:.6f}, grad_norm {gnorm:.6f}, lr {float(met['lr']):.3e}, mfu {mfu:.4f}")
-        return st, (loss, gnorm, wall)
-
-    # (c) The straight run, with the step-3 checkpoint saved async.
-    ckpt_bytes = sum(x.numel() * max(4, x.element_size()) for x in tree_leaves(state))
     paths = (TC_COUNTER, COPY_COUNTER, BWD_TC_COUNTER, BWD_COPY_COUNTER)
-    for name in (*BUILT, *paths):
-        LAUNCH_COUNTS[name] = 0
-    straight = []
-    ckpt = CheckpointManager(str(ckpt_dir), keep=2)
-    for i in range(TRAIN_STEPS):
-        state, rec = run_step("straight", i, state)
-        straight.append(rec)
-        if i + 1 == TRAIN_SAVE:
-            free = shutil.disk_usage(ckpt_dir).free
-            require(free >= 1.5 * ckpt_bytes, f"{free / 1e9:.1f} GB free for a "
-                                              f"{ckpt_bytes / 1e9:.1f} GB checkpoint")
-            ckpt.save(TRAIN_SAVE, state, extra={"step": TRAIN_SAVE, "pipeline": pipe.state()})
-            log(f"[train] save({TRAIN_SAVE}): host snapshot of {ckpt_bytes / 1e9:.2f} GB in "
-                f"{ckpt.last_snapshot_s:.2f} s ({free / 1e9:.1f} GB free); the IO runs behind "
-                f"the next steps")
-    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
-    kinds = {name: LAUNCH_COUNTS[name] for name in paths}
-    log(f"[train] (e) of them: tensor-core forward {kinds[TC_COUNTER]}, tensor-core backward "
-        f"{kinds[BWD_TC_COUNTER]}; aligned copies forward {kinds[COPY_COUNTER]}, backward "
-        f"{kinds[BWD_COPY_COUNTER]}")
-    if cfg.dtype == "bfloat16":
-        require(kinds[TC_COUNTER] == launches[FWD_NAME]
-                and kinds[BWD_TC_COUNTER] == launches[BWD_NAME],
-                f"bf16 training ran other than the tensor-core kernels: {kinds}")
-    require(kinds[COPY_COUNTER] == 0 and kinds[BWD_COPY_COUNTER] == 0,
-            f"the training path's views were copied for TMA: {kinds}")
-    per_step = {FWD_NAME: cfg.n_layers * TRAIN_MICRO * 2, BWD_NAME: cfg.n_layers * TRAIN_MICRO}
-    log(f"[train] (e) launches over {TRAIN_STEPS} steps {launches}; a step: forward "
-        f"{launches[FWD_NAME] / TRAIN_STEPS:g} (remat recompute included), backward "
-        f"{launches[BWD_NAME] / TRAIN_STEPS:g}")
-    for name, n in per_step.items():
-        require(launches[name] == n * TRAIN_STEPS,
-                f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, expected "
-                f"{n * TRAIN_STEPS}")
 
-    # (f) The CLI, beside the checkpoint's IO and the restore.
-    cli = {}
-    cli_thread = threading.Thread(target=lambda: cli.update(_cli_chain(str(cli_dir), device)))
-    cli_thread.start()
+    def check_launches(launches, kinds):
+        log(f"[train] (e) of them: tensor-core forward {kinds[TC_COUNTER]}, tensor-core backward "
+            f"{kinds[BWD_TC_COUNTER]}; aligned copies forward {kinds[COPY_COUNTER]}, backward "
+            f"{kinds[BWD_COPY_COUNTER]}")
+        if cfg.dtype == "bfloat16":
+            require(kinds[TC_COUNTER] == launches[FWD_NAME]
+                    and kinds[BWD_TC_COUNTER] == launches[BWD_NAME],
+                    f"bf16 training ran other than the tensor-core kernels: {kinds}")
+        require(kinds[COPY_COUNTER] == 0 and kinds[BWD_COPY_COUNTER] == 0,
+                f"the training path's views were copied for TMA: {kinds}")
+        per_step = {FWD_NAME: cfg.n_layers * TRAIN_MICRO * 2, BWD_NAME: cfg.n_layers * TRAIN_MICRO}
+        log(f"[train] (e) launches over {TRAIN_STEPS} steps {launches}; a step: forward "
+            f"{launches[FWD_NAME] / TRAIN_STEPS:g} (remat recompute included), backward "
+            f"{launches[BWD_NAME] / TRAIN_STEPS:g}")
+        for name, n in per_step.items():
+            require(launches[name] == n * TRAIN_STEPS,
+                    f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, expected "
+                    f"{n * TRAIN_STEPS}")
 
-    t = time.perf_counter()
-    ckpt.wait()
-    log(f"[train] save({TRAIN_SAVE}) IO: {ckpt.last_io_s:.2f} s ({time.perf_counter() - t:.2f} s "
-        f"of it waited for after step {TRAIN_STEPS - 1})")
-    t = time.perf_counter()
-    final = [host_copy(x) for x in tree_leaves(state)]
-    log(f"[train] the straight run's final state to the host in {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    resumed, extra = ckpt.restore(state, step=TRAIN_SAVE)
-    del state
-    torch.cuda.synchronize()
-    log(f"[train] restore({TRAIN_SAVE}) into the live structure in {time.perf_counter() - t:.2f} s")
-    require(extra["step"] == TRAIN_SAVE, f"the checkpoint's extra says step {extra['step']}")
-    pipe.restore(extra["pipeline"])
-    it = iter(pipe)
-    cli_thread.join()
-    _check_cli(cli)
-
-    again = []
-    for i in range(TRAIN_SAVE, TRAIN_STEPS):
-        resumed, rec = run_step("resumed", i, resumed)
-        again.append(rec)
-    for i, (a, b) in enumerate(zip(straight[TRAIN_SAVE:], again)):
-        require(a[:2] == b[:2], f"step {TRAIN_SAVE + i}: resumed loss/grad_norm {b[:2]} differ "
-                                f"from the straight run's {a[:2]}")
-    t = time.perf_counter()
-    leaves_ = tree_leaves(resumed)
-    for j, (want, got) in enumerate(zip(final, leaves_)):
-        w = torch.from_numpy(want).to(dev)
-        require(torch.equal(got.to(w.dtype), w), f"leaf {j} of the resumed state differs from "
-                                                 f"the straight run's")
-        del w
-    log(f"[train] (c) resumed steps {TRAIN_SAVE}-{TRAIN_STEPS - 1}: losses, grad norms and all "
-        f"{len(leaves_)} leaves (params, master, m, v, step) equal the straight run's bit for "
-        f"bit (compared in {time.perf_counter() - t:.2f} s)")
-    all_steps = straight + again
-    require(all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in all_steps),
-            "a loss or grad norm is not finite")
-    require(int(resumed["opt"]["step"]) == TRAIN_STEPS, f"opt.step is "
-                                                        f"{int(resumed['opt']['step'])}")
-    log(f"[train] (d) every loss and grad norm finite, opt.step {TRAIN_STEPS}; losses "
-        f"{[round(r[0], 4) for r in straight]}")
-    warm = [r[2] for r in straight[1:]]
-    log(f"[train] warm step wall median {sorted(warm)[len(warm) // 2] * 1e3:.1f} ms "
-        f"({tokens / sorted(warm)[len(warm) // 2]:.0f} tok/s); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; phase done in "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    del resumed, final, leaves_
-    for d in (ckpt_dir, cli_dir):
-        shutil.rmtree(d, ignore_errors=True)
-    torch.cuda.empty_cache()
+    box = [state]
+    del state  # the run holds the only reference: the restore replaces it
+    launches = _train_run("[train]", cfg, spec, box, pipe, batch, seq, device, TRAIN_PARAMS,
+                          paths, check_launches, ckpt_dir, cli_dir, SERVE_ARCH, t_phase)
     launches.update({name: launches[name] + curation[name] for name in curation})
     return launches
 
@@ -4567,6 +4856,272 @@ def phase_ssm(seed: int = 0, cfg=None, cut_cfg=None, device: str = "cuda") -> di
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: SSM training, xlstm-350m at full width and depth and a one-block
+# (mamba, MLP) cut of jamba-1.5-large at full width
+# ---------------------------------------------------------------------------
+
+# jamba-1.5-large cut to one (mamba, MLP) block at full width: 2.09 B
+# parameters, 41.8 GB of state and accumulator at 20 bytes a parameter; a
+# batch of 2 x 2,048 tokens in 2 microbatches, 3 steps, no checkpoint.
+SSM_TRAIN_CUT_BATCH, SSM_TRAIN_CUT_STEPS = 2, 3
+
+
+def _plain_scans(fn):
+    """``fn()`` with models/ssm.py's scans bound to their plain versions
+    (the plain selective scan at SCAN_PLAIN_CHUNK), so autograd runs through
+    the plain loops on the card."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm
+
+    saved = ssm.slstm_scan, ssm.selective_scan_gated
+    ssm.slstm_scan = ref.slstm_scan_plain
+    ssm.selective_scan_gated = lambda *args, chunk=1024: ref.selective_scan_gated_plain(
+        *args, chunk=SCAN_PLAIN_CHUNK)
+    try:
+        return fn()
+    finally:
+        ssm.slstm_scan, ssm.selective_scan_gated = saved
+
+
+def _mixer_grads(cfg, p, h, dy, mixer: str) -> dict:
+    """Gradients of the ``mixer`` block's train form (``slstm_train`` or
+    ``mamba_train``) at ``h`` against ``dy``, w.r.t. h and every leaf of the
+    layer, through whatever models/ssm.py's scans are bound to."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.models.params import leaves, tree_unflatten
+
+    paths = ["/".join(path) for path, _ in leaves(p)]
+    flat = [x.detach().requires_grad_() for _, x in leaves(p)]
+    x = h.detach().requires_grad_()
+    fn = ssm.slstm_train if mixer == "slstm" else ssm.mamba_train
+    with torch.enable_grad():
+        y = fn(tree_unflatten(p, flat, dicts=True), cfg, x)
+        grads = torch.autograd.grad(y, [x, *flat], dy)
+    return dict(zip(["x", *paths], grads))
+
+
+def _ssm_train_layerwise(cfg, params, tokens, mixer: str, tag: str) -> dict:
+    """Check (b): at the first and last ``mixer`` layer (SSM_SCAN_LAYERS),
+    each on its own input (the stack run to it), the gradients of the
+    mixer's train form w.r.t. its input and every leaf through the scan
+    kernels against autograd through the plain versions on the card, within
+    TRAIN_TOL of each gradient's scale: the bf16 weights, then float32
+    copies.  Returns the worst |diff| / scale by dtype."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import selective_scan as SEL
+    from repro_torch.kernels import slstm_scan as SS
+    from repro_torch.models import lm
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+
+    blocks = [(i, j, blk) for i in range(cfg.n_periods) for j, blk in enumerate(cfg.pattern)]
+    kinds = [k for k, (_, _, blk) in enumerate(blocks) if blk[0] == mixer]
+    check = {kinds[i] for i in SSM_SCAN_LAYERS}
+    bwd_name = SS.BWD_NAME if mixer == "slstm" else SEL.BWD_NAME
+    worst = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        ps = params if dtype == cfg.dtype else params.map(lambda x: x.to(torch.float32))
+        gen = torch.Generator(device=tokens.device).manual_seed(12)
+        before = LAUNCH_COUNTS[bwd_name]
+        worst[dtype] = 0.0
+        with torch.no_grad():
+            h = lm._embed(c, ps, tokens)
+            for k, (i, j, blk) in enumerate(blocks[:max(check) + 1]):
+                p = lm._period_slice(ps["periods"], i)[f"b{j}"]
+                if k in check:
+                    dy = torch.randn(h.shape, generator=gen, device=h.device).to(h.dtype)
+                    got = _mixer_grads(c, p["mixer"], h, dy, mixer)
+                    want = _plain_scans(lambda: _mixer_grads(c, p["mixer"], h, dy, mixer))
+                    for name, g in got.items():
+                        w = want[name].float()
+                        scale = max(float(w.abs().max()), 1e-30)
+                        err = float((g.float() - w).abs().max())
+                        worst[dtype] = max(worst[dtype], err / scale)
+                        require(bool(torch.isfinite(g).all()) and err <= TRAIN_TOL[dtype] * scale,
+                                f"layer {k} ({mixer}) {dtype} gradient {name}: max |diff| "
+                                f"{err:.3e} at scale {scale:.3e}")
+                    del got, want
+                    torch.cuda.empty_cache()
+                h, _ = lm._apply_block_train(c, blk, p, h)
+        require(not tokens.is_cuda or LAUNCH_COUNTS[bwd_name] - before == len(check),
+                f"{dtype}: the layer check ran {bwd_name} {LAUNCH_COUNTS[bwd_name] - before} "
+                f"times, expected {len(check)}")
+        del ps, h
+        torch.cuda.empty_cache()
+    log(f"{tag} (b) {mixer} gradients at layers {sorted(check)} of {len(blocks)} (B="
+        f"{tokens.shape[0]}, S={tokens.shape[1]}), input and every leaf: max |diff| / scale "
+        f"kernels vs plain {worst['bfloat16']:.2e} (bf16 weights), {worst['float32']:.2e} (f32 "
+        f"copies); tolerances {TRAIN_TOL}")
+    return worst
+
+
+def _ssm_train_cut(cut_cfg, seed: int, seq: int, device: str) -> dict:
+    """Check (g): ``cut_cfg`` (one (mamba, MLP) block at jamba's full width)
+    trained SSM_TRAIN_CUT_STEPS steps of SSM_TRAIN_CUT_BATCH x ``seq`` tokens
+    in TRAIN_MICRO microbatches from random tokens: the layer's gradients
+    through the kernels against the plain version's autograd, the first
+    microbatch's loss gradients taken twice equal bit for bit, every loss
+    finite, and selective_scan_bwd once a microbatch.  Returns the steps'
+    launches by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import selective_scan as SEL
+    from repro_torch.kernels.build import KERNELS as BUILT
+    from repro_torch.models import lm
+    from repro_torch.models.params import n_params, tree_leaves, tree_unflatten
+    from repro_torch.runtime.guards import LAUNCH_COUNTS
+    from repro_torch.train.step import make_train_step
+
+    tag = "[ssm-train] jamba cut"
+    dev = torch.device(device)
+    on_card = device == "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    spec, state = _train_state(cut_cfg, seed, SSM_TRAIN_CUT_BATCH, seq, dev, tag)
+    n = n_params(state["params"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    tokens = torch.randint(0, cut_cfg.vocab_size,
+                           (SSM_TRAIN_CUT_STEPS, TRAIN_MICRO, SSM_TRAIN_CUT_BATCH // TRAIN_MICRO,
+                            seq), generator=gen, device=dev)
+    log(f"{tag}: {n} parameters (param_count() {cut_cfg.param_count()}), "
+        f"{n * 20 / 1e9:.1f} GB of state and accumulator at 20 bytes a parameter")
+    t0 = time.perf_counter()
+    _ssm_train_layerwise(cut_cfg, state["params"], tokens[0, 0], "mamba", tag)
+    log(f"{tag} (b) done in {time.perf_counter() - t0:.1f} s")
+
+    def grads():
+        flat = [x.detach().requires_grad_() for x in tree_leaves(state["params"])]
+        with torch.enable_grad():
+            loss = lm.loss_fn(tree_unflatten(state["params"], flat, dicts=True), cut_cfg,
+                              {"tokens": tokens[0, 0]})
+            return torch.autograd.grad(loss, flat)
+
+    first, again = grads(), grads()
+    require(all(torch.equal(g, g2) for g, g2 in zip(first, again)),
+            f"{tag}: the first microbatch's gradients differ between two runs")
+    log(f"{tag} the first microbatch's gradients of all {len(first)} leaves taken twice: equal "
+        f"bit for bit")
+    del first, again
+    torch.cuda.empty_cache()
+    step_fn = make_train_step(cut_cfg, spec)
+    for name in BUILT:
+        LAUNCH_COUNTS[name] = 0
+    losses, walls = [], []
+    for i in range(SSM_TRAIN_CUT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step_fn(state, {"tokens": tokens[i]})
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        walls.append(time.perf_counter() - t)
+        losses.append((loss, gnorm))
+        toks = SSM_TRAIN_CUT_BATCH * seq
+        log(f"{tag} step {i}: wall {walls[-1] * 1e3:.1f} ms, {toks / walls[-1]:.0f} tok/s, loss "
+            f"{loss:.6f}, grad_norm {gnorm:.6f}, mfu "
+            f"{6 * n * toks / (walls[-1] * BF16_OPS_PER_S):.4f}")
+    launches = {name: LAUNCH_COUNTS[name] for name in BUILT}
+    require(all(np.isfinite(a) and np.isfinite(b) for a, b in losses),
+            f"{tag}: a loss or grad norm is not finite")
+    n_mamba = sum(1 for m, _ in cut_cfg.all_blocks if m == "mamba")
+    want = {SEL.NAME: 2 * n_mamba * TRAIN_MICRO, SEL.BWD_NAME: n_mamba * TRAIN_MICRO}
+    for name, per in want.items():
+        require(not on_card or launches[name] == per * SSM_TRAIN_CUT_STEPS,
+                f"{tag}: {name} launched {launches[name]} times in {SSM_TRAIN_CUT_STEPS} steps, "
+                f"expected {per * SSM_TRAIN_CUT_STEPS}")
+    log(f"{tag} (g) launches over {SSM_TRAIN_CUT_STEPS} steps {launches}; losses finite; warm "
+        f"step wall median {sorted(walls[1:])[len(walls[1:]) // 2] * 1e3:.1f} ms; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del state, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ssm_train(seed: int = 0, cfg=None, cut_cfg=None, batch: int = TRAIN_BATCH,
+                    seq: int = TRAIN_SEQ, device: str = "cuda") -> dict:
+    """Train xlstm-350m at full width and depth on the card (checks (a)-(f)
+    as phase 11's, (b) the sLSTM's gradients at its first and last layer),
+    then jamba-1.5-large-398b cut to one (mamba, MLP) block at full width
+    (check (g)); returns the training path's launches: xlstm's straight run,
+    its curation and the cut's steps.  ``cfg``, ``cut_cfg``, ``batch``,
+    ``seq`` and ``device`` serve a rehearsal on the CPU at the smoke configs
+    (``cuda`` calls stubbed, launch checks lenient)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as SEL
+    from repro_torch.kernels import slstm_scan as SS
+    from repro_torch.models.params import n_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tag = "[ssm-train]"
+    cfg = cfg or get_config(SSM_ARCH)
+    dev = torch.device(device)
+    on_card = device == "cuda"
+    ckpt_dir = ROOT / "build" / "phase14_ckpt"
+    cli_dir = ROOT / "build" / "phase14_cli_ckpt"
+    for d in (ckpt_dir, cli_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    # (f) The CLI's processes, beside the whole run: they work mostly on the
+    # host, and the checkpoint's IO is too short to hide them.
+    cli = _start_cli(cli_dir, device, SSM_ARCH)
+
+    pipe, curation = _train_curation(cfg, seed, batch, seq, dev, tag)
+    spec, state = _train_state(cfg, seed, batch, seq, dev, tag)
+    n = n_params(state["params"])
+    log(f"{tag} {cfg.name}: {n} parameters (param_count() {cfg.param_count()}: it omits the "
+        f"sLSTM's out, the mLSTM's wog and the final norm); mfu counts 6 N tokens with N = {n}, "
+        f"without the mLSTM's intra-chunk products")
+    t0 = time.perf_counter()
+    first = _first_microbatch(cfg, pipe, seq, dev)
+    _ssm_train_layerwise(cfg, state["params"], first["tokens"][0], "slstm", tag)
+    log(f"{tag} (b) done in {time.perf_counter() - t0:.1f} s")
+    del first
+
+    paths = (SS.RESIDUALS_COUNTER, SEL.RESIDUALS_COUNTER)
+    n_slstm = sum(1 for m, _ in cfg.all_blocks if m == "slstm")
+
+    def check_launches(launches, kinds):
+        per_step = {SS.NAME: n_slstm * TRAIN_MICRO * 2, SS.BWD_NAME: n_slstm * TRAIN_MICRO,
+                    SEL.NAME: 0, SEL.BWD_NAME: 0}
+        log(f"{tag} (e) launches over {TRAIN_STEPS} steps {launches}; a step: slstm_scan "
+            f"{launches[SS.NAME] / TRAIN_STEPS:g} (remat recompute included), of them with "
+            f"residuals {kinds[SS.RESIDUALS_COUNTER] / TRAIN_STEPS:g}, slstm_scan_bwd "
+            f"{launches[SS.BWD_NAME] / TRAIN_STEPS:g}")
+        for name, per in per_step.items():
+            require(not on_card or launches[name] == per * TRAIN_STEPS,
+                    f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, expected "
+                    f"{per * TRAIN_STEPS}")
+        require(not on_card or kinds[SS.RESIDUALS_COUNTER] == n_slstm * TRAIN_MICRO * TRAIN_STEPS,
+                f"{kinds[SS.RESIDUALS_COUNTER]} sLSTM forwards wrote residuals in {TRAIN_STEPS} "
+                f"steps, expected only the {n_slstm * TRAIN_MICRO * TRAIN_STEPS} recomputations")
+
+    box = [state]
+    del state
+    launches = _train_run(tag, cfg, spec, box, pipe, batch, seq, device, n, paths,
+                          check_launches, ckpt_dir, cli_dir, SSM_ARCH, t_phase, cli)
+    launches.update({name: launches[name] + curation[name] for name in curation})
+
+    if cut_cfg is None:
+        full = get_config(SSM_CUT_ARCH)
+        cut_cfg = dataclasses.replace(full, n_layers=1, n_periods=1, pattern=(("mamba", "mlp"),))
+    t0 = time.perf_counter()
+    cut = _ssm_train_cut(cut_cfg, seed, seq, device)
+    log(f"{tag} jamba cut done in {time.perf_counter() - t0:.1f} s")
+    for name, count in cut.items():
+        launches[name] += count
+    log(f"{tag} phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a checkout of "
@@ -4615,9 +5170,10 @@ def main() -> int:
     train_launches = phase_train(SEED_SERVE)
     moe_launches = phase_moe(SEED_SERVE)
     ssm_launches = phase_ssm(SEED_SERVE)
+    ssm_train_launches = phase_ssm_train(SEED_SERVE)
     for name, _, _ in KERNELS:
         launches[name] = (launches.get(name, 0) + train_launches[name] + moe_launches[name]
-                          + ssm_launches[name])
+                          + ssm_launches[name] + ssm_train_launches[name])
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -29,7 +29,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 KERNELS: Tuple[str, ...] = ("segment_aggregate", "fragment_bitmap", "sketch_filter",
                             "fragment_bitmap_batch", "segment_aggregate_batch",
                             "flash_attention", "flash_attention_bwd", "selective_scan",
-                            "slstm_scan")
+                            "slstm_scan", "selective_scan_bwd", "slstm_scan_bwd")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -82,12 +82,21 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     },
     "selective_scan": {
         "selective_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I]),
+                                       _P, _I, _I, _I, _I]),
         "selective_scan_occupancy": (_I, [_I, _I, _I, _I, _P]),
     },
     "slstm_scan": {
-        "slstm_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _P, _P] + [_I] * 8),
+        "slstm_scan_launch": (_I, [_I, _P, _I, _I, _P, _P, _P, _P] + [_I] * 8 + [_P] * 4),
         "slstm_scan_max_clusters": (_I, [_I] * 10),
+    },
+    "selective_scan_bwd": {
+        "selective_scan_bwd_launch": (_I, [_I, _P, _I, _I, _P, _P, _LL] + [_P] * 20
+                                      + [_I] * 4),
+        "selective_scan_bwd_occupancy": (_I, [_I, _I, _I, _I, _P]),
+    },
+    "slstm_scan_bwd": {
+        "slstm_scan_bwd_launch": (_I, [_I, _P, _I] + [_P] * 7 + [_I] * 8),
+        "slstm_scan_bwd_max_clusters": (_I, [_I] * 9),
     },
 }
 

@@ -61,7 +61,10 @@
 // stage by an arrival: no __syncthreads, no integer division and no global
 // load on the compute warps, whose only device-memory traffic is their
 // coalesced stores of y.  One named barrier over the block follows the
-// barriers' initialisation.
+// barriers' initialisation.  A second template flag (H) adds the stores of
+// the state entering each stage for the backward (selective_scan_bwd.cu):
+// a launch that saves no states takes the instance without them, as a
+// run-time test of the pointer in the stage loop cost the forward about 1%.
 //
 // What it reaches and what holds it back (kernels/scan_probe.py
 // --selective, PERF.md row 7): about 4.85 ms at that shape, 0.68 of the
@@ -132,6 +135,7 @@ struct Args {
   const float* cm;    // (B, S, n)
   const float* dd;    // gated: (di)
   void* out;          // (B, S, di): float32 ys, or T when gated
+  float* hsave;       // null, or (B, ceil(S / kSpan), n, di): the state entering each stage
   int seq, di, tiles, units;
   int bulk;           // every copy 16-byte aligned: bulk copies, else plain loads
   int pairs;          // kPer = 2 and di even: stores of two channels at once
@@ -237,8 +241,9 @@ __device__ void produce(const Args& p, uint8_t* smem) {
   }
 }
 
-// A compute thread: kPer channels of each unit, position by position.
-template <int N, typename T, bool G>
+// A compute thread: kPer channels of each unit, position by position; with
+// H, also the state entering each stage into p.hsave.
+template <int N, typename T, bool G, bool H>
 __device__ void consume(const Args& p, uint8_t* smem) {
   using L = Layout<N, T, G>;
   using Out = typename std::conditional<G, T, float>::type;
@@ -269,6 +274,16 @@ __device__ void consume(const Args& p, uint8_t* smem) {
     Out* o = out + row * p.di + i0 + c0;  // position t0 + q's output, advanced a position at a time
     for (int t0 = 0; t0 < p.seq; t0 += kSpan, ++it) {
       const int s = it % kStages;
+      if constexpr (H) {  // the backward's residual: the state entering this stage
+        const int nst = (p.seq + kSpan - 1) / kSpan;
+        float* hq = p.hsave + ((size_t)b * nst + t0 / kSpan) * N * p.di + i0 + c0;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e)
+          if (c0 + e < cnt) {
+#pragma unroll
+            for (int k = 0; k < N; ++k) hq[(size_t)k * p.di + e] = h[e][k];
+          }
+      }
       mbar_wait(full0 + 8 * s, (it / kStages) & 1);
       const int np = min(kSpan, p.seq - t0);
       const uint8_t* st = smem + L::ring_off + s * L::stage;
@@ -335,7 +350,7 @@ __device__ void consume(const Args& p, uint8_t* smem) {
   }
 }
 
-template <int N, typename T, bool G>
+template <int N, typename T, bool G, bool H>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_kernel(const Args p) {
   extern __shared__ __align__(128) uint8_t smem[];
   if (threadIdx.x == 0) {
@@ -353,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_kernel(const Args p
   if (threadIdx.x >= kCompute) {
     produce<N, T, G>(p, smem);
   } else {
-    consume<N, T, G>(p, smem);
+    consume<N, T, G, H>(p, smem);
   }
 }
 
@@ -368,7 +383,7 @@ constexpr int kMaxDevices = 64;
 
 // Blocks an SM holds (cached a device), after raising the kernel's dynamic
 // shared-memory limit to what it takes.
-template <int N, typename T, bool G>
+template <int N, typename T, bool G, bool H>
 cudaError_t resident(int device, int* blocks) {
   static int cached[kMaxDevices] = {0};
   if (device >= 0 && device < kMaxDevices && cached[device] > 0) {
@@ -376,10 +391,10 @@ cudaError_t resident(int device, int* blocks) {
     return cudaSuccess;
   }
   const int bytes = Layout<N, T, G>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(scan_kernel<N, T, G>,
+  cudaError_t err = cudaFuncSetAttribute(scan_kernel<N, T, G, H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, scan_kernel<N, T, G>, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, scan_kernel<N, T, G, H>, kThreads,
                                                       bytes);
   if (err != cudaSuccess) return err;
   if (*blocks < 1) return cudaErrorInvalidConfiguration;
@@ -387,22 +402,22 @@ cudaError_t resident(int device, int* blocks) {
   return cudaSuccess;
 }
 
-template <int N, typename T, bool G>
+template <int N, typename T, bool G, bool H>
 cudaError_t launch_n(int device, cudaStream_t stream, Args p, int batch) {
   int blocks = 0, sms = 0;
-  cudaError_t err = resident<N, T, G>(device, &blocks);
+  cudaError_t err = resident<N, T, G, H>(device, &blocks);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   p.tiles = (p.di + kTile - 1) / kTile;
   p.units = batch * p.tiles;
   const int grid = min(p.units, blocks * sms);
-  scan_kernel<N, T, G><<<grid, kThreads, Layout<N, T, G>::bytes, stream>>>(p);
+  scan_kernel<N, T, G, H><<<grid, kThreads, Layout<N, T, G>::bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int N, typename T, bool G>
+template <int N, typename T, bool G, bool H>
 cudaError_t query_n(int device, int* out) {
-  cudaError_t err = resident<N, T, G>(device, &out[0]);
+  cudaError_t err = resident<N, T, G, H>(device, &out[0]);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, device);
   out[2] = Layout<N, T, G>::bytes;
   out[3] = kThreads;
@@ -410,44 +425,49 @@ cudaError_t query_n(int device, int* out) {
   return err;
 }
 
-// F(N, T, G, args...) for the instance of n states.
-#define SCAN_DISPATCH(F, n, T, G, ...)                       \
+// F(N, T, G, H, args...) for the instance of n states.
+#define SCAN_DISPATCH(F, n, T, G, H, ...)                    \
   switch (n) {                                               \
-    case 1: return F<1, T, G>(__VA_ARGS__);                  \
-    case 2: return F<2, T, G>(__VA_ARGS__);                  \
-    case 3: return F<3, T, G>(__VA_ARGS__);                  \
-    case 4: return F<4, T, G>(__VA_ARGS__);                  \
-    case 5: return F<5, T, G>(__VA_ARGS__);                  \
-    case 6: return F<6, T, G>(__VA_ARGS__);                  \
-    case 7: return F<7, T, G>(__VA_ARGS__);                  \
-    case 8: return F<8, T, G>(__VA_ARGS__);                  \
-    case 9: return F<9, T, G>(__VA_ARGS__);                  \
-    case 10: return F<10, T, G>(__VA_ARGS__);                \
-    case 11: return F<11, T, G>(__VA_ARGS__);                \
-    case 12: return F<12, T, G>(__VA_ARGS__);                \
-    case 13: return F<13, T, G>(__VA_ARGS__);                \
-    case 14: return F<14, T, G>(__VA_ARGS__);                \
-    case 15: return F<15, T, G>(__VA_ARGS__);                \
-    case 16: return F<16, T, G>(__VA_ARGS__);                \
+    case 1: return F<1, T, G, H>(__VA_ARGS__);               \
+    case 2: return F<2, T, G, H>(__VA_ARGS__);               \
+    case 3: return F<3, T, G, H>(__VA_ARGS__);               \
+    case 4: return F<4, T, G, H>(__VA_ARGS__);               \
+    case 5: return F<5, T, G, H>(__VA_ARGS__);               \
+    case 6: return F<6, T, G, H>(__VA_ARGS__);               \
+    case 7: return F<7, T, G, H>(__VA_ARGS__);               \
+    case 8: return F<8, T, G, H>(__VA_ARGS__);               \
+    case 9: return F<9, T, G, H>(__VA_ARGS__);               \
+    case 10: return F<10, T, G, H>(__VA_ARGS__);             \
+    case 11: return F<11, T, G, H>(__VA_ARGS__);             \
+    case 12: return F<12, T, G, H>(__VA_ARGS__);             \
+    case 13: return F<13, T, G, H>(__VA_ARGS__);             \
+    case 14: return F<14, T, G, H>(__VA_ARGS__);             \
+    case 15: return F<15, T, G, H>(__VA_ARGS__);             \
+    case 16: return F<16, T, G, H>(__VA_ARGS__);             \
     default: return cudaErrorInvalidValue;                   \
   }
 
 // A probe's build (-DSCAN_ONE_STATE_COUNT=16) compiles only that instance.
 #ifdef SCAN_ONE_STATE_COUNT
-#define SCAN_STATES(F, n, T, G, ...) \
-  return n == SCAN_ONE_STATE_COUNT ? F<SCAN_ONE_STATE_COUNT, T, G>(__VA_ARGS__) : cudaErrorInvalidValue;
+#define SCAN_STATES(F, n, T, G, H, ...) \
+  return n == SCAN_ONE_STATE_COUNT ? F<SCAN_ONE_STATE_COUNT, T, G, H>(__VA_ARGS__) : cudaErrorInvalidValue;
 #else
-#define SCAN_STATES(F, n, T, G, ...) SCAN_DISPATCH(F, n, T, G, __VA_ARGS__)
+#define SCAN_STATES(F, n, T, G, H, ...) SCAN_DISPATCH(F, n, T, G, H, __VA_ARGS__)
 #endif
 
 template <typename T, bool G>
 cudaError_t launch_t(int device, cudaStream_t stream, const Args& p, int batch, int n) {
-  SCAN_STATES(launch_n, n, T, G, device, stream, p, batch)
+  if (p.hsave) {
+    SCAN_STATES(launch_n, n, T, G, true, device, stream, p, batch)
+  }
+  SCAN_STATES(launch_n, n, T, G, false, device, stream, p, batch)
 }
 
+// The plan of the instance that saves no states (the saving one shares its
+// layout).
 template <typename T, bool G>
 cudaError_t query_t(int device, int n, int* out) {
-  SCAN_STATES(query_n, n, T, G, device, out)
+  SCAN_STATES(query_n, n, T, G, false, device, out)
 }
 
 bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -459,20 +479,25 @@ bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 // softplus, out the float32 ys (B, S, di); z, z_step, dt_bias and dd unused.
 // gated 1: dt raw, dt_bias and dd (di) float32, z (B, S, di) in x's dtype
 // with its position rows z_step elements apart (a view of the in_proj
-// output), out (B, S, di) in x's dtype.  1 <= n <= kMaxState,
-// B <= 65,535.  Returns the launch's error (cudaGetLastError()).
+// output), out (B, S, di) in x's dtype.  hsave null, or (B, ceil(S / 4),
+// n, di) float32 for the state entering every stage of kSpan = 4 positions
+// (the backward's residual, written by the instances compiled with H; the
+// outputs are the same bits either way).
+// 1 <= n <= kMaxState, B <= 65,535.  Returns the launch's error
+// (cudaGetLastError()).
 extern "C" int selective_scan_launch(int device, void* stream, int x_dtype, int gated,
                                      const void* x, const void* z, long long z_step,
                                      const float* dt, const float* dt_bias, const float* a,
                                      const float* bm, const float* cm, const float* dd,
-                                     void* out, int batch, int seq, int di, int n) {
+                                     void* out, float* hsave, int batch, int seq, int di,
+                                     int n) {
   if (n < 1 || n > kMaxState || batch < 1 || batch > 65535 || seq < 1 || di < 1 ||
       (x_dtype & ~1) || (gated & ~1) || (gated && z_step < di))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const int xs = x_dtype ? 2 : 4;
-  Args p{x, z, z_step, dt, dt_bias, a, bm, cm, dd, out, seq, di, 0, 0, 0, 0};
+  Args p{x, z, z_step, dt, dt_bias, a, bm, cm, dd, out, hsave, seq, di, 0, 0, 0, 0};
   // Bulk copies need 16-byte aligned sources and lengths: every row of x, dt
   // and z, the tile's share of a, dd and dt_bias, and a span's b and c.
   p.bulk = aligned(x) && aligned(dt) && aligned(a) && aligned(bm) && aligned(cm) &&

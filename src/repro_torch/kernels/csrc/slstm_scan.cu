@@ -196,6 +196,16 @@ __device__ __forceinline__ void wait_cluster(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// What the backward (slstm_scan_bwd.cu) needs, written when not null: the
+// gate pre-activations (B, S, 4 H uh) as x is laid out and the states c, n
+// and m after each position (B, S, H, uh) as hs is, all float32.
+struct Residuals {
+  float* pre;
+  float* c;
+  float* n;
+  float* m;
+};
+
 template <typename TX>
 __device__ __forceinline__ TX zero();
 template <>
@@ -233,11 +243,14 @@ struct Chunk {
 // grid (C heads, groups), clusters of (C, 1, 1), halves x 4 share threads
 // (rounded to warps) a CTA; group y owns rows [y B / groups, (y + 1) B /
 // groups), its half p the p-th of `halves` even shares of them, at most R.
-template <typename TX, typename TW, int R>
+// Res: write the backward's Residuals (an instance of its own, so the
+// forward without them compiles as it did before they existed).
+#ifndef SLSTM_SCAN_HELPERS_ONLY
+template <typename TX, typename TW, int R, bool Res>
 __global__ void __launch_bounds__(kThreads, 1)
     slstm_cluster(const TX* __restrict__ x, const TW* __restrict__ wr,
                   const TW* __restrict__ bias, float* __restrict__ hs, int batch, int seq,
-                  int heads, int uh, int groups, int halves) {
+                  int heads, int uh, int groups, int halves, const Residuals res) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int cluster = (int)cluster_size();
   const int rank = (int)cluster_rank();
@@ -395,8 +408,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       m_st = m_new;
       const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-ot)));
       const float h = __fdiv_rn(__fmul_rn(sig, c_st), fmaxf(n_st, 1e-6f));
-      hs[((size_t)(b0 + cr) * seq + t) * heads * uh + (size_t)g * uh + lo + ci] = h;
+      const size_t at = ((size_t)(b0 + cr) * seq + t) * heads * uh + (size_t)g * uh + lo + ci;
+      hs[at] = h;
       out_s[cr * n + ci] = h;
+      if constexpr (Res) {
+        float* pq = res.pre + ((size_t)(b0 + cr) * seq + t) * x_step + g * g4 + lo + ci;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pq[q * uh] = pre[q];
+        res.c[at] = c_st;
+        res.n[at] = n_st;
+        res.m[at] = m_st;
+      }
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) x_cur[q] = x_next[q], x_next[q] = x_far[q];
@@ -421,11 +443,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_sync();  // no CTA leaves while a peer may still address its shared memory
 }
 
-template <typename TX, typename TW, int R>
+template <typename TX, typename TW, int R, bool Res>
 cudaError_t launch_rows(int device, const void* x, const void* wr, const void* bias, float* hs,
                         int batch, int seq, int heads, int uh, int cluster, int groups,
-                        int halves, int smem, cudaStream_t stream, int* max_clusters) {
-  auto fn = slstm_cluster<TX, TW, R>;
+                        int halves, int smem, cudaStream_t stream, int* max_clusters,
+                        const Residuals& res) {
+  auto fn = slstm_cluster<TX, TW, R, Res>;
   static int set_smem[64] = {};  // per device: the bytes already allowed
   cudaError_t err = cudaSuccess;
   if (device >= 64 || set_smem[device] < smem) {
@@ -448,7 +471,7 @@ cudaError_t launch_rows(int device, const void* x, const void* wr, const void* b
   cfg.numAttrs = 1;
   if (max_clusters != nullptr) return cudaOccupancyMaxActiveClusters(max_clusters, fn, &cfg);
   err = cudaLaunchKernelEx(&cfg, fn, (const TX*)x, (const TW*)wr, (const TW*)bias, hs, batch,
-                           seq, heads, uh, groups, halves);
+                           seq, heads, uh, groups, halves, res);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -456,24 +479,43 @@ cudaError_t launch_rows(int device, const void* x, const void* wr, const void* b
 template <typename TX, typename TW>
 cudaError_t launch_types(int device, const void* x, const void* wr, const void* bias, float* hs,
                          int batch, int seq, int heads, int uh, int cluster, int groups,
-                         int halves, int rows, int smem, cudaStream_t s, int* max_clusters) {
+                         int halves, int rows, int smem, cudaStream_t s, int* max_clusters,
+                         const Residuals& res) {
   switch (rows) {
     case 1:
-      return launch_rows<TX, TW, 1>(device, x, wr, bias, hs, batch, seq, heads, uh, cluster,
-                                    groups, halves, smem, s, max_clusters);
+      return res.pre ? launch_rows<TX, TW, 1, true>(device, x, wr, bias, hs, batch, seq,
+                                                      heads, uh, cluster, groups, halves, smem,
+                                                      s, max_clusters, res)
+                     : launch_rows<TX, TW, 1, false>(device, x, wr, bias, hs, batch, seq,
+                                                       heads, uh, cluster, groups, halves, smem,
+                                                       s, max_clusters, res);
     case 2:
-      return launch_rows<TX, TW, 2>(device, x, wr, bias, hs, batch, seq, heads, uh, cluster,
-                                    groups, halves, smem, s, max_clusters);
+      return res.pre ? launch_rows<TX, TW, 2, true>(device, x, wr, bias, hs, batch, seq,
+                                                      heads, uh, cluster, groups, halves, smem,
+                                                      s, max_clusters, res)
+                     : launch_rows<TX, TW, 2, false>(device, x, wr, bias, hs, batch, seq,
+                                                       heads, uh, cluster, groups, halves, smem,
+                                                       s, max_clusters, res);
     case 3:
-      return launch_rows<TX, TW, 3>(device, x, wr, bias, hs, batch, seq, heads, uh, cluster,
-                                    groups, halves, smem, s, max_clusters);
+      return res.pre ? launch_rows<TX, TW, 3, true>(device, x, wr, bias, hs, batch, seq,
+                                                      heads, uh, cluster, groups, halves, smem,
+                                                      s, max_clusters, res)
+                     : launch_rows<TX, TW, 3, false>(device, x, wr, bias, hs, batch, seq,
+                                                       heads, uh, cluster, groups, halves, smem,
+                                                       s, max_clusters, res);
     case 4:
-      return launch_rows<TX, TW, 4>(device, x, wr, bias, hs, batch, seq, heads, uh, cluster,
-                                    groups, halves, smem, s, max_clusters);
+      return res.pre ? launch_rows<TX, TW, 4, true>(device, x, wr, bias, hs, batch, seq,
+                                                      heads, uh, cluster, groups, halves, smem,
+                                                      s, max_clusters, res)
+                     : launch_rows<TX, TW, 4, false>(device, x, wr, bias, hs, batch, seq,
+                                                       heads, uh, cluster, groups, halves, smem,
+                                                       s, max_clusters, res);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+#endif  // SLSTM_SCAN_HELPERS_ONLY
 
 cudaError_t use_device(int device) {
   int cur = -1;
@@ -488,10 +530,11 @@ int rows_of(int batch, int groups, int halves) {
   return (group + halves - 1) / halves;
 }
 
+#ifndef SLSTM_SCAN_HELPERS_ONLY
 // The launch (or, with max_clusters, the occupancy query) of one plan.
 int dispatch(int device, void* stream, int x_dtype, int w_dtype, const void* x, const void* wr,
              const void* bias, float* hs, int batch, int seq, int heads, int uh, int cluster,
-             int groups, int halves, int smem, int* max_clusters) {
+             int groups, int halves, int smem, int* max_clusters, const Residuals& res) {
   if (uh < 1 || uh > kMaxUnits || heads < 1 || batch < 1 || seq < 1 || (x_dtype & ~1) ||
       (w_dtype & ~1) || cluster < 1 || cluster > kMaxCluster || cluster > uh ||
       (uh + cluster - 1) / cluster > kMaxShare || (long long)cluster * heads > 0x7fffffff ||
@@ -507,38 +550,46 @@ int dispatch(int device, void* stream, int x_dtype, int w_dtype, const void* x, 
   cudaStream_t s = (cudaStream_t)stream;
   if (x_dtype == 0 && w_dtype == 0)
     err = launch_types<float, float>(device, x, wr, bias, hs, batch, seq, heads, uh, cluster,
-                                     groups, halves, rows, smem, s, max_clusters);
+                                     groups, halves, rows, smem, s, max_clusters, res);
   else if (x_dtype == 0)
     err = launch_types<float, __nv_bfloat16>(device, x, wr, bias, hs, batch, seq, heads, uh,
                                              cluster, groups, halves, rows, smem, s,
-                                             max_clusters);
+                                             max_clusters, res);
   else if (w_dtype == 0)
     err = launch_types<__nv_bfloat16, float>(device, x, wr, bias, hs, batch, seq, heads, uh,
                                              cluster, groups, halves, rows, smem, s,
-                                             max_clusters);
+                                             max_clusters, res);
   else
     err = launch_types<__nv_bfloat16, __nv_bfloat16>(device, x, wr, bias, hs, batch, seq, heads,
                                                      uh, cluster, groups, halves, rows, smem, s,
-                                                     max_clusters);
+                                                     max_clusters, res);
   return (int)err;
 }
+#endif  // SLSTM_SCAN_HELPERS_ONLY
 
 }  // namespace
 
+#ifndef SLSTM_SCAN_HELPERS_ONLY
 // x (B, S, 4 H uh) of x_dtype, wr (H, uh, 4 uh) and bias (4 H uh) of
 // w_dtype (0 float32, 1 bfloat16); hs (B, S, H, uh) float32; all
 // contiguous.  The plan (slstm_scan.py::plan): clusters of `cluster` CTAs a
 // head (1-8, at most uh, at most 32 units a CTA), `groups` groups of batch
 // rows (the grid's y; B / groups >= halves), `halves` halves a CTA (1 or 2,
 // at most 4 rows each), `smem` bytes of dynamic shared memory (smem_for's,
-// slstm_scan.py::smem_bytes).  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a plan this source does not take.
+// slstm_scan.py::smem_bytes).  pre, c, n and m: all null, or the
+// Residuals the backward reads (pre (B, S, 4 H uh), the others (B, S, H,
+// uh), float32, contiguous); hs is the same bits either way.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan this source does
+// not take.
 extern "C" int slstm_scan_launch(int device, void* stream, int x_dtype, int w_dtype,
                                  const void* x, const void* wr, const void* bias, float* hs,
                                  int batch, int seq, int heads, int uh, int cluster, int groups,
-                                 int halves, int smem) {
+                                 int halves, int smem, float* pre, float* c, float* n, float* m) {
+  if ((pre == nullptr) != (c == nullptr) || (c == nullptr) != (n == nullptr) ||
+      (n == nullptr) != (m == nullptr))
+    return (int)cudaErrorInvalidValue;
   return dispatch(device, stream, x_dtype, w_dtype, x, wr, bias, hs, batch, seq, heads, uh,
-                  cluster, groups, halves, smem, nullptr);
+                  cluster, groups, halves, smem, nullptr, Residuals{pre, c, n, m});
 }
 
 // How many clusters of a plan's launch can be resident on the device at once
@@ -548,6 +599,8 @@ extern "C" int slstm_scan_max_clusters(int device, int x_dtype, int w_dtype, int
                                        int smem) {
   int count = 0;
   const int err = dispatch(device, nullptr, x_dtype, w_dtype, nullptr, nullptr, nullptr, nullptr,
-                           batch, 1, heads, uh, cluster, groups, halves, smem, &count);
+                           batch, 1, heads, uh, cluster, groups, halves, smem, &count,
+                           Residuals{nullptr, nullptr, nullptr, nullptr});
   return err == 0 ? count : -err;
 }
+#endif  // SLSTM_SCAN_HELPERS_ONLY

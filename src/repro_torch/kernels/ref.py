@@ -293,11 +293,24 @@ def slstm_cell(xt: torch.Tensor, hprev: torch.Tensor, state, wr: torch.Tensor,
     ``(h, (c, n, m))``: the recurrent product, then ``(x + rec) + bias``,
     the z, i, f, o gates, the log-sigmoid forget gate, the stabilizer m and
     ``h = sigmoid(o) c / max(n, 1e-6)``."""
+    return slstm_update(slstm_pre(xt, hprev, wr, bias), state)
+
+
+def slstm_pre(xt: torch.Tensor, hprev: torch.Tensor, wr: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """A step's gate pre-activations (B, H, 4 uh) float32: ``(x + hprev
+    wr) + bias``."""
     b = xt.shape[0]
     hh, uh = wr.shape[0], wr.shape[1]
-    c, n, m = state
     rec = torch.einsum("bhu,hug->bhg", hprev, wr)
-    pre = xt.reshape(b, hh, 4 * uh).to(torch.float32) + rec + bias
+    return xt.reshape(b, hh, 4 * uh).to(torch.float32) + rec + bias
+
+
+def slstm_update(pre: torch.Tensor, state):
+    """The cell from its pre-activations ``pre`` (B, H, 4 uh) and the state
+    (c, n, m): ``(h, (c, n, m))``."""
+    uh = pre.shape[-1] // 4
+    c, n, m = state
     zt, it, ft, ot = torch.split(pre, uh, dim=-1)
     logf = log_sigmoid(ft)
     m_new = torch.maximum(logf + m, it)
@@ -307,6 +320,49 @@ def slstm_cell(xt: torch.Tensor, hprev: torch.Tensor, state, wr: torch.Tensor,
     n_new = f_p * n + i_p
     h_new = sigmoid(ot) * c_new / torch.clamp_min(n_new, 1e-6)
     return h_new, (c_new, n_new, m_new)
+
+
+def slstm_cell_bwd(pre: torch.Tensor, prev, new, dh: torch.Tensor, dstate):
+    """The cell's backward (``_slstm_cell``'s pullback in
+    ``_slstm_scan_bwd``), float32, in the kernel's formulas and order.
+
+    ``pre`` (B, H, 4 uh), ``prev`` the state (c, n, m) before the step,
+    ``new`` the one after it, ``dh`` the gradient of its ``h`` and
+    ``dstate`` of its new state.  Returns ``(dpre, (dc, dn, dm))``, the
+    latter the gradient of ``prev``.  It carries the stabilizer's gradient,
+    which cancels in exact arithmetic.  ``maximum``'s tie splits the
+    gradient half and half (``jnp.maximum``'s and ``torch.maximum``'s
+    rule); ``clamp_min(n, 1e-6)`` passes it where ``n >= 1e-6`` (torch's
+    rule; ``jnp.maximum(n, 1e-6)`` would halve it at ``n == 1e-6``)."""
+    c0, n0, m0 = prev
+    c1, n1, _ = new
+    dc, dn, dm = dstate
+    zt, it, ft, ot = torch.chunk(pre, 4, dim=-1)
+    logf = log_sigmoid(ft)
+    lm = logf + m0
+    m1 = torch.maximum(lm, it)
+    i_p = torch.exp(it - m1)
+    f_p = torch.exp(lm - m1)
+    tz = torch.tanh(zt)
+    sig = 1 / (1 + torch.exp(-ot))
+    nn = torch.clamp_min(n1, 1e-6)
+    h = sig * c1 / nn
+    dq = dh / nn
+    dc1 = dc + dq * sig
+    dn1 = dn + torch.where(n1 >= 1e-6, -(dq * h), torch.zeros_like(dq))
+    do = (dq * c1) * (sig * (1 - sig))
+    df_p = dc1 * c0 + dn1 * n0
+    di_p = dc1 * tz + dn1
+    dz = (dc1 * i_p) * (1 - tz * tz)
+    gi = di_p * i_p
+    gf = df_p * f_p
+    dm1 = (dm - gi) - gf
+    zero = torch.zeros_like(dm1)
+    half = torch.where(lm == it, dm1 * 0.5, zero)
+    dlm = gf + torch.where(lm > it, dm1, half)
+    di = gi + torch.where(it > lm, dm1, half)
+    df = dlm * (1 / (1 + torch.exp(ft)))  # log_sigmoid' = sigmoid(-f)
+    return torch.cat([dz, di, df, do], dim=-1), (dc1 * f_p, dn1 * f_p, dlm)
 
 
 def slstm_scan_plain(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -329,3 +385,172 @@ def slstm_scan_plain(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor) 
     if not hs:
         return torch.zeros((b, 0, hh, uh), dtype=torch.float32, device=xproj.device)
     return torch.stack(hs, dim=1)
+
+
+def slstm_scan_fwd_plain(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor):
+    """:func:`slstm_scan_plain` with what its backward needs: ``(hs, pre,
+    (c, n, m))``, ``pre`` (B, S, 4d) the gate pre-activations and the
+    states after each position (B, S, H, uh), all float32 (the residuals
+    ``slstm_scan``'s forward kernel writes when a gradient is needed)."""
+    b, s, _ = xproj.shape
+    hh, uh = wr.shape[0], wr.shape[1]
+    w = wr.to(torch.float32)
+    bi = bias.reshape(hh, 4 * uh).to(torch.float32)
+    z = torch.zeros((b, hh, uh), dtype=torch.float32, device=xproj.device)
+    h, state = z, (z, z, torch.full_like(z, -1e30))
+    hs, pres, cs, ns, ms = [], [], [], [], []
+    for t in range(s):
+        pre = slstm_pre(xproj[:, t], h, w, bi)
+        h, state = slstm_update(pre, state)
+        for out, v in zip((hs, pres, cs, ns, ms), (h, pre) + state):
+            out.append(v)
+    if not hs:
+        e = torch.zeros((b, 0, hh, uh), dtype=torch.float32, device=xproj.device)
+        return e, torch.zeros((b, 0, 4 * hh * uh), dtype=torch.float32, device=xproj.device), (
+            e, e, e)
+    c, n, m = (torch.stack(v, dim=1) for v in (cs, ns, ms))
+    return torch.stack(hs, dim=1), torch.stack(pres, dim=1).reshape(b, s, -1), (c, n, m)
+
+
+def slstm_weight_grads(hs: torch.Tensor, dpre: torch.Tensor):
+    """``dwr`` (H, uh, 4 uh) and ``dbias`` (4d) float32 from ``hs`` (B, S,
+    H, uh) and ``dpre`` (B, S, H, 4 uh) float32: one matrix product a head
+    of ``hs_prev^T`` (H, uh, B S), the hidden states one position back
+    (zero at the first), by ``dpre`` (H, B S, 4 uh), and ``dpre`` summed
+    over (B, S): the reference's einsums inside its VJP, summed once."""
+    b, s, hh, uh = hs.shape
+    hs_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    dwr = torch.matmul(hs_prev.permute(2, 3, 0, 1).reshape(hh, uh, b * s),
+                       dpre.permute(2, 0, 1, 3).reshape(hh, b * s, 4 * uh))
+    return dwr, dpre.sum(dim=(0, 1)).reshape(-1)
+
+
+def slstm_scan_bwd_plain(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
+                         pre: torch.Tensor, states, hs: torch.Tensor, dhs: torch.Tensor):
+    """The plain version of ``slstm_scan``'s backward, the counterpart of the
+    reference's ``_slstm_scan_bwd`` (``repro/models/ssm.py:375``): from the
+    last position back, :func:`slstm_cell_bwd` carrying ``dh`` (the
+    recurrent product's ``dpre wr^T`` plus the position's ``dhs``) and the
+    state's gradient, then :func:`slstm_weight_grads`.
+
+    ``pre``, ``states`` and ``hs`` as :func:`slstm_scan_fwd_plain` returns
+    them, ``dhs`` (B, S, H, uh) float32.  Returns ``(dxproj, dwr, dbias)``
+    in their inputs' dtypes."""
+    b, s, _ = xproj.shape
+    hh, uh = wr.shape[0], wr.shape[1]
+    w = wr.to(torch.float32)
+    c, n, m = states
+    pre4 = pre.reshape(b, s, hh, 4 * uh)
+    dpre = torch.empty_like(pre4)
+    z = torch.zeros((b, hh, uh), dtype=torch.float32, device=xproj.device)
+    dh_next, dst = z, (z, z, z)
+    for t in reversed(range(s)):
+        prev = (c[:, t - 1], n[:, t - 1], m[:, t - 1]) if t else (z, z, torch.full_like(z, -1e30))
+        dp, dst = slstm_cell_bwd(pre4[:, t], prev, (c[:, t], n[:, t], m[:, t]),
+                                 dh_next + dhs[:, t].to(torch.float32), dst)
+        dpre[:, t] = dp
+        dh_next = torch.einsum("bhg,hug->bhu", dp, w)
+    dwr, dbias = slstm_weight_grads(hs, dpre)
+    return (dpre.reshape(b, s, 4 * hh * uh).to(xproj.dtype), dwr.to(wr.dtype),
+            dbias.to(bias.dtype))
+
+
+SCAN_SPAN = 4  # positions between the saved states of the selective scan (a ring stage)
+
+
+def selective_scan_states(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                          bmat: torch.Tensor) -> torch.Tensor:
+    """The state entering every span of SCAN_SPAN positions, (B, ceil(S /
+    SCAN_SPAN), n, di) float32, the first zero: what ``selective_scan``'s
+    forward kernel saves for its backward, bit for bit (the same float32
+    products, ``exp`` and sums as :func:`selective_scan_plain`)."""
+    b, s, di = x1.shape
+    h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32, device=x1.device)
+    out = []
+    for t in range(s):
+        if t % SCAN_SPAN == 0:
+            out.append(h.transpose(1, 2))
+        h = h * torch.exp(dt[:, t, :, None] * a) + (
+            dt[:, t] * x1[:, t].to(torch.float32))[..., None] * bmat[:, t, None, :]
+    if not out:
+        return torch.zeros((b, 0, a.shape[1], di), dtype=torch.float32, device=x1.device)
+    return torch.stack(out, dim=1)
+
+
+def _scan_bwd(xf, dt, a, bmat, cmat, dy, hsave):
+    """The selective scan's reverse walk, span by span: a span's states
+    recomputed from the one saved at its start, then from its last position
+    back ``dh = dh decay_next + dy c``, ``dc = sum_i dy h``, ``db = sum_i
+    dh dt x``, ``d(dt x) = sum_k dh b``, ``g = dh h_prev decay`` into ``da
+    += g dt`` (a row each, summed over rows at the end) and ``ddt = sum_k g
+    a + d(dt x) x``, ``dx = d(dt x) dt``.  Returns ``(dx, ddt, da, db, dc)``
+    float32."""
+    b, s, di = xf.shape
+    dh = torch.zeros((b, di, a.shape[1]), dtype=torch.float32, device=xf.device)
+    da = torch.zeros_like(dh)
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
+    span = SCAN_SPAN
+    for k0 in reversed(range(0, s, span)):
+        states = [hsave[:, k0 // span].transpose(1, 2)]
+        for t in range(k0, min(k0 + span, s)):
+            states.append(states[-1] * torch.exp(dt[:, t, :, None] * a)
+                          + (dt[:, t] * xf[:, t])[..., None] * bmat[:, t, None, :])
+        for t in reversed(range(k0, min(k0 + span, s))):
+            h_t, h_p = states[t - k0 + 1], states[t - k0]
+            dh = dh + dy[:, t, :, None] * cmat[:, t, None, :]
+            dtx = dt[:, t] * xf[:, t]
+            dc[:, t] = torch.einsum("bi,bin->bn", dy[:, t], h_t)
+            db[:, t] = torch.einsum("bin,bi->bn", dh, dtx)
+            dsum = (dh * bmat[:, t, None, :]).sum(-1)
+            decay = torch.exp(dt[:, t, :, None] * a)
+            g = dh * h_p * decay
+            da = da + g * dt[:, t, :, None]
+            ddt[:, t] = (g * a).sum(-1) + dsum * xf[:, t]
+            dx[:, t] = dsum * dt[:, t]
+            dh = dh * decay
+    return dx, ddt, da.sum(0), db, dc
+
+
+def selective_scan_bwd_plain(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                             bmat: torch.Tensor, cmat: torch.Tensor, dys: torch.Tensor,
+                             hsave: Optional[torch.Tensor] = None):
+    """The plain version of ``selective_scan``'s backward: the same formulas
+    as its kernel, in torch ops, a span at a time (``hsave`` the saved
+    states, recomputed by :func:`selective_scan_states` when None).
+    ``dys`` (B, S, di) float32.  Returns ``(dx1, ddt, da, dbmat, dcmat)``,
+    ``dx1`` in x1's dtype, the rest float32."""
+    if hsave is None:
+        hsave = selective_scan_states(x1, dt, a, bmat)
+    dx, ddt, da, db, dc = _scan_bwd(x1.to(torch.float32), dt, a, bmat, cmat,
+                                    dys.to(torch.float32), hsave)
+    return dx.to(x1.dtype), ddt, da, db, dc
+
+
+def selective_scan_gated_bwd_plain(x1: torch.Tensor, z: torch.Tensor, dt_raw: torch.Tensor,
+                                   dt_bias: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                                   cmat: torch.Tensor, dd: torch.Tensor, dout: torch.Tensor,
+                                   hsave: Optional[torch.Tensor] = None, chunk: int = 1024):
+    """The plain version of ``selective_scan_gated``'s backward, the gradient
+    of :func:`selective_scan_gated_plain` in the kernel's formulas: with
+    ``s = sigmoid(z)``, ``y2 = ys + dd x1`` (``ys`` recomputed), ``dy =
+    dout z s`` goes into the scan's reverse walk, ``dz = (dout y2) (s (1 +
+    z (1 - s)))``, ``ddd = sum dy x1``, ``dx1 = dy dd + d(dt x) dt`` and
+    ``ddt_raw = ddt sigmoid(dt_raw + dt_bias)``.  ``dout`` (B, S, di) in the
+    output's dtype; ``chunk`` bounds the recomputed ys's memory (as
+    :func:`selective_scan_plain`'s).  Returns ``(dx1, dz, ddt_raw, ddt_bias, da, dbmat,
+    dcmat, ddd)``: ``dx1`` and ``dz`` in their inputs' dtypes, the rest
+    float32."""
+    xf, zf, go = x1.to(torch.float32), z.to(torch.float32), dout.to(torch.float32)
+    tt = dt_raw + dt_bias
+    dt = softplus(tt)
+    if hsave is None:
+        hsave = selective_scan_states(x1, dt, a, bmat)
+    ys = selective_scan_plain(x1, dt, a, bmat, cmat, chunk=chunk)
+    sz = 1 / (1 + torch.exp(-zf))
+    dy = go * (zf * sz)
+    dz = (go * (ys + dd * xf)) * (sz * (1 + zf * (1 - sz)))
+    dx, ddt, da, db, dc = _scan_bwd(xf, dt, a, bmat, cmat, dy, hsave)
+    ddt_raw = ddt * (1 / (1 + torch.exp(-tt)))
+    return ((dy * dd + dx).to(x1.dtype), dz.to(z.dtype), ddt_raw, ddt_raw.sum(dim=(0, 1)), da,
+            db, dc, (dy * xf).sum(dim=(0, 1)))

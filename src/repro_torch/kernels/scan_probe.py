@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.scan_probe [--paired DIR | --plans]
     PYTHONPATH=src python -m repro_torch.kernels.scan_probe --selective [--paired DIR]
+    PYTHONPATH=src python -m repro_torch.kernels.scan_probe --bwd [--paired DIR]
 
 The sLSTM scan (``csrc/slstm_scan.cu``), by default: at xlstm-350m's layer
 (:data:`SHAPES`: 16 rows of 2,048 positions, 4 heads of 256 units, bf16,
@@ -57,6 +58,22 @@ layer the gated entry where a tree has it, else the ops it replaced
 (``ref.softplus``, the scan-only kernel, the skip term, the gate and the
 cast: the parent's ``mamba_train``); each with a digest of its output on
 the same seeded inputs, so the trees are compared bit for bit.
+
+``--bwd`` times the backward kernels (``csrc/slstm_scan_bwd.cu``,
+``csrc/selective_scan_bwd.cu``, gated) at :data:`BWD_SHAPES`: xlstm-350m's
+sLSTM layer at its training microbatch (4 rows of 2,048) and at the forward
+row's 16 rows, jamba-1.5-large's mamba layer at its cut's training
+microbatch (1 row of 2,048) and at ``chip_smoke.SCAN_SHAPE``'s 16, bf16.
+For each, by CUDA events: the forward alone, the forward writing the
+backward's residuals (what asking for a gradient costs it), the backward
+kernel (the sLSTM's dpre; then ``dwr``'s float32 matrix product apart) and
+the plain backward once; the kernel's largest |diff| from the plain
+backward over each gradient's scale, a rerun's bits and the launch plan.
+``--bwd --paired DIR`` runs the same seeded cases in this tree and in
+``DIR`` in turns, each run a process of its own: both forwards with no
+gradient asked for, with digests of their outputs (the trees compared bit
+for bit), and the forward with residuals and the backward where a tree has
+them.
 
 A patch that no longer finds its text in the source raises; the CPU test
 ``tests/test_torch_ssm.py::test_scan_probe_patches_apply`` applies every
@@ -198,7 +215,7 @@ def instrument(src: str) -> str:
     src = _sub(src, anchor, anchor + "    MARK(1);\n")
     anchor = "    named_bar_sync(1 + half, half_threads);  // the partial sums are whole\n"
     src = _sub(src, anchor, "    MARK(2);\n" + anchor + "    MARK(3);\n")
-    anchor = "      out_s[cr * n + ci] = h;\n    }\n"
+    anchor = "        res.m[at] = m_st;\n      }\n    }\n"  # the cell's end
     src = _sub(src, anchor, anchor + "    MARK(4);\n")
     anchor = ("      named_bar_sync(1 + half, half_threads);  // out is whole; the partial "
               "sums are read\n")
@@ -333,7 +350,7 @@ def time_plans(torch, shape) -> None:
                 build.check(lib.slstm_scan_launch(
                     0, build.stream_handle(dev), 1, 1, x.data_ptr(), wr.data_ptr(),
                     bias.data_ptr(), hs.data_ptr(), b, s, hh, uh, chosen.cluster, groups, halves,
-                    smem), SS.NAME)
+                    smem, None, None, None, None), SS.NAME)
 
             call()
             torch.cuda.synchronize()
@@ -503,7 +520,7 @@ def sass_counts(so: Path, states: int = SEL_STATES) -> Dict[str, dict]:
     library at ``so``, by entry (``scan``, ``gated``)."""
     out = {}
     for name, instrs in sass_functions(so).items():
-        m = re.search(rf"scan_kernelILi{states}E13__nv_bfloat16Lb([01])E", name)
+        m = re.search(rf"scan_kernelILi{states}E13__nv_bfloat16Lb([01])ELb0E", name)
         if m:
             out["gated" if m.group(1) == "1" else "scan"] = loop_counts(instrs, states,
                                                                          m.group(1) == "1")
@@ -700,6 +717,185 @@ def selective_main(torch) -> int:
     return 0
 
 
+# ---- the backward kernels -------------------------------------------------
+
+BWD_SHAPES = {"slstm train": ("slstm", (4, 2048, 4, 256)),
+              "slstm layer": ("slstm", (16, 2048, 4, 256)),
+              "gated train": ("gated", (1, 2048, 16384, 16)),
+              "gated layer": ("gated", (16, 2048, 16384, 16))}
+
+# The script each tree runs in ``bwd_paired``: inputs as ``bwd_inputs``
+# makes them; a tree without residuals (the parent of the backward kernels)
+# times its forwards only.
+BWD_PAIRED_SCRIPT = """
+import hashlib, json, sys, torch
+from repro_torch.kernels import scan_probe as P
+dev = torch.device("cuda")
+
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+out = {}
+for label, (kind, shape) in json.loads(sys.argv[1]).items():
+    case = P.bwd_case(torch, kind, shape)
+    row = {"forward": [round(P._event_ms(torch, case["forward"], 3), 4),
+                       digest([case["forward"]()])]}
+    if "residuals" in case:
+        row["forward, residuals"] = [round(P._event_ms(torch, case["residuals"], 3), 4),
+                                     digest(case["residuals"]()[:1])]
+        row["backward"] = [round(P._event_ms(torch, case["backward"], 3), 4),
+                           digest(case["backward"]())]
+    out[label] = row
+    del case
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def bwd_case(torch, kind: str, shape, seed: int = 9) -> dict:
+    """One ``--bwd`` case on the card, seeded: ``forward`` (no gradient
+    asked for), and where the tree has them ``residuals`` (the forward
+    writing what the backward reads: its first output is the forward's),
+    ``backward`` (the kernel from those residuals) and ``plain`` (the
+    plain backward from the plain forward's residuals)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as SEL
+    from repro_torch.kernels import slstm_scan as SS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "slstm":
+        b, s, hh, uh = shape
+        x = torch.randn((b, s, 4 * hh * uh), generator=gen, device=dev).to(torch.bfloat16)
+        wr = (torch.randn((hh, uh, 4 * uh), generator=gen, device=dev) / uh ** 0.5).to(
+            torch.bfloat16)
+        bias = (torch.randn((4 * hh * uh,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        dhs = torch.randn((b, s, hh, uh), generator=gen, device=dev)
+        case = {"forward": lambda: SS.slstm_scan(x, wr, bias)}
+        if hasattr(SS, "slstm_scan_residuals"):
+            res = SS.slstm_scan_residuals(x, wr, bias)
+            case["residuals"] = lambda: SS.slstm_scan_residuals(x, wr, bias)
+            case["backward"] = lambda: SS.slstm_scan_bwd(x, wr, bias, res[1], res[2], res[0],
+                                                         dhs)
+            case["dpre"] = lambda: SS._launch_bwd(wr, res[1], res[2], dhs)
+
+            def plain():
+                p_hs, p_pre, p_states = ref.slstm_scan_fwd_plain(x, wr, bias)
+                return ref.slstm_scan_bwd_plain(x, wr, bias, p_pre, p_states, p_hs, dhs)
+
+            case["plain"] = plain
+        return case
+    b, s, di, n = shape
+    x1 = ref.silu(torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16))
+    z = torch.randn((b, s, 2 * di), generator=gen, device=dev).to(torch.bfloat16)[..., di:]
+    dt_raw = torch.randn((b, s, di), generator=gen, device=dev)
+    dt_bias = torch.randn((di,), generator=gen, device=dev) * 0.1
+    a = -torch.exp(torch.ones((di, n), device=dev))
+    bmat = torch.randn((b, s, n), generator=gen, device=dev)
+    cmat = torch.randn((b, s, n), generator=gen, device=dev)
+    dd = torch.randn((di,), generator=gen, device=dev)
+    dout = torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16)
+    args = (x1, z, dt_raw, dt_bias, a, bmat, cmat, dd)
+    case = {"forward": lambda: SEL.selective_scan_gated(*args)}
+    if hasattr(SEL, "selective_scan_states_of"):
+        res = SEL.selective_scan_states_of(x1, dt_raw, a, bmat, cmat, z, dt_bias, dd)
+        case["residuals"] = lambda: SEL.selective_scan_states_of(x1, dt_raw, a, bmat, cmat, z,
+                                                                 dt_bias, dd)
+        case["backward"] = lambda: SEL.selective_scan_gated_bwd(*args, dout, res[1])
+        case["plain"] = lambda: ref.selective_scan_gated_bwd_plain(*args, dout, res[1],
+                                                                    chunk=128)
+    return case
+
+
+def bwd_paired(trees: List[Path], rounds: int = 2) -> Dict[str, Dict[str, list]]:
+    """Each case's {timing: [ms, digest]} in every tree, in turns
+    (``trees``, then reversed, ``rounds`` times over), each run a process of
+    its own."""
+    order: List[Path] = []
+    for _ in range(rounds):
+        order += list(trees) + list(trees)[::-1]
+    out: Dict[str, Dict[str, list]] = {str(t): {} for t in trees}
+    for tree in order:
+        # This tree's probe (bwd_case) on the other tree's package: the
+        # parent has no --bwd of its own.
+        env = dict(os.environ, PYTHONPATH=f"{tree / 'src'}")
+        script = BWD_PAIRED_SCRIPT.replace(
+            "from repro_torch.kernels import scan_probe as P",
+            "import importlib.util\n"
+            f"spec = importlib.util.spec_from_file_location('probe', {str(Path(__file__))!r})\n"
+            "P = importlib.util.module_from_spec(spec); spec.loader.exec_module(P)")
+        proc = subprocess.run([sys.executable, "-c", script, json.dumps(BWD_SHAPES)],
+                              cwd=str(tree), env=env, capture_output=True, text=True,
+                              timeout=1200)
+        if proc.returncode != 0:
+            raise RuntimeError(f"paired run in {tree} failed:\n{proc.stderr[-4000:]}")
+        for label, got in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            out[str(tree)].setdefault(label, []).append(got)
+    return out
+
+
+def bwd_main(torch) -> int:
+    """``--bwd``: the cases' times, errors, reruns and plans, or with
+    ``--paired DIR`` the paired runs."""
+    from repro_torch.kernels import selective_scan as SEL
+    from repro_torch.kernels import slstm_scan as SS
+    from repro_torch.kernels.ref import slstm_weight_grads
+
+    if "--paired" in sys.argv:
+        other = Path(sys.argv[sys.argv.index("--paired") + 1]).resolve()
+        here = Path(__file__).resolve().parents[3]
+        runs = bwd_paired([here, other])
+        for tree, got in runs.items():
+            print(f"[bwd paired] {tree}: {got}", flush=True)
+        for label in BWD_SHAPES:
+            for timing in runs[str(here)][label][0]:
+                a = [r[timing][0] for r in runs[str(here)][label]]
+                b = [r[timing][0] for r in runs[str(other)][label] if timing in r]
+                digests = {r[timing][1] for got in runs.values() for r in got[label]
+                           if timing in r}
+                print(f"[bwd paired] {label} {timing}: this tree {_spread(a)} ms, other "
+                      f"{_spread(b) if b else 'none'}; outputs equal bit for bit across trees "
+                      f"and runs: {len(digests) == 1}", flush=True)
+        _smi()
+        return 0
+
+    for label, (kind, shape) in BWD_SHAPES.items():
+        case = bwd_case(torch, kind, shape)
+        got, again = case["backward"](), case["backward"]()
+        rerun = all(torch.equal(g, g2) for g, g2 in zip(got, again))
+        want = case["plain"]()
+        errs = [float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()),
+                                                                 1e-30)
+                for g, w in zip(got, want)]
+        del again, want
+        times = {name: _event_ms(torch, case[name], 3) for name in ("forward", "residuals")}
+        if kind == "slstm":
+            b, _, hh, uh = shape
+            p = SS.card_plan(0, 0, 1, b, hh, uh, backward=True)
+            times["backward kernel (dpre)"] = _event_ms(torch, case["dpre"], 5)
+            dpre = case["dpre"]().view(b, shape[1], hh, 4 * uh)
+            hs = case["residuals"]()[0]
+            times["dwr and dbias"] = _event_ms(torch, lambda: slstm_weight_grads(hs, dpre), 5)
+            del dpre, hs
+        else:
+            buf = (ctypes.c_int * 5)()
+            build.check(build.library(SEL.BWD_NAME).selective_scan_bwd_occupancy(
+                0, 1, 1, shape[3], buf), SEL.BWD_NAME)
+            p = list(buf)
+            times["backward kernel (two launches)"] = _event_ms(torch, case["backward"], 5)
+        times["plain backward"] = _event_ms(torch, case["plain"], 1)
+        print(f"[bwd] {label} {shape}: plan {p}; rerun bit-equal {rerun}; max |kernel - plain| "
+              f"/ scale by gradient {[f'{e:.2e}' for e in errs]}; ms "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+        del case, got
+        torch.cuda.empty_cache()
+    _smi()
+    return 0
+
+
 def _event_ms(torch, fn, reps: int) -> float:
     for _ in range(2):
         fn()
@@ -727,6 +923,8 @@ def main() -> int:
 
     if "--selective" in sys.argv:
         return selective_main(torch)
+    if "--bwd" in sys.argv:
+        return bwd_main(torch)
 
     if "--paired" in sys.argv:
         other = Path(sys.argv[sys.argv.index("--paired") + 1]).resolve()

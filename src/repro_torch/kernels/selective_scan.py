@@ -25,24 +25,36 @@ mbarriers, and each compute thread keeps its channel's states and row of
 A CPU tensor goes to the plain versions (``ref.selective_scan_plain``,
 ``ref.selective_scan_gated_plain``), which autograd differentiates; a CUDA
 tensor goes to the kernel, or the call raises.  Under autograd on the card
-the kernel runs inside an autograd function whose backward raises: the
-scan's backward kernel waits for ROADMAP A7.4b.
+the kernel runs inside an autograd function: its forward also saves the
+state entering every 4 positions ((B, S / 4, n, di) float32), and its
+backward is :func:`selective_scan_bwd` or :func:`selective_scan_gated_bwd`,
+``csrc/selective_scan_bwd.cu``: the reverse walk a stage at a time from the
+saved states, the gated entry's epilogue and softplus differentiated in the
+same thread, then a second launch adding the tiles' and rows' partial sums
+in order (one call, two launches, counted once under
+``LAUNCH_COUNTS["selective_scan_bwd"]``).  ``LAUNCH_COUNTS
+["selective_scan.residuals"]`` counts the forwards that saved states (not
+those under ``residuals.skipped``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.ref import selective_scan_gated_plain, selective_scan_plain
+from repro_torch.kernels import build, residuals
+from repro_torch.kernels.ref import softplus as ref_softplus
+from repro_torch.kernels.ref import (SCAN_SPAN, selective_scan_bwd_plain,
+                                     selective_scan_gated_bwd_plain, selective_scan_gated_plain,
+                                     selective_scan_plain, selective_scan_states)
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "selective_scan"
+BWD_NAME = "selective_scan_bwd"
+RESIDUALS_COUNTER = "selective_scan.residuals"  # forwards that saved the backward's states
 MAX_STATE = 16  # states a channel keeps in registers (the source's kMaxState)
 MAX_BATCH = 65535
+TILE = 128  # channels a unit of the backward (its source's kTile)
+VALUES = 32  # a position's dc and db partial sums a tile (its source's kValues)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BACKWARD_WAITS = ("the selective scan's backward on the card waits for its kernel "
-                  "(ROADMAP A7.4b); train on the CPU, where autograd differentiates the "
-                  "plain version")
 
 
 def _check(x1, dt, a, bmat, cmat, **gated) -> None:
@@ -91,14 +103,36 @@ def _z_rows(z: torch.Tensor):
     return z.contiguous(), di
 
 
-def _launch(x1, dt, a, bmat, cmat, z=None, dt_bias=None, dd=None) -> torch.Tensor:
+def states_shape(x1: torch.Tensor, a: torch.Tensor):
+    """The saved states' shape: (B, ceil(S / SCAN_SPAN), n, di)."""
+    b, s, di = x1.shape
+    return (b, -(-s // SCAN_SPAN), a.shape[1], di)
+
+
+def _check_bwd(x1, a, grad, grad_dtype, hsave) -> None:
+    """Refuse what the backward kernel does not take (after :func:`_check`):
+    the output's gradient (B, S, di) in ``grad_dtype`` and the saved states."""
+    for name, t, shape, dtype in (("the output's gradient", grad, tuple(x1.shape), grad_dtype),
+                                  ("hsave", hsave, states_shape(x1, a), torch.float32)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if t.device != x1.device:
+            raise ValueError(f"{name} lies on {t.device}, x1 on {x1.device}")
+    residuals.require_written("hsave", hsave)
+
+
+def _launch(x1, dt, a, bmat, cmat, z=None, dt_bias=None, dd=None, keep: bool = False):
+    """The output, and with ``keep`` also the saved states: ``(out, hsave)``."""
     b, s, di = x1.shape
     dev = x1.device
     gated = z is not None
     x1, dt, a, bmat, cmat = (t.contiguous() for t in (x1, dt, a, bmat, cmat))
     out = torch.empty((b, s, di), dtype=x1.dtype if gated else torch.float32, device=dev)
+    hsave = torch.empty(states_shape(x1, a), dtype=torch.float32, device=dev) if keep else None
     if out.numel() == 0:
-        return out
+        return (out, hsave) if keep else out
     if gated:
         z, z_step = _z_rows(z)
         dt_bias, dd = dt_bias.contiguous(), dd.contiguous()
@@ -110,34 +144,101 @@ def _launch(x1, dt, a, bmat, cmat, z=None, dt_bias=None, dd=None) -> torch.Tenso
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     err = build.library(NAME).selective_scan_launch(
         index, build.stream_handle(dev), _DTYPE_CODES[x1.dtype], int(gated), x1.data_ptr(),
-        *ptrs, out.data_ptr(), b, s, di, a.shape[1])
+        *ptrs, out.data_ptr(), hsave.data_ptr() if keep else None, b, s, di, a.shape[1])
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
+    if keep:
+        LAUNCH_COUNTS[RESIDUALS_COUNTER] += 1
+        return out, hsave
     return out
 
 
+def _launch_bwd(x1, dt, a, bmat, cmat, grad, hsave, z=None, dt_bias=None, dd=None):
+    """The backward kernel's call (two launches): ``(dx1, ddt, da, dbmat,
+    dcmat)``, gated ``(dx1, dz, ddt_raw, ddt_bias, da, dbmat, dcmat, ddd)``."""
+    b, s, di = x1.shape
+    n = a.shape[1]
+    dev = x1.device
+    gated = z is not None
+    f32 = dict(dtype=torch.float32, device=dev)
+    x1, dt, a, bmat, cmat, grad, hsave = (t.contiguous() for t in
+                                          (x1, dt, a, bmat, cmat, grad, hsave))
+    dx = torch.empty((b, s, di), dtype=x1.dtype, device=dev)
+    dz = torch.empty((b, s, di), dtype=x1.dtype, device=dev) if gated else None
+    ddt = torch.empty((b, s, di), **f32)
+    dcm, dbm = torch.empty((b, s, n), **f32), torch.empty((b, s, n), **f32)
+    da = torch.empty((di, n), **f32)
+    ddd, dbias = (torch.empty((di,), **f32), torch.empty((di,), **f32)) if gated else (None,
+                                                                                    None)
+    outs = (dx, dz, ddt, dbias, da, dbm, dcm, ddd) if gated else (dx, ddt, da, dbm, dcm)
+    if dx.numel() == 0:
+        for t in outs:
+            if t is not None and t.dtype == torch.float32:
+                t.zero_()
+        return outs
+    part = torch.empty((b, -(-di // TILE), s, VALUES), **f32)
+    part_a = torch.empty((b, di, n), **f32)
+    part_dd = torch.empty((b, di), **f32) if gated else None
+    part_bias = torch.empty((b, di), **f32) if gated else None
+    if gated:
+        z, z_step = _z_rows(z)
+        dt_bias, dd = dt_bias.contiguous(), dd.contiguous()
+    else:
+        z_step = di
+    ptr = lambda t: None if t is None else t.data_ptr()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = build.library(BWD_NAME).selective_scan_bwd_launch(
+        index, build.stream_handle(dev), _DTYPE_CODES[x1.dtype], int(gated), x1.data_ptr(),
+        ptr(z), z_step, dt.data_ptr(), ptr(dt_bias), a.data_ptr(), bmat.data_ptr(),
+        cmat.data_ptr(), ptr(dd), grad.data_ptr(), hsave.data_ptr(), dx.data_ptr(), ptr(dz),
+        ddt.data_ptr(), dcm.data_ptr(), dbm.data_ptr(), da.data_ptr(), ptr(ddd), ptr(dbias),
+        part.data_ptr(), part_a.data_ptr(), ptr(part_dd), ptr(part_bias), b, s, di, n)
+    build.check(err, BWD_NAME)
+    LAUNCH_COUNTS[BWD_NAME] += 1
+    return outs
+
+
+def _saved_states(x1, a, keep_out):
+    """The forward's ``(out, hsave)``, a placeholder for ``hsave`` when the
+    forward kept none."""
+    if isinstance(keep_out, tuple):
+        return keep_out
+    return keep_out, residuals.placeholder(states_shape(x1, a), x1.device)
+
+
 class _SelectiveScan(torch.autograd.Function):
-    """The kernel under autograd on the card; its backward raises."""
+    """The kernel under autograd on the card; its backward is
+    :func:`selective_scan_bwd`."""
 
     @staticmethod
     def forward(ctx, x1, dt, a, bmat, cmat):
-        return _launch(x1, dt, a, bmat, cmat)
+        ys, hsave = _saved_states(x1, a, _launch(x1, dt, a, bmat, cmat,
+                                                 keep=residuals.wanted()))
+        ctx.save_for_backward(x1, dt, a, bmat, cmat, hsave)
+        return ys
 
     @staticmethod
     def backward(ctx, dys):
-        raise NotImplementedError(BACKWARD_WAITS)
+        x1, dt, a, bmat, cmat, hsave = ctx.saved_tensors
+        return selective_scan_bwd(x1, dt, a, bmat, cmat, dys, hsave)
 
 
 class _SelectiveScanGated(torch.autograd.Function):
-    """The gated kernel under autograd on the card; its backward raises."""
+    """The gated kernel under autograd on the card; its backward is
+    :func:`selective_scan_gated_bwd`."""
 
     @staticmethod
     def forward(ctx, x1, z, dt_raw, dt_bias, a, bmat, cmat, dd):
-        return _launch(x1, dt_raw, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd)
+        out, hsave = _saved_states(x1, a, _launch(x1, dt_raw, a, bmat, cmat, z=z,
+                                                  dt_bias=dt_bias, dd=dd,
+                                                  keep=residuals.wanted()))
+        ctx.save_for_backward(x1, z, dt_raw, dt_bias, a, bmat, cmat, dd, hsave)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(BACKWARD_WAITS)
+        *args, hsave = ctx.saved_tensors
+        return selective_scan_gated_bwd(*args, dout, hsave)
 
 
 def selective_scan(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
@@ -181,3 +282,55 @@ def selective_scan_gated(x1: torch.Tensor, z: torch.Tensor, dt_raw: torch.Tensor
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _SelectiveScanGated.apply(*args)
     return _launch(x1, dt_raw, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd)
+
+
+def selective_scan_states_of(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                             bmat: torch.Tensor, cmat: torch.Tensor, z: torch.Tensor = None,
+                             dt_bias: torch.Tensor = None, dd: torch.Tensor = None):
+    """``(out, hsave)``: :func:`selective_scan` (or, given ``z``, ``dt_bias``
+    and ``dd``, :func:`selective_scan_gated` with ``dt`` raw) with the states
+    its backward reads, the state entering every SCAN_SPAN positions
+    (``ref.selective_scan_states`` on the CPU, the forward kernel saving them
+    on the card)."""
+    gated = z is not None
+    if gated:
+        _check(x1, dt, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd, out_dtype=x1.dtype)
+    else:
+        _check(x1, dt, a, bmat, cmat)
+    if x1.device.type == "cpu":
+        if gated:
+            out = selective_scan_gated_plain(x1, z, dt, dt_bias, a, bmat, cmat, dd, x1.dtype)
+            return out, selective_scan_states(x1, ref_softplus(dt + dt_bias), a, bmat)
+        return selective_scan_plain(x1, dt, a, bmat, cmat), selective_scan_states(x1, dt, a, bmat)
+    return _launch(x1, dt, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd, keep=True)
+
+
+def selective_scan_bwd(x1: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                       cmat: torch.Tensor, dys: torch.Tensor, hsave: torch.Tensor):
+    """``(dx1, ddt, da, dbmat, dcmat)``: the gradient of
+    :func:`selective_scan` for ``dys`` (B, S, di) float32, from the saved
+    states ``hsave`` (:func:`selective_scan_states_of`); ``dx1`` in x1's
+    dtype, the rest float32.  A CPU tensor goes to
+    ``ref.selective_scan_bwd_plain``, a CUDA tensor to the kernel."""
+    _check(x1, dt, a, bmat, cmat)
+    _check_bwd(x1, a, dys, torch.float32, hsave)
+    if x1.device.type == "cpu":
+        return selective_scan_bwd_plain(x1, dt, a, bmat, cmat, dys, hsave)
+    return _launch_bwd(x1, dt, a, bmat, cmat, dys, hsave)
+
+
+def selective_scan_gated_bwd(x1: torch.Tensor, z: torch.Tensor, dt_raw: torch.Tensor,
+                             dt_bias: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                             cmat: torch.Tensor, dd: torch.Tensor, dout: torch.Tensor,
+                             hsave: torch.Tensor):
+    """``(dx1, dz, ddt_raw, ddt_bias, da, dbmat, dcmat, ddd)``: the gradient
+    of :func:`selective_scan_gated` for ``dout`` (B, S, di) in the output's
+    dtype (x1's), from the saved states; ``dx1`` and ``dz`` in x1's dtype,
+    the rest float32.  A CPU tensor goes to
+    ``ref.selective_scan_gated_bwd_plain``, a CUDA tensor to the kernel."""
+    _check(x1, dt_raw, a, bmat, cmat, z=z, dt_bias=dt_bias, dd=dd, out_dtype=x1.dtype)
+    _check_bwd(x1, a, dout, x1.dtype, hsave)
+    if x1.device.type == "cpu":
+        return selective_scan_gated_bwd_plain(x1, z, dt_raw, dt_bias, a, bmat, cmat, dd, dout,
+                                              hsave)
+    return _launch_bwd(x1, dt_raw, a, bmat, cmat, dout, hsave, z=z, dt_bias=dt_bias, dd=dd)

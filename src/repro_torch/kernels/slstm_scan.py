@@ -21,8 +21,17 @@ measures it.
 A CPU tensor goes to the plain version (``ref.slstm_scan_plain``), which
 autograd differentiates; a CUDA tensor goes to the kernel, or the call
 raises (a shape no plan takes raises ValueError).  Under autograd on the
-card the kernel runs inside an autograd function whose backward raises: the
-counterpart of ``_slstm_scan_bwd`` waits for ROADMAP A7.4b.
+card the kernel runs inside an autograd function: its forward also writes
+the gate pre-activations and the states c, n and m of every position
+(float32; the reference's residuals ``hs_prev`` and ``states_prev``, with
+the recurrent product kept), and its backward is :func:`slstm_scan_bwd`:
+the reverse scan in ``csrc/slstm_scan_bwd.cu`` (one launch a call, counted
+under ``LAUNCH_COUNTS["slstm_scan_bwd"]``, on the same cluster plan with
+``wr``'s rows transposed in shared memory) for ``dpre``, then ``dwr`` and
+``dbias`` as one float32 matrix product a head and one sum
+(``ref.slstm_weight_grads``).  ``LAUNCH_COUNTS["slstm_scan.residuals"]``
+counts the forwards that wrote residuals (not those under
+``residuals.skipped``).
 """
 from __future__ import annotations
 
@@ -32,11 +41,14 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.ref import slstm_scan_plain
+from repro_torch.kernels import build, residuals
+from repro_torch.kernels.ref import (slstm_scan_bwd_plain, slstm_scan_fwd_plain,
+                                     slstm_scan_plain, slstm_weight_grads)
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 NAME = "slstm_scan"
+BWD_NAME = "slstm_scan_bwd"
+RESIDUALS_COUNTER = "slstm_scan.residuals"  # forwards that wrote the backward's residuals
 # Mirrored by the source's constexprs (kMaxUnits, kMaxCluster, kMaxShare,
 # kMaxRows, kMaxHalves, kMaxSmem, kOnePerSm) and its Layout.
 MAX_UNITS = 256  # units a head
@@ -56,9 +68,6 @@ RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15}
 # plan at 1 to 16 rows of 4 x 256 (``scan_probe --plans``).
 FIXED_CLOCKS, CHUNK_ROW_CLOCKS, CHUNK_CLOCKS = 1700, 62, 40
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BACKWARD_WAITS = ("the sLSTM scan's backward on the card waits for its kernel "
-                  "(ROADMAP A7.4b); train on the CPU, where autograd differentiates the "
-                  "plain version")
 
 
 @dataclass(frozen=True)
@@ -105,36 +114,48 @@ def rows_of(b: int, groups: int, halves: int) -> int:
     return _ceil(_ceil(b, groups), halves)
 
 
-def slices_of(uh: int, cluster: int) -> Tuple[int, int]:
-    """``(slice, slices)``: the u a partial sum covers and their count (the
-    source's ``Layout``): a half's threads are groups of 8 of the CTA's
-    padded gate columns times slices of u, a multiple of 4 each."""
+def slices_of(uh: int, cluster: int, backward: bool = False) -> Tuple[int, int]:
+    """``(slice, slices)``: the inputs a partial sum covers and their count
+    (the source's ``Layout``; ``csrc/slstm_scan_bwd.cu``'s ``BwdLayout``
+    with ``backward``): a half's threads are groups of 8 of the CTA's padded
+    outputs times slices of the inputs, a multiple of 4 each.  The forward's
+    inputs are uh units and its outputs the share's 4 gates; the backward's
+    inputs are 4 uh gate columns and its outputs the share's units."""
     share = _ceil(uh, cluster)
-    ngroups = _ceil(4 * share, 8)
-    k = min(_ceil(4 * share, 32) * 32 // ngroups, _ceil(uh, 4))
-    slice_ = _ceil(_ceil(uh, k), 4) * 4
-    return slice_, _ceil(uh, slice_)
+    inputs, outputs = (4 * uh, share) if backward else (uh, 4 * share)
+    ngroups = _ceil(outputs, 8)
+    k = min(_ceil(4 * share, 32) * 32 // ngroups, _ceil(inputs, 4))
+    slice_ = _ceil(_ceil(inputs, k), 4) * 4
+    return slice_, _ceil(inputs, slice_)
 
 
-def smem_bytes(uh: int, cluster: int, rows: int, halves: int, w_bytes: int) -> int:
+def smem_bytes(uh: int, cluster: int, rows: int, halves: int, w_bytes: int,
+               backward: bool = False) -> int:
     """A CTA's dynamic shared memory (the source's ``Layout`` and
-    ``smem_for``): per half two mbarriers, h double-buffered (``rows`` x uh
-    rounded to 8, float32), the partial sums ([rows][slices][columns padded
-    to 8], float32) and the new h of its share; the CTA's wr rows over its
-    padded columns in the stored dtype; at least ONE_PER_SM."""
+    ``smem_for``, or with ``backward`` ``BwdLayout`` and ``bwd_smem_for``):
+    per half two mbarriers, the exchanged vector double-buffered (``rows`` x
+    its inputs rounded to 8, float32: h, or dpre's 4 uh), the partial sums
+    ([rows][slices][outputs padded to 8], float32) and the share's new h
+    (or its 4 gates' dpre); the CTA's wr over its padded outputs in the
+    stored dtype; at least ONE_PER_SM."""
     share = _ceil(uh, cluster)
-    cpad = _ceil(4 * share, 8) * 8
-    _, slices = slices_of(uh, cluster)
-    per_half = (2 * rows * _ceil(uh, 8) * 8 * 4 + rows * slices * cpad * 4
-                + _ceil(rows * share * 4, 16) * 16)
-    need = 16 * MAX_HALVES + halves * per_half + _ceil(uh * cpad * w_bytes, 16) * 16
+    inputs, outputs = (4 * uh, share) if backward else (uh, 4 * share)
+    cpad = _ceil(outputs, 8) * 8
+    _, slices = slices_of(uh, cluster, backward)
+    sent = 4 * share if backward else share
+    per_half = (2 * rows * _ceil(inputs, 8) * 8 * 4 + rows * slices * cpad * 4
+                + _ceil(rows * sent * 4, 16) * 16)
+    need = 16 * MAX_HALVES + halves * per_half + _ceil(inputs * cpad * w_bytes, 16) * 16
     return max(need, ONE_PER_SM)
 
 
 def plan(b: int, hh: int, uh: int, w_bytes: int,
-         max_clusters: Optional[Callable[[int, int, int, int], int]] = None) -> Plan:
+         max_clusters: Optional[Callable[[int, int, int, int], int]] = None,
+         backward: bool = False) -> Plan:
     """The launch for ``b`` batch rows of ``hh`` heads of ``uh`` units with
-    ``wr`` of ``w_bytes`` (4 float32, 2 bfloat16) a weight.
+    ``wr`` of ``w_bytes`` (4 float32, 2 bfloat16) a weight; with
+    ``backward``, of ``csrc/slstm_scan_bwd.cu`` (the same cluster, groups
+    and halves, its own shared memory and slices).
 
     The cluster is the fewest CTAs (1, 2, 4 or 8) that leave each at most
     MAX_SHARE units: a half of 4 warps at uh = 256.  The groups and halves
@@ -150,14 +171,14 @@ def plan(b: int, hh: int, uh: int, w_bytes: int,
         raise ValueError(f"wr of {w_bytes} bytes a weight: the kernel reads float32 or bfloat16")
     cluster = next(c for c in (1, 2, 4, MAX_CLUSTER) if _ceil(uh, c) <= MAX_SHARE)
     role_threads = _ceil(4 * _ceil(uh, cluster), 32) * 32
-    slice_, slices = slices_of(uh, cluster)
+    slice_, slices = slices_of(uh, cluster, backward)
     best, best_cost = None, math.inf
     for halves in range(1, MAX_HALVES + 1):
         for groups in sorted({_ceil(b, r) for r in range(1, MAX_ROWS * halves + 1)}):
             rows = rows_of(b, groups, halves)
             if groups > 65535 or b // groups < halves or rows > MAX_ROWS:
                 continue
-            smem = smem_bytes(uh, cluster, rows, halves, w_bytes)
+            smem = smem_bytes(uh, cluster, rows, halves, w_bytes, backward)
             if smem > MAX_SMEM:
                 continue
             resident = max_clusters(cluster, groups, halves, smem) if max_clusters else None
@@ -178,19 +199,28 @@ def plan(b: int, hh: int, uh: int, w_bytes: int,
 _PLANS: Dict[tuple, Plan] = {}
 
 
-def card_plan(index: int, x_code: int, w_code: int, b: int, hh: int, uh: int) -> Plan:
+def card_plan(index: int, x_code: int, w_code: int, b: int, hh: int, uh: int,
+              backward: bool = False) -> Plan:
     """:func:`plan` with the card's resident clusters
-    (``slstm_scan_max_clusters``), cached by shape."""
-    key = (index, x_code, w_code, b, hh, uh)
+    (``slstm_scan_max_clusters``, or ``slstm_scan_bwd_max_clusters``),
+    cached by shape."""
+    key = (index, x_code, w_code, b, hh, uh, backward)
     got = _PLANS.get(key)
     if got is None:
-        lib = build.library(NAME)
+        if backward:
+            lib = build.library(BWD_NAME)
 
-        def resident(cluster: int, groups: int, halves: int, smem: int) -> int:
-            return lib.slstm_scan_max_clusters(index, x_code, w_code, b, hh, uh, cluster, groups,
-                                               halves, smem)
+            def resident(cluster: int, groups: int, halves: int, smem: int) -> int:
+                return lib.slstm_scan_bwd_max_clusters(index, w_code, b, hh, uh, cluster, groups,
+                                                       halves, smem)
+        else:
+            lib = build.library(NAME)
 
-        got = _PLANS[key] = plan(b, hh, uh, 2 if w_code else 4, resident)
+            def resident(cluster: int, groups: int, halves: int, smem: int) -> int:
+                return lib.slstm_scan_max_clusters(index, x_code, w_code, b, hh, uh, cluster,
+                                                   groups, halves, smem)
+
+        got = _PLANS[key] = plan(b, hh, uh, 2 if w_code else 4, resident, backward)
     return got
 
 
@@ -211,35 +241,101 @@ def _check(xproj, wr, bias) -> None:
         raise TypeError(f"bias has dtype {bias.dtype}, wr {wr.dtype}")
 
 
-def _launch(xproj, wr, bias) -> torch.Tensor:
+def _check_bwd(xproj, wr, pre, states, hs, dhs) -> None:
+    """Refuse what the backward kernel does not take (after :func:`_check`)."""
+    b, s, g4 = xproj.shape
+    hh, uh, _ = wr.shape
+    want = {"pre": (pre, (b, s, g4))}
+    want.update({name: (t, (b, s, hh, uh)) for name, t in
+                 zip(("c", "n", "m", "hs", "dhs"), (*states, hs, dhs))})
+    if len(states) != 3:
+        raise ValueError(f"states must be (c, n, m), got {len(states)} tensors")
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected torch.float32")
+        if t.device != xproj.device:
+            raise ValueError(f"{name} lies on {t.device}, xproj on {xproj.device}")
+    for name in ("pre", "c", "n", "m"):
+        residuals.require_written(name, want[name][0])
+
+
+def _index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _launch(xproj, wr, bias, keep: bool = False):
+    """``hs``, and with ``keep`` the residuals ``(hs, pre, (c, n, m))``."""
     b, s, _ = xproj.shape
     hh, uh, _ = wr.shape
     dev = xproj.device
     xproj, wr, bias = xproj.contiguous(), wr.contiguous(), bias.contiguous()
     hs = torch.empty((b, s, hh, uh), dtype=torch.float32, device=dev)
+    res = None
+    if keep:
+        res = (torch.empty((b, s, 4 * hh * uh), dtype=torch.float32, device=dev),
+               tuple(torch.empty_like(hs) for _ in range(3)))
     if hs.numel() == 0:
-        return hs
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+        return (hs, *res) if keep else hs
+    index = _index(dev)
     x_code, w_code = _DTYPE_CODES[xproj.dtype], _DTYPE_CODES[wr.dtype]
     p = card_plan(index, x_code, w_code, b, hh, uh)
+    ptrs = (res[0].data_ptr(), *(t.data_ptr() for t in res[1])) if keep else (None,) * 4
     err = build.library(NAME).slstm_scan_launch(
         index, build.stream_handle(dev), x_code, w_code, xproj.data_ptr(), wr.data_ptr(),
-        bias.data_ptr(), hs.data_ptr(), b, s, hh, uh, p.cluster, p.groups, p.halves, p.smem)
+        bias.data_ptr(), hs.data_ptr(), b, s, hh, uh, p.cluster, p.groups, p.halves, p.smem,
+        *ptrs)
     build.check(err, NAME)
     LAUNCH_COUNTS[NAME] += 1
+    if keep:
+        LAUNCH_COUNTS[RESIDUALS_COUNTER] += 1
+        return (hs, *res)
     return hs
 
 
+def _launch_bwd(wr, pre, states, dhs) -> torch.Tensor:
+    """``dpre`` (B, S, 4d) float32 from the backward kernel."""
+    b, s, g4 = pre.shape
+    hh, uh, _ = wr.shape
+    dev = pre.device
+    wr, pre, dhs = wr.contiguous(), pre.contiguous(), dhs.contiguous()
+    c, n, m = (t.contiguous() for t in states)
+    dpre = torch.empty((b, s, g4), dtype=torch.float32, device=dev)
+    if dpre.numel() == 0:
+        return dpre
+    index = _index(dev)
+    w_code = _DTYPE_CODES[wr.dtype]
+    p = card_plan(index, 0, w_code, b, hh, uh, backward=True)
+    err = build.library(BWD_NAME).slstm_scan_bwd_launch(
+        index, build.stream_handle(dev), w_code, wr.data_ptr(), pre.data_ptr(), c.data_ptr(),
+        n.data_ptr(), m.data_ptr(), dhs.data_ptr(), dpre.data_ptr(), b, s, hh, uh, p.cluster,
+        p.groups, p.halves, p.smem)
+    build.check(err, BWD_NAME)
+    LAUNCH_COUNTS[BWD_NAME] += 1
+    return dpre
+
+
 class _SlstmScan(torch.autograd.Function):
-    """The kernel under autograd on the card; its backward raises."""
+    """The kernel under autograd on the card: the forward keeps its
+    residuals (placeholders under ``residuals.skipped``), the backward is
+    :func:`slstm_scan_bwd`."""
 
     @staticmethod
     def forward(ctx, xproj, wr, bias):
-        return _launch(xproj, wr, bias)
+        if residuals.wanted():
+            hs, pre, states = _launch(xproj, wr, bias, keep=True)
+        else:
+            hs = _launch(xproj, wr, bias)
+            pre = residuals.placeholder((*xproj.shape[:2], xproj.shape[2]), xproj.device)
+            states = tuple(residuals.placeholder(hs.shape, hs.device) for _ in range(3))
+        ctx.save_for_backward(xproj, wr, bias, pre, *states, hs)
+        return hs
 
     @staticmethod
     def backward(ctx, dhs):
-        raise NotImplementedError(BACKWARD_WAITS)
+        xproj, wr, bias, pre, c, n, m, hs = ctx.saved_tensors
+        return slstm_scan_bwd(xproj, wr, bias, pre, (c, n, m), hs, dhs)
 
 
 def slstm_scan(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -256,3 +352,32 @@ def slstm_scan(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor) -> tor
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xproj, wr, bias)):
         return _SlstmScan.apply(xproj, wr, bias)
     return _launch(xproj, wr, bias)
+
+
+def slstm_scan_residuals(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor):
+    """``(hs, pre, (c, n, m))``: :func:`slstm_scan` with the residuals its
+    backward reads (``ref.slstm_scan_fwd_plain`` on the CPU, the forward
+    kernel writing them on the card)."""
+    _check(xproj, wr, bias)
+    if xproj.device.type == "cpu":
+        return slstm_scan_fwd_plain(xproj, wr, bias)
+    return _launch(xproj, wr, bias, keep=True)
+
+
+def slstm_scan_bwd(xproj: torch.Tensor, wr: torch.Tensor, bias: torch.Tensor,
+                   pre: torch.Tensor, states, hs: torch.Tensor, dhs: torch.Tensor):
+    """``(dxproj, dwr, dbias)`` in their inputs' dtypes: the gradient of
+    :func:`slstm_scan` for ``dhs`` (B, S, H, uh) float32, from the forward's
+    ``pre``, ``states`` (c, n, m) and ``hs`` (:func:`slstm_scan_residuals`).
+    A CPU tensor goes to ``ref.slstm_scan_bwd_plain``; a CUDA tensor to the
+    backward kernel for ``dpre``, then ``ref.slstm_weight_grads``: ``dwr``
+    one float32 matrix product a head, ``dbias`` one sum."""
+    _check(xproj, wr, bias)
+    _check_bwd(xproj, wr, pre, tuple(states), hs, dhs)
+    if xproj.device.type == "cpu":
+        return slstm_scan_bwd_plain(xproj, wr, bias, pre, states, hs, dhs)
+    b, s, _ = xproj.shape
+    hh, uh, _ = wr.shape
+    dpre = _launch_bwd(wr, pre, tuple(states), dhs)
+    dwr, dbias = slstm_weight_grads(hs, dpre.view(b, s, hh, 4 * uh))
+    return dpre.to(xproj.dtype), dwr.to(wr.dtype), dbias.to(bias.dtype)

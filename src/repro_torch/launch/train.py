@@ -23,10 +23,11 @@ for qwen3-moe's 30.1 B, against the card's 80 GB; they wait for the
 multi-card path (ROADMAP A7.6).
 
 The recurrent configs (``--arch xlstm-350m``, ``jamba-1.5-large-398b``)
-train at ``--smoke`` on the CPU, where autograd differentiates the scans'
-plain versions.  On the card their forward runs the selective-scan and
-sLSTM-scan kernels, whose backward kernels wait for ROADMAP A7.4b: a
-training step there raises ``NotImplementedError`` in the backward.
+train on the card through the selective-scan and sLSTM-scan kernels,
+forward and backward (``--arch xlstm-350m --no-smoke`` at full width and
+depth; jamba-1.5-large's full state does not fit one card), and at
+``--smoke`` on the CPU, where autograd differentiates the scans' plain
+versions.
 """
 from __future__ import annotations
 

@@ -19,12 +19,14 @@ reference's ``jax.checkpoint`` around its scan body).  The port has the
 mixers ``attn``/``swa``, ``mamba``, ``mlstm`` and ``slstm`` (``ssm.py``) and
 the FFNs ``mlp``, ``moe`` and ``none``; the vision front end and
 encoder-decoder configs raise ``NotImplementedError`` (ROADMAP A7).  On the
-card a gradient through the mamba or sLSTM scan kernel raises (its backward
-waits for ROADMAP A7.4b).  The reference's ``parallel/context.py`` sharding
-constraints are identities on one card and are not called.
+card the mamba and sLSTM scans' gradients run their backward kernels; under
+``remat="full"`` the first forward of a period writes none of their
+residuals, the recomputation does.  The reference's ``parallel/context.py``
+sharding constraints are identities on one card and are not called.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import residuals
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import Block, ModelConfig
@@ -146,6 +149,12 @@ def _period(cfg: ModelConfig, pp, h: torch.Tensor, aux: torch.Tensor):
     return h, aux
 
 
+def _remat_contexts():
+    """The first forward of a recomputed period writes no scan residuals
+    (``kernels/residuals.py``): the recomputation's are the ones used."""
+    return residuals.skipped(), contextlib.nullcontext()
+
+
 def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
     """``fn`` recomputed in the backward under ``remat="full"`` (its
     activations are not kept); as it is under ``"none"``."""
@@ -154,7 +163,7 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
     if cfg.remat == "dots":
         raise _unsupported(f"{cfg.name}: remat='dots' (a policy that keeps the matmul "
                            f"outputs)")
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts)
 
 
 def _period_slices(tree, n: int):

@@ -4,11 +4,14 @@ full-sequence form for prefill and training and a recurrent form that
 decodes one position against an O(1) state.
 
 The names, layouts and rounding points are the reference's.  The two
-sequential scans run hand-written kernels on the card:
-:func:`mamba_train`'s selective scan with the softplus of dt before it and
-the skip term and gate after it (``kernels/selective_scan.py``) and
-:func:`slstm_train`'s recurrence (``kernels/slstm_scan.py``); on a CPU
-tensor each runs its plain version (``kernels/ref.py``), which autograd
+sequential scans run hand-written kernels on the card, forward and
+backward: :func:`mamba_train`'s selective scan with the softplus of dt
+before it and the skip term and gate after it
+(``kernels/selective_scan.py``, ``csrc/selective_scan.cu`` and
+``csrc/selective_scan_bwd.cu``) and :func:`slstm_train`'s recurrence
+(``kernels/slstm_scan.py``, ``csrc/slstm_scan.cu`` and
+``csrc/slstm_scan_bwd.cu``, the reference's custom VJP); on a CPU tensor
+each runs its plain version (``kernels/ref.py``), which autograd
 differentiates.  The gates' products, the convolution and the
 projections around them are torch ops, as they are einsums around the
 scans in the reference.  The mLSTM's chunkwise form is matrix products over
@@ -119,7 +122,8 @@ def mamba_train(p, cfg: ModelConfig, x: torch.Tensor, chunk: int = 1024) -> torc
     then :func:`selective_scan_gated` (the softplus of dt, the reference's
     chunked scans, the skip term ``dd x1`` and the ``silu(z)`` gate: one
     kernel on the card, the plain ops with the scan's ``chunk`` on the CPU)
-    and the output projection."""
+    and the output projection.  Its gradient on the card runs the scan's
+    backward kernel from the states the forward saved."""
     y = selective_scan_gated(*mamba_gated_inputs(p, cfg, x), x.dtype, chunk=chunk)
     return x + torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
 
@@ -338,7 +342,9 @@ def slstm_scan_input(p, x: torch.Tensor) -> torch.Tensor:
 def slstm_train(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The sLSTM over a full sequence, x (B, S, d): the input projection,
     :func:`slstm_scan` (the kernel on the card, the per-step plain loop on
-    the CPU), the hidden states rounded to the dtype and projected out."""
+    the CPU), the hidden states rounded to the dtype and projected out.
+    Its gradient on the card runs the reverse-scan kernel (the reference's
+    ``_slstm_scan_bwd``) from the forward's residuals."""
     b, s, d = x.shape
     dt_ = x.dtype
     xproj = slstm_scan_input(p, x)  # (B, S, 4d)

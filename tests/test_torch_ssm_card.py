@@ -2,7 +2,8 @@
 ``slstm_scan`` against their plain versions (``kernels/ref.py``) on CUDA
 tensors at small shapes, at a ragged sequence length and at one full-width
 layer of each config (jamba-1.5-large's mamba, xlstm-350m's sLSTM), equal
-bits on reruns, and a backward through either kernel raising; the gated
+bits on reruns; the backward kernels against their plain backwards at the
+same shapes and widths, through autograd and under remat; the gated
 ``selective_scan_gated`` against the same ops around the scan-only kernel,
 bit for bit (the kernel rounds the softplus, skip, gate and cast as torch's
 CUDA ops do: ``expf``, ``log1pf`` and IEEE division, no contraction).  Needs an
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import measure, ref
+from repro_torch.kernels import selective_scan as SEL
 from repro_torch.kernels import slstm_scan as SS
 from repro_torch.kernels.selective_scan import selective_scan, selective_scan_gated
 from repro_torch.kernels.slstm_scan import slstm_scan
@@ -35,6 +37,12 @@ from repro_torch.models.params import init_params
 from repro_torch.runtime.guards import LAUNCH_COUNTS
 
 SCAN_TOL = 1e-5
+# The backward kernels against their plain backwards, float32, of each
+# gradient's largest magnitude (chip_smoke.py's TRAIN_TOL["float32"]): the
+# sums over channels, positions, rows and gate columns run in other orders
+# than torch's, and the sLSTM's recurrent product's order reaches every
+# earlier position's gradient.
+SCAN_GRAD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -234,29 +242,233 @@ def test_slstm_scan_at_xlstm_width(cuda):
     assert torch.equal(got, slstm_scan(xproj, p["wr"], p["bias"]))
 
 
+def _grad_close(got, want, what=""):
+    """A gradient against its plain version: float32 within SCAN_GRAD_TOL
+    of the gradient's largest magnitude; a bfloat16 one (dx1, dz, dxproj
+    of bf16 inputs, rounded once from float32) also within one bf16 ulp of
+    each element, 2^-7 of it, as two float32 values that close may round to
+    neighbouring bf16 values."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all()), what
+    scale = float(w.abs().max())
+    slack = SCAN_GRAD_TOL * scale + (2.0 ** -7 * w.abs() if got.dtype == torch.bfloat16 else 0)
+    err = (g - w).abs() - slack
+    assert not bool((err > 0).any()), (what, float((g - w).abs().max()), scale)
+
+
+SLSTM_BWD_SHAPES = [(2, 20, 4, 16), (3, 37, 2, 8), (1, 1, 1, 1), (2, 9, 3, 40), (2, 33, 2, 70),
+                    (5, 40, 4, 256)]
+
+
 @pytest.mark.cuda
-def test_a_gradient_through_either_kernel_raises(cuda):
-    """A CUDA tensor that needs a gradient runs the kernel under autograd,
-    and the backward raises, naming ROADMAP A7.4b: no plain fallback."""
+@pytest.mark.parametrize("b,s,hh,uh", SLSTM_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_scan_bwd_kernel_matches_plain(cuda, b, s, hh, uh, dtype):
+    """The backward kernel (from the forward kernel's residuals) against
+    the plain backward (from the plain forward's), ragged S, uh off the
+    cluster's division (70 over 4 CTAs), 5 rows in uneven groups; the
+    residuals against the plain forward's, hs with residuals the same bits
+    as without; one counted launch a call; equal bits on a rerun."""
+    xproj, wr, bias = _slstm_inputs(b, s, hh, uh, dtype, 21, cuda)
+    hs, pre, states = SS.slstm_scan_residuals(xproj, wr, bias)
+    assert torch.equal(hs, slstm_scan(xproj, wr, bias))
+    p_hs, p_pre, p_states = ref.slstm_scan_fwd_plain(xproj, wr, bias)
+    for got, want in zip((hs, pre, *states[:2]), (p_hs, p_pre, *p_states[:2])):
+        _close(got, want)
+    dhs = torch.randn(hs.shape, generator=torch.Generator(device=cuda).manual_seed(22),
+                      device=cuda)
+    before = LAUNCH_COUNTS["slstm_scan_bwd"]
+    got = SS.slstm_scan_bwd(xproj, wr, bias, pre, states, hs, dhs)
+    assert LAUNCH_COUNTS["slstm_scan_bwd"] == before + 1
+    want = ref.slstm_scan_bwd_plain(xproj, wr, bias, p_pre, p_states, p_hs, dhs)
+    for name, g, w in zip(("dxproj", "dwr", "dbias"), got, want):
+        _grad_close(g, w, name)
+    again = SS.slstm_scan_bwd(xproj, wr, bias, pre, states, hs, dhs)
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
+
+
+SEL_BWD_SHAPES = [(2, 40, 128, 4), (3, 37, 200, 16), (1, 1, 64, 1), (2, 70, 96, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n", SEL_BWD_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, b, s, di, n, x_dtype):
+    """The scan-only backward: the saved states equal
+    ``ref.selective_scan_states`` bit for bit and ys is the same bits with
+    them; the kernel's gradients against the plain backward's; one counted
+    call; equal bits on a rerun.  Ragged S, di off the 128-channel tile, n
+    1 to 16 (n 1 and 7 take the plain loads, not the bulk copies)."""
+    x1, dt, a, bmat, cmat = _mamba_inputs(b, s, di, n, x_dtype, 23, cuda)
+    ys, hsave = SEL.selective_scan_states_of(x1, dt, a, bmat, cmat)
+    assert torch.equal(ys, selective_scan(x1, dt, a, bmat, cmat))
+    assert torch.equal(hsave, ref.selective_scan_states(x1, dt, a, bmat))
+    dys = torch.randn(ys.shape, generator=torch.Generator(device=cuda).manual_seed(24),
+                      device=cuda)
+    before = LAUNCH_COUNTS["selective_scan_bwd"]
+    got = SEL.selective_scan_bwd(x1, dt, a, bmat, cmat, dys, hsave)
+    assert LAUNCH_COUNTS["selective_scan_bwd"] == before + 1
+    want = ref.selective_scan_bwd_plain(x1, dt, a, bmat, cmat, dys)
+    for name, g, w in zip(("dx1", "ddt", "da", "dbmat", "dcmat"), got, want):
+        _grad_close(g, w, name)
+    again = SEL.selective_scan_bwd(x1, dt, a, bmat, cmat, dys, hsave)
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
+
+
+def _gated_states(args):
+    """The gated forward's output and saved states for selective_scan_gated's
+    arguments (x1, z, dt_raw, dt_bias, a, bmat, cmat, dd)."""
+    x1, z, dt_raw, dt_bias, a, bmat, cmat, dd = args
+    return SEL.selective_scan_states_of(x1, dt_raw, a, bmat, cmat, z, dt_bias, dd)
+
+
+GATED_GRADS = ("dx1", "dz", "ddt_raw", "ddt_bias", "da", "dbmat", "dcmat", "ddd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,di,n", SEL_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_gated_bwd_kernel_matches_plain(cuda, b, s, di, n, dtype):
+    """The gated backward (the epilogue and the softplus differentiated in
+    the kernel; z a view of the in_proj output) against the plain
+    backward's eight gradients; the gated output is the same bits with the
+    states saved; one counted call; equal bits on a rerun."""
+    args = _gated_inputs(b, s, di, n, dtype, 25, cuda)
+    out, hsave = _gated_states(args)
+    assert torch.equal(out, selective_scan_gated(*args))
+    dout = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(26),
+                       device=cuda).to(dtype)
+    before = LAUNCH_COUNTS["selective_scan_bwd"]
+    got = SEL.selective_scan_gated_bwd(*args, dout, hsave)
+    assert LAUNCH_COUNTS["selective_scan_bwd"] == before + 1
+    want = ref.selective_scan_gated_bwd_plain(*args, dout)
+    for name, g, w in zip(GATED_GRADS, got, want):
+        _grad_close(g, w, name)
+    again = SEL.selective_scan_gated_bwd(*args, dout, hsave)
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_backward_kernels_at_full_width(cuda):
+    """One xlstm-350m sLSTM layer (4 heads of 256 units, bf16 weights at the
+    model's initial scales, 2 rows of 300 positions) and one
+    jamba-1.5-large mamba layer (di 16,384, n 16, 1 row of 300, through
+    mamba_train's own inputs): each backward kernel against its plain
+    backward."""
+    cfg = get_config("xlstm-350m")
+    p = init_params(ssm.slstm_params(cfg), torch.bfloat16, seed=5, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((2, 300, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+    xproj = ssm.slstm_scan_input(p, x)
+    hs, pre, states = SS.slstm_scan_residuals(xproj, p["wr"], p["bias"])
+    dhs = torch.randn(hs.shape, generator=gen, device=cuda)
+    got = SS.slstm_scan_bwd(xproj, p["wr"], p["bias"], pre, states, hs, dhs)
+    p_hs, p_pre, p_states = ref.slstm_scan_fwd_plain(xproj, p["wr"], p["bias"])
+    want = ref.slstm_scan_bwd_plain(xproj, p["wr"], p["bias"], p_pre, p_states, p_hs, dhs)
+    for name, g, w in zip(("dxproj", "dwr", "dbias"), got, want):
+        _grad_close(g, w, name)
+    cfg = get_config("jamba-1.5-large-398b")
+    p = init_params(ssm.mamba_params(cfg), torch.bfloat16, seed=3, device=cuda)
+    p = {**p, "dt_bias": p["dt_bias"] + 0.1, "dd": p["dd"] * 0.5}
+    x = torch.randn((1, 300, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+    args = ssm.mamba_gated_inputs(p, cfg, x)
+    out, hsave = _gated_states(args)
+    dout = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = SEL.selective_scan_gated_bwd(*args, dout, hsave)
+    want = ref.selective_scan_gated_bwd_plain(*args, dout)
+    for name, g, w in zip(GATED_GRADS, got, want):
+        _grad_close(g, w, name)
+
+
+@pytest.mark.cuda
+def test_a_gradient_through_either_kernel_runs_its_backward_kernel(cuda):
+    """A CUDA tensor that needs a gradient runs the kernel under autograd:
+    the forward writes its residuals, the backward launches the backward
+    kernel once, and the gradients are the explicit backward's bits."""
     x1, dt, a, bmat, cmat = _mamba_inputs(1, 8, 32, 4, torch.float32, 7, cuda)
     dt.requires_grad_()
-    before = LAUNCH_COUNTS["selective_scan"]
+    before = {k: LAUNCH_COUNTS[k] for k in ("selective_scan", SEL.RESIDUALS_COUNTER,
+                                           "selective_scan_bwd")}
     ys = selective_scan(x1, dt, a, bmat, cmat)
-    assert LAUNCH_COUNTS["selective_scan"] == before + 1 and ys.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.4b"):
-        ys.sum().backward()
+    dys = torch.randn_like(ys)
+    (g,) = torch.autograd.grad(ys, dt, dys)
+    assert {k: LAUNCH_COUNTS[k] - v for k, v in before.items()} == {
+        "selective_scan": 1, SEL.RESIDUALS_COUNTER: 1, "selective_scan_bwd": 1}
+    _, hsave = SEL.selective_scan_states_of(x1, dt.detach(), a, bmat, cmat)
+    assert torch.equal(g, SEL.selective_scan_bwd(x1, dt.detach(), a, bmat, cmat, dys,
+                                                 hsave)[1])
     args = _gated_inputs(1, 8, 32, 4, torch.bfloat16, 7, cuda)
     args[3].requires_grad_()  # dt_bias
-    before = LAUNCH_COUNTS["selective_scan"]
     out = selective_scan_gated(*args)
-    assert LAUNCH_COUNTS["selective_scan"] == before + 1 and out.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.4b"):
-        out.float().sum().backward()
+    dout = torch.randn_like(out)
+    (g,) = torch.autograd.grad(out, args[3], dout)
+    plain = [t.detach() for t in args]
+    _, hsave = _gated_states(plain)
+    assert torch.equal(g, SEL.selective_scan_gated_bwd(*plain, dout, hsave)[3])
     xproj, wr, bias = _slstm_inputs(1, 8, 2, 8, torch.float32, 8, cuda)
     wr.requires_grad_()
+    before = LAUNCH_COUNTS["slstm_scan_bwd"]
     hs = slstm_scan(xproj, wr, bias)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.4b"):
-        hs.sum().backward()
+    dhs = torch.randn_like(hs)
+    (g,) = torch.autograd.grad(hs, wr, dhs)
+    assert LAUNCH_COUNTS["slstm_scan_bwd"] == before + 1
+    w = wr.detach()
+    _, pre, states = SS.slstm_scan_residuals(xproj, w, bias)
+    assert torch.equal(g, SS.slstm_scan_bwd(xproj, w, bias, pre, states, hs.detach(), dhs)[1])
+
+
+@pytest.mark.cuda
+def test_a_backward_from_a_forward_that_skipped_its_residuals_raises(cuda):
+    """Outside a checkpoint, a forward under ``residuals.skipped`` saves
+    placeholders; the backward refuses them rather than read zeros."""
+    from repro_torch.kernels import residuals
+
+    x1, dt, a, bmat, cmat = _mamba_inputs(1, 8, 32, 4, torch.float32, 7, cuda)
+    dt.requires_grad_()
+    xproj, wr, bias = _slstm_inputs(1, 8, 2, 8, torch.float32, 8, cuda)
+    wr.requires_grad_()
+    with residuals.skipped():
+        ys = selective_scan(x1, dt, a, bmat, cmat)
+        hs = slstm_scan(xproj, wr, bias)
+    before = {k: LAUNCH_COUNTS[k] for k in ("selective_scan_bwd", "slstm_scan_bwd")}
+    with pytest.raises(ValueError, match="placeholder"):
+        torch.autograd.grad(ys, dt, torch.ones_like(ys))
+    with pytest.raises(ValueError, match="placeholder"):
+        torch.autograd.grad(hs, wr, torch.ones_like(hs))
+    assert {k: LAUNCH_COUNTS[k] for k in before} == before
+
+
+@pytest.mark.cuda
+def test_remat_writes_residuals_only_in_the_recomputation(cuda):
+    """xlstm-350m's smoke config and a one-block (mamba, MLP) cut of
+    jamba-1.5-large's under ``remat="full"``: a loss gradient runs each
+    scan's forward twice (the checkpointed forward, the recomputation),
+    writes residuals once (the recomputation's), runs each backward kernel
+    once, and gives the bits of ``remat="none"``."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+
+    jamba = get_config("jamba-1.5-large-398b", smoke=True)
+    cut = dataclasses.replace(jamba, n_layers=1, n_periods=1, pattern=(("mamba", "mlp"),))
+    for cfg, scan in ((get_config("xlstm-350m", smoke=True), SS), (cut, SEL)):
+        params = lm.concrete_params(cfg, seed=3, device=cuda)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(4))
+        layers = sum(1 for m, _ in cfg.all_blocks if m in ("mamba", "slstm"))
+        grads = {}
+        for remat in ("full", "none"):
+            c = dataclasses.replace(cfg, remat=remat)
+            flat = [x.detach().requires_grad_() for x in tree_leaves(params)]
+            names = (scan.NAME, scan.RESIDUALS_COUNTER, scan.BWD_NAME)
+            before = {k: LAUNCH_COUNTS[k] for k in names}
+            loss = lm.loss_fn(tree_unflatten(params, flat, dicts=True), c, {"tokens": tokens})
+            grads[remat] = torch.autograd.grad(loss, flat)
+            got = [LAUNCH_COUNTS[k] - before[k] for k in names]
+            assert got == [layers * (2 if remat == "full" else 1), layers, layers], (remat, got)
+        assert all(torch.equal(g, h) for g, h in zip(grads["full"], grads["none"]))
 
 
 @pytest.mark.cuda

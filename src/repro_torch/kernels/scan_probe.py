@@ -237,26 +237,28 @@ def all_patches() -> Dict[str, str]:
     return out
 
 
-def _build(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+def _build(sources: Dict[str, str], kernel: str = "slstm_scan"):
+    """Each source built in parallel with the kernels' flags, bound with
+    ``kernel``'s signatures: ``(libraries, compiler logs)`` by name."""
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for i, (name, text) in enumerate(sources.items()):
-        cu, so = PROBE_DIR / f"s{i}.cu", PROBE_DIR / f"s{i}.so"
+        cu, so = PROBE_DIR / f"{kernel}{i}.cu", PROBE_DIR / f"{kernel}{i}.so"
         cu.write_text(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)]
         jobs.append((name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
-    libs = {}
+    libs, logs = {}, {}
     for name, so, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise build.KernelBuildError(f"{name}:\n{out}")
         lib = ctypes.CDLL(str(so))
-        for fn, (restype, argtypes) in build.SIGNATURES["slstm_scan"].items():
+        for fn, (restype, argtypes) in build.SIGNATURES[kernel].items():
             f = getattr(lib, fn)
             f.restype, f.argtypes = restype, argtypes
-        libs[name] = lib
-    return libs
+        libs[name], logs[name] = lib, out
+    return libs, logs
 
 
 def inputs(torch, shape, seed: int = 9):
@@ -837,13 +839,405 @@ def bwd_paired(trees: List[Path], rounds: int = 2) -> Dict[str, Dict[str, list]]
     return out
 
 
+# ---- the sLSTM backward's split ---------------------------------------------
+
+BWD_SOURCE = build.CSRC / "slstm_scan_bwd.cu"
+# --bwd --split: xlstm-350m's sLSTM layer at its training microbatch and at
+# the forward row's 16 rows, bf16.
+BWD_SPLIT_SHAPES = {"4 rows": (4, 2048, 4, 256), "16 rows": (16, 2048, 4, 256)}
+# The all-gather design (each CTA's dpre to every peer, dh from the whole of
+# dpre_{t+1} over wr's rows transposed) is split by its own anchors, so
+# ``--bwd --split --tree DIR`` splits a checkout that still has it.
+_ALLGATHER = "for (int k = 0; k < cluster; ++k) st_async(map_rank(dst, k), v, map_rank(bar, k));"
+BWD_SECTIONS_ALLGATHER = tuple((name, 15) for name in (
+    "loads and wait for dpre", "wait for the turn", "product", "barrier", "reduction and cell",
+    "barrier", "all-gather"))
+
+
+def _allgather_no_exchange(src: str) -> str:
+    """The all-gather design with each CTA sending its dpre to itself only."""
+    src = _sub(src, "  const uint32_t bytes = (uint32_t)rows * g4 * 4;",
+               "  const uint32_t bytes = (uint32_t)rows * 4 * n * 4;")
+    if src.count(_ALLGATHER) != 2:
+        raise ValueError("scan_probe: the backward's sends moved")
+    return src.replace(_ALLGATHER, _ALLGATHER.replace("int k = 0; k < cluster; ++k",
+                                                      "int k = rank; k == rank; k = cluster"))
+
+
+_AG_CELL_HEAD = "      const float zt = pr[0], itv = pr[1], ft = pr[2], ot = pr[3];\n"
+_AG_CELL_TAIL = "      dm = dlm;\n"
+
+
+def _allgather_no_cell(src: str) -> str:
+    """The all-gather design with dpre a scaled sum of dh and pre."""
+    if src.count(_AG_CELL_HEAD) != 1 or src.count(_AG_CELL_TAIL) != 1:
+        raise ValueError("scan_probe: the backward cell's body moved")
+    return (src[:src.index(_AG_CELL_HEAD)]
+            + "      (void)c1; (void)n1; (void)m1; (void)c0; (void)n0; (void)m0;\n"
+            + "      const float d_z = __fmul_rn(dh, 1e-3f), d_i = __fadd_rn(pr[1], dh), "
+              "d_f = __fmul_rn(pr[2], dh), d_o = __fsub_rn(pr[3], dh);\n"
+            + src[src.index(_AG_CELL_TAIL) + len(_AG_CELL_TAIL):])
+
+
+def _allgather_instrument(src: str) -> str:
+    """The all-gather design's clock64 sections (BWD_SECTIONS_ALLGATHER)."""
+    src = _probe_header(src, '#include "slstm_scan.cu"\n')
+    src = _probe_start(src, "  cluster_sync();  // every CTA's barriers are initialised, its dpre "
+                            "zeroed and wr copied\n")
+    marks = (("      if (tid == 0 && it + 2 < seq) mbar_expect_tx(bar, bytes);  // dpre of "
+              "position t - 1\n    }\n", 0),
+             ("    if (turns) named_bar_sync(3 + half, 2 * half_threads);  // the other half's "
+              "product is done\n", 1),
+             ("        out_s[(cr * 4 + q) * n + ci] = dp[q];\n      }\n    }\n", 4),
+             ("      named_bar_sync(1 + half, half_threads);  // out is whole; the partial sums "
+              "are read\n", 5))
+    for anchor, i in marks:
+        src = _sub(src, anchor, anchor + f"    MARK({i});\n")
+    anchor = "    named_bar_sync(1 + half, half_threads);  // the partial sums are whole\n"
+    src = _sub(src, anchor, "    MARK(2);\n" + anchor + "    MARK(3);\n")
+    return _probe_end(src, 6)
+
+
+def _probe_header(src: str, anchor: str) -> str:
+    """``g_probe`` (16 slots) and ``MARK`` after ``anchor``."""
+    return _sub(src, anchor, anchor + "__device__ unsigned long long g_probe[16];\n"
+                "#define MARK(i) { long long t_ = clock64(); probe[i] += t_ - t_prev; "
+                "t_prev = t_; }\n")
+
+
+def _probe_start(src: str, anchor: str) -> str:
+    """A thread's sums and clock after ``anchor``."""
+    return _sub(src, anchor, anchor + "  unsigned long long probe[16] = {0};\n"
+                                      "  long long t_prev = clock64();\n")
+
+
+def _probe_end(src: str, last: int) -> str:
+    """The loop's last mark (``MARK(last)``), a count of positions in slot 15
+    and thread 0 of CTA (0, 0) writing ``g_probe``; ``probe_read``."""
+    src = _sub(src, _LOOP_END,
+               f"    }}\n    MARK({last});\n    probe[15] += 1;\n  }}\n"
+               "  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)\n"
+               "    for (int i = 0; i < 16; ++i) g_probe[i] = probe[i];\n"
+               "  cluster_sync();  // no CTA leaves")
+    return src + ('\nextern "C" int probe_read(void* out) {\n'
+                  "  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n")
+
+
+# The reduce-scatter design (csrc/slstm_scan_bwd.cu as it stands): its
+# sections by (name, the slot counting their positions): the product
+# threads' (thread 0 of CTA (0, 0)) and the cell threads' (its first cell
+# thread), each a loop of its own.
+BWD_SECTIONS = (("product threads: wait for dpre_t", 15), ("wait for the turn", 15),
+                ("product", 15), ("barrier", 15), ("reduce-scatter", 15),
+                ("cell threads: wait for dh's partials", 14), ("dh's sum and the carried cell", 14),
+                ("loads and carry-free terms, under the product", 14))
+_FREE_FIRST = ("      f[k] = carry_free(a[k], seq > 1 ? b[k].c : 0.f, seq > 1 ? b[k].n : 0.f,\n"
+               "                        seq > 1 ? b[k].m : -1e30f);\n")
+_FREE_NEXT = ("        if (has[k]) f[k] = carry_free(a[k], t > 1 ? b[k].c : 0.f, t > 1 ? b[k].n : "
+              "0.f,\n                                      t > 1 ? b[k].m : -1e30f);\n")
+_AHEAD = ("        a[k] = b[k];\n        b[k] = c[k];\n        c[k] = Res{};\n"
+          "        if (has[k] && t >= 3) c[k].load(pre, cs, ns, ms, dhs, prow[k] + (t - 3) * "
+          "x_step,\n                                        srow[k] + (t - 3) * s_step, uh);\n")
+
+
+def bwd_no_product(src: str) -> str:
+    """The product is skipped: every partial sum is 0."""
+    return _sub(src, "const int rounds = L.slice / 4;", "const int rounds = 0;")
+
+
+def bwd_no_exchange(src: str) -> str:
+    """Each CTA sends only its own units' partial dh (to itself) and waits
+    for those bytes: nothing crosses CTAs."""
+    src = _sub(src, "  const uint32_t bytes = (uint32_t)rows * cluster * n * 4;",
+               "  const uint32_t bytes = (uint32_t)rows * n * 4;")
+    return _sub(src, "owner_of[j] = er < rows ? ((u + 1) * cluster - 1) / uh : -1;",
+                "owner_of[j] = er < rows && ((u + 1) * cluster - 1) / uh == rank ? rank : -1;")
+
+
+def bwd_no_cell(src: str) -> str:
+    """dpre is a scaled sum of dh and the pre-activations: no carry-free
+    terms (no exp, log1p, tanh or division) and no carried cell."""
+    src = _sub(_sub(src, _FREE_FIRST, ""), _FREE_NEXT, "")
+    return _sub(src, "        carried(f[k], dh, dc[k], dn[k], dm[k], dp);\n",
+                "        dp[0] = __fmul_rn(dh, 1e-3f), dp[1] = __fadd_rn(a[k].pr[1], dh);\n"
+                "        dp[2] = __fmul_rn(a[k].pr[2], dh), dp[3] = __fsub_rn(a[k].pr[3], dh);\n")
+
+
+def bwd_no_prefetch(src: str) -> str:
+    """A position's residuals are loaded where its carry-free terms use them,
+    not three positions ahead."""
+    return _sub(src, _AHEAD,
+                "        if (has[k]) a[k].load(pre, cs, ns, ms, dhs, prow[k] + (t - 1) * x_step, "
+                "srow[k] + (t - 1) * s_step, uh);\n"
+                "        if (has[k] && t >= 2) b[k].load(pre, cs, ns, ms, dhs, prow[k] + (t - 2) * "
+                "x_step, srow[k] + (t - 2) * s_step, uh);\n")
+
+
+# A product chunk for the variants below: the kernel's Chunk with its
+# weights not loaded (MODE 1) or their bits taken as float32 unwidened
+# (MODE 2).
+_BWD_XCHUNK = r"""
+template <typename TW, int R, int MODE>
+struct XChunk {
+  W8<TW> w[4];
+  float4 h[R];
+  __device__ __forceinline__ void load(const TW* wq, int pitch, const float* hp, int uh8, int u) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (MODE == 1) w[j] = W8<TW>{};
+      else w[j].load(wq + (size_t)j * pitch);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) h[r] = *reinterpret_cast<const float4*>(hp + r * uh8 + u);
+  }
+  __device__ __forceinline__ void fma(float (&acc)[R][8]) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float wf[8];
+      if (MODE == 2) {
+        const uint32_t* q = reinterpret_cast<const uint32_t*>(&w[j]);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) wf[c] = __uint_as_float(q[c % (sizeof(W8<TW>) / 4)]);
+      } else {
+        w[j].widen(wf);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float hv = j == 0 ? h[r].x : j == 1 ? h[r].y : j == 2 ? h[r].z : h[r].w;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(hv, wf[c], acc[r][c]);
+      }
+    }
+  }
+};
+"""
+
+
+def _bwd_xchunk(mode: int) -> Callable[[str], str]:
+    def patch(src: str) -> str:
+        src = _sub(src, "namespace {\n\n// The backward's product",
+                   "namespace {\n" + _BWD_XCHUNK + "\n// The backward's product")
+        return _sub(src, "Chunk<TW, R> ca, cb;", f"XChunk<TW, R, {mode}> ca, cb;")
+    return patch
+
+
+def bwd_float32_weights(src: str) -> str:
+    """wr widened to float32 once, into shared memory twice the size: no
+    widening in the product, twice its shared-memory bytes (the launch
+    takes the larger shared memory itself)."""
+    for old, new in (
+            ("const BwdLayout L(uh, cluster, R, halves, (int)sizeof(TW));",
+             "const BwdLayout L(uh, cluster, R, halves, 4);"),
+            ("const TW* w_s = reinterpret_cast<const TW*>(smem + L.w_off);",
+             "const float* w_s = reinterpret_cast<const float*>(smem + L.w_off);"),
+            ("TW* dst = reinterpret_cast<TW*>(smem + L.w_off);",
+             "float* dst = reinterpret_cast<float*>(smem + L.w_off);"),
+            ("c < 4 * n && u < uh ? src[(size_t)u * g4 + (c / n) * uh + c % n] : zero<TW>();",
+             "c < 4 * n && u < uh ? widen(src[(size_t)u * g4 + (c / n) * uh + c % n]) : 0.f;"),
+            ("const TW* wq = w_s + ", "const float* wq = w_s + "),
+            ("Chunk<TW, R> ca, cb;", "Chunk<float, R> ca, cb;"),
+            ("  auto fn = slstm_bwd_cluster<TW, R>;\n",
+             "  auto fn = slstm_bwd_cluster<TW, R>;\n"
+             "  smem = bwd_smem_for(uh, cluster, R, halves, 4);\n"),
+            ("smem != bwd_smem_for(uh, cluster, rows, halves, w_dtype ? 2 : 4) ||", "false ||")):
+        src = _sub(src, old, new)
+    return src
+
+
+def bwd_instrument(src: str) -> str:
+    """A copy of the backward that sums clock64 deltas per section of a
+    position (BWD_SECTIONS) in each thread; thread 0 of CTA (0, 0) (a
+    product thread) and its first cell thread write theirs to ``g_probe``
+    (slots 15 and 14 count their positions)."""
+    src = _probe_header(src, '#include "slstm_scan.cu"\n')
+    src = _probe_start(src, "  cluster_sync();  // every CTA's barriers are initialised, its dpre "
+                            "zeroed and wr copied\n")
+    marks = (("      named_bar_sync(ready, P + Q);  // dpre_t is whole\n", 0),
+             ("      if (turns) named_bar_sync(3 + half, 2 * P);  // the other half's product is "
+              "done\n", 1),
+             ("        if (q == 0 && it + 2 < seq) mbar_expect_tx(bar, bytes);  // dh of position "
+              "t - 2\n      }\n", 5),
+             ("      named_bar_arrive(ready, P + Q);  // dpre_t is whole: the product threads go "
+              "on\n", 6))
+    for anchor, i in marks:
+        src = _sub(src, anchor, anchor + f"      MARK({i});\n")
+    anchor = "      named_bar_sync(summed, P);  // the partial sums are whole\n"
+    src = _sub(src, anchor, "      MARK(2);\n" + anchor + "      MARK(3);\n")
+    src = _sub(src, "      }\n    }\n  } else {\n",
+               "      }\n      MARK(4);\n      probe[15] += 1;\n    }\n  } else {\n")
+    src = _sub(src, "      }\n    }\n  }\n  cluster_sync();  // no CTA leaves",
+               "      }\n      MARK(7);\n      probe[14] += 1;\n    }\n  }\n"
+               "  if (blockIdx.x == 0 && blockIdx.y == 0 &&\n"
+               "      (threadIdx.x == 0 || threadIdx.x == P))\n"
+               "    for (int i = 0; i < 16; ++i)\n"
+               "      if (probe[i] != 0) g_probe[i] = probe[i];\n"
+               "  cluster_sync();  // no CTA leaves")
+    return src + ('\nextern "C" int probe_read(void* out) {\n'
+                  "  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n")
+
+
+def bwd_design(src: str) -> dict:
+    """The split of a backward source: its variants (name -> patch), its
+    instrumented copy's patch and its sections' names."""
+    if _AHEAD in src:
+        return dict(variants={"kernel": lambda s: s, "no product": bwd_no_product,
+                              "no exchange": bwd_no_exchange, "no cell math": bwd_no_cell,
+                              "no residual prefetch": bwd_no_prefetch,
+                              "no weight loads": _bwd_xchunk(1), "no widening": _bwd_xchunk(2),
+                              "float32 weights": bwd_float32_weights},
+                    instrument=bwd_instrument, sections=BWD_SECTIONS)
+    if _ALLGATHER in src:
+        return dict(variants={"kernel": lambda s: s, "no product": no_product,
+                              "no exchange": _allgather_no_exchange,
+                              "no cell math": _allgather_no_cell},
+                    instrument=_allgather_instrument, sections=BWD_SECTIONS_ALLGATHER)
+    raise ValueError("scan_probe: the backward source's design is not known here")
+
+
+def bwd_patches(src: str) -> Dict[str, str]:
+    """Every patched backward source by name (no build), and "sections"."""
+    design = bwd_design(src)
+    out = {name: patch(src) for name, patch in design["variants"].items()}
+    out["sections"] = design["instrument"](src)
+    return out
+
+
+def _registers(log: str, kernel: str) -> List[str]:
+    """``-Xptxas -v``'s registers and spills of each instance of ``kernel``."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            name = re.search(r"'(\S+)'", line)
+            info = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                            if "registers" in x or "spill" in x)
+            out.append(f"{name.group(1) if name else line.strip()}: {info}")
+    return out
+
+
+def bwd_split(torch) -> None:
+    """``--bwd --split``: this tree's backward source and its variants, each
+    timed by CUDA events (the dpre kernel alone, 5 calls after 2, two
+    rounds) at BWD_SPLIT_SHAPES, then the instrumented copy's clock64
+    sections a position in thread 0 of CTA (0, 0)."""
+    from repro_torch.kernels import slstm_scan as SS
+
+    src = (build.CSRC / "slstm_scan_bwd.cu").read_text()
+    design = bwd_design(src)
+    libs, logs = _build(bwd_patches(src), SS.BWD_NAME)
+    for line in _registers(logs["kernel"], "slstm_bwd"):
+        print(f"[bwd split] ptxas {line}", flush=True)
+    cases = {label: bwd_case(torch, "slstm", shape) for label, shape in BWD_SPLIT_SHAPES.items()}
+    kept = build._LIBS.get(SS.BWD_NAME)
+    try:
+        for rnd in range(2):
+            for name in design["variants"]:
+                build._LIBS[SS.BWD_NAME] = libs[name]
+                times = [f"{label} {_event_ms(torch, case['dpre'], 5):.4f} ms"
+                         for label, case in cases.items()]
+                print(f"[bwd split] round {rnd}, {name}: " + "; ".join(times), flush=True)
+        lib = libs["sections"]
+        lib.probe_read.argtypes = [ctypes.c_void_p]
+        build._LIBS[SS.BWD_NAME] = lib
+        for label, case in cases.items():
+            case["dpre"]()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 16)()
+            build.check(lib.probe_read(buf), "probe_read")
+            p = list(buf)
+            sections = design["sections"]
+            per = [p[i] / max(p[slot], 1) for i, (_, slot) in enumerate(sections)]
+            totals = [sum(c for (_, s), c in zip(sections, per) if s == slot)
+                      for slot in (15, 14) if p[slot]]
+            print(f"[bwd sections] {label}, CTA 0: positions {p[15]} (and {p[14]}); cycles a "
+                  "position: " + ", ".join(f"{name} {c:.0f}" for (name, _), c in
+                                           zip(sections, per))
+                  + "; total " + ", ".join(f"{c:.0f}" for c in totals), flush=True)
+    finally:
+        if kept is None:
+            build._LIBS.pop(SS.BWD_NAME, None)
+        else:
+            build._LIBS[SS.BWD_NAME] = kept
+
+
+def bwd_time_plans(torch, shape) -> None:
+    """Every backward plan the source takes for ``shape`` (bf16; the
+    cluster ``slstm_scan.plan`` sizes): CUDA-event ms of the dpre kernel a
+    call, its resident clusters, whether its dpre equals the first plan's
+    bit for bit, and the plan chosen."""
+    from repro_torch.kernels import slstm_scan as SS
+
+    b, s, hh, uh = shape
+    x, wr, bias = inputs(torch, shape)
+    hs, pre, (c, n, m) = SS.slstm_scan_residuals(x, wr, bias)
+    dhs = torch.randn(hs.shape, generator=torch.Generator(device=hs.device).manual_seed(10),
+                      device=hs.device)
+    chosen = SS.card_plan(0, 0, 1, b, hh, uh, backward=True)
+    lib = build.library(SS.BWD_NAME)
+    first = None
+    for halves in range(1, SS.MAX_HALVES + 1):
+        for groups in range(1, b + 1):
+            rows = SS.rows_of(b, groups, halves)
+            if b // groups < halves or rows > SS.MAX_ROWS:
+                continue
+            smem = SS.smem_bytes(uh, chosen.cluster, rows, halves, 2, backward=True)
+            if smem > SS.MAX_SMEM:
+                continue
+            dpre = torch.empty_like(pre)
+
+            def call():
+                build.check(lib.slstm_scan_bwd_launch(
+                    0, build.stream_handle(pre.device), 1, wr.data_ptr(), pre.data_ptr(),
+                    c.data_ptr(), n.data_ptr(), m.data_ptr(), dhs.data_ptr(), dpre.data_ptr(), b,
+                    s, hh, uh, chosen.cluster, groups, halves, smem), SS.BWD_NAME)
+
+            call()
+            torch.cuda.synchronize()
+            first = dpre.clone() if first is None else first
+            same = bool(torch.equal(first, dpre))
+            resident = lib.slstm_scan_bwd_max_clusters(0, 1, b, hh, uh, chosen.cluster, groups,
+                                                       halves, smem)
+            ms = _event_ms(torch, call, reps=5 if s > 256 else 50)
+            print(f"[bwd plans] {shape}: groups {groups}, halves {halves}, rows {rows}, "
+                  f"{hh * groups} clusters ({resident} resident): {ms:.4f} ms, dpre equal to the "
+                  f"first plan's: {same}", flush=True)
+    print(f"[bwd plans] {shape}: plan() chooses {chosen}", flush=True)
+
+
+def _in_tree(tree: Path, args: List[str]) -> int:
+    """This probe's ``main`` with ``args`` on the package of the checkout at
+    ``tree`` (its ``src`` on the path, its sources and build directory), in
+    a process of its own; its output passes through."""
+    script = ("import importlib.util, sys\n"
+              f"spec = importlib.util.spec_from_file_location('probe', {str(Path(__file__))!r})\n"
+              "P = importlib.util.module_from_spec(spec); spec.loader.exec_module(P)\n"
+              "raise SystemExit(P.main())\n")
+    env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+    return subprocess.run([sys.executable, "-c", script, *args], cwd=str(tree), env=env,
+                          timeout=1800).returncode
+
+
 def bwd_main(torch) -> int:
     """``--bwd``: the cases' times, errors, reruns and plans, or with
-    ``--paired DIR`` the paired runs."""
+    ``--paired DIR`` the paired runs, ``--split`` the split, ``--plans``
+    every backward plan's time (``--tree DIR``: of the checkout at DIR)."""
     from repro_torch.kernels import selective_scan as SEL
     from repro_torch.kernels import slstm_scan as SS
     from repro_torch.kernels.ref import slstm_weight_grads
 
+    if "--tree" in sys.argv:
+        at = sys.argv.index("--tree")
+        tree = Path(sys.argv[at + 1]).resolve()
+        return _in_tree(tree, sys.argv[1:at] + sys.argv[at + 2:])
+    if "--split" in sys.argv:
+        bwd_split(torch)
+        _smi()
+        return 0
+    if "--plans" in sys.argv:
+        for shape in PLAN_SHAPES:
+            bwd_time_plans(torch, shape)
+        _smi()
+        return 0
     if "--paired" in sys.argv:
         other = Path(sys.argv[sys.argv.index("--paired") + 1]).resolve()
         here = Path(__file__).resolve().parents[3]
@@ -950,7 +1344,7 @@ def main() -> int:
         _smi()
         return 0
 
-    libs = _build(all_patches())
+    libs, _ = _build(all_patches())
     data = {label: inputs(torch, shape) for label, shape in VARIANT_SHAPES.items()}
     kept = build._LIBS.get(SS.NAME)
     try:

@@ -26,8 +26,9 @@ the gate pre-activations and the states c, n and m of every position
 (float32; the reference's residuals ``hs_prev`` and ``states_prev``, with
 the recurrent product kept), and its backward is :func:`slstm_scan_bwd`:
 the reverse scan in ``csrc/slstm_scan_bwd.cu`` (one launch a call, counted
-under ``LAUNCH_COUNTS["slstm_scan_bwd"]``, on the same cluster plan with
-``wr``'s rows transposed in shared memory) for ``dpre``, then ``dwr`` and
+under ``LAUNCH_COUNTS["slstm_scan_bwd"]``, on the forward's cluster with a
+plan of its own: product threads reduce-scatter the CTA's share of dh,
+cell threads run the cell's backward) for ``dpre``, then ``dwr`` and
 ``dbias`` as one float32 matrix product a head and one sum
 (``ref.slstm_weight_grads``).  ``LAUNCH_COUNTS["slstm_scan.residuals"]``
 counts the forwards that wrote residuals (not those under
@@ -62,11 +63,13 @@ ONE_PER_SM = 118_784  # two CTAs of this many bytes do not fit one SM's 228 KB
 # GPCs of unequal size; cudaOccupancyMaxActiveClusters on the card, one CTA
 # an SM), used where the card is not asked.
 RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15}
-# The planner's clocks a position (used only to rank plans): FIXED for the
-# cell, the exchange and the waits, and per half and round of 4 u of the
-# product CHUNK_ROW a row plus CHUNK; fitted to the card's times of every
-# plan at 1 to 16 rows of 4 x 256 (``scan_probe --plans``).
-FIXED_CLOCKS, CHUNK_ROW_CLOCKS, CHUNK_CLOCKS = 1700, 62, 40
+# The planner's clocks a position (used only to rank plans): (fixed, for
+# the cell, the exchange and the waits; per half and round of 4 inputs of
+# the product, a row; the same, a round), the forward's fitted to the
+# card's times of every plan at 1 to 16 rows of 4 x 256 (``scan_probe
+# --plans``), the backward's to its own (``scan_probe --bwd --plans``).
+CLOCKS = (1700, 62, 40)
+BWD_CLOCKS = (1550, 88, 12)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -120,32 +123,50 @@ def slices_of(uh: int, cluster: int, backward: bool = False) -> Tuple[int, int]:
     with ``backward``): a half's threads are groups of 8 of the CTA's padded
     outputs times slices of the inputs, a multiple of 4 each.  The forward's
     inputs are uh units and its outputs the share's 4 gates; the backward's
-    inputs are 4 uh gate columns and its outputs the share's units."""
+    inputs are the share's 4 gate columns and its outputs the head's uh
+    units."""
     share = _ceil(uh, cluster)
-    inputs, outputs = (4 * uh, share) if backward else (uh, 4 * share)
+    inputs, outputs = (4 * share, uh) if backward else (uh, 4 * share)
     ngroups = _ceil(outputs, 8)
     k = min(_ceil(4 * share, 32) * 32 // ngroups, _ceil(inputs, 4))
     slice_ = _ceil(_ceil(inputs, k), 4) * 4
     return slice_, _ceil(inputs, slice_)
 
 
+def half_threads(uh: int, cluster: int, backward: bool = False) -> int:
+    """A half's threads: round_up(4 share, 32), the product's; with
+    ``backward`` also cell threads, half as many rounded to warps (the
+    source's ``bwd_product_threads`` and ``bwd_cell_threads``)."""
+    product = _ceil(4 * _ceil(uh, cluster), 32) * 32
+    return product + _ceil(product // 2, 32) * 32 if backward else product
+
+
 def smem_bytes(uh: int, cluster: int, rows: int, halves: int, w_bytes: int,
                backward: bool = False) -> int:
     """A CTA's dynamic shared memory (the source's ``Layout`` and
-    ``smem_for``, or with ``backward`` ``BwdLayout`` and ``bwd_smem_for``):
-    per half two mbarriers, the exchanged vector double-buffered (``rows`` x
-    its inputs rounded to 8, float32: h, or dpre's 4 uh), the partial sums
-    ([rows][slices][outputs padded to 8], float32) and the share's new h
-    (or its 4 gates' dpre); the CTA's wr over its padded outputs in the
-    stored dtype; at least ONE_PER_SM."""
+    ``smem_for``, or with ``backward`` ``BwdLayout`` and ``bwd_smem_for``);
+    at least ONE_PER_SM.  Forward, per half: two mbarriers, h
+    double-buffered ([2][rows][uh rounded to 8] float32), the partial sums
+    ([rows][slices][4 share rounded to 8]) and the share's new h; then the
+    CTA's wr columns [uh][4 share rounded to 8] in the stored dtype.
+    Backward, per half: two mbarriers, the CTA's new dpre ([rows][slices x
+    slice]), the partial sums ([rows][slices][uh rounded to 8]) and the
+    cluster's partial dh double-buffered ([2][rows][cluster][share rounded
+    to 4]); then wr's rows for the CTA's gate columns, transposed
+    ([slices x slice][uh rounded to 8])."""
     share = _ceil(uh, cluster)
-    inputs, outputs = (4 * uh, share) if backward else (uh, 4 * share)
-    cpad = _ceil(outputs, 8) * 8
-    _, slices = slices_of(uh, cluster, backward)
-    sent = 4 * share if backward else share
-    per_half = (2 * rows * _ceil(inputs, 8) * 8 * 4 + rows * slices * cpad * 4
-                + _ceil(rows * sent * 4, 16) * 16)
-    need = 16 * MAX_HALVES + halves * per_half + _ceil(inputs * cpad * w_bytes, 16) * 16
+    slice_, slices = slices_of(uh, cluster, backward)
+    if backward:
+        kk, uh8 = slices * slice_, _ceil(uh, 8) * 8
+        per_half = (rows * kk * 4 + rows * slices * uh8 * 4
+                    + 2 * rows * cluster * _ceil(share, 4) * 16)
+        weights = kk * uh8 * w_bytes
+    else:
+        cpad = _ceil(4 * share, 8) * 8
+        per_half = (2 * rows * _ceil(uh, 8) * 8 * 4 + rows * slices * cpad * 4
+                    + _ceil(rows * share * 4, 16) * 16)
+        weights = uh * cpad * w_bytes
+    need = 16 * MAX_HALVES + halves * per_half + _ceil(weights, 16) * 16
     return max(need, ONE_PER_SM)
 
 
@@ -154,15 +175,16 @@ def plan(b: int, hh: int, uh: int, w_bytes: int,
          backward: bool = False) -> Plan:
     """The launch for ``b`` batch rows of ``hh`` heads of ``uh`` units with
     ``wr`` of ``w_bytes`` (4 float32, 2 bfloat16) a weight; with
-    ``backward``, of ``csrc/slstm_scan_bwd.cu`` (the same cluster, groups
-    and halves, its own shared memory and slices).
+    ``backward``, of ``csrc/slstm_scan_bwd.cu`` (the same cluster; its own
+    threads, shared memory, slices and clocks, so its own groups and
+    halves).
 
     The cluster is the fewest CTAs (1, 2, 4 or 8) that leave each at most
-    MAX_SHARE units: a half of 4 warps at uh = 256.  The groups and halves
-    are those whose launch takes the fewest estimated clocks: waves of
-    resident clusters (``max_clusters(cluster, groups, halves, smem)``, else
-    RESIDENT) times a position's.  Raises ValueError for a shape no plan
-    takes."""
+    MAX_SHARE units: a half of 4 product warps at uh = 256.  The groups and
+    halves are those whose launch takes the fewest estimated clocks: waves
+    of resident clusters (``max_clusters(cluster, groups, halves, smem)``,
+    else RESIDENT) times a position's.  Raises ValueError for a shape no
+    plan takes."""
     if not 1 <= uh <= MAX_UNITS:
         raise ValueError(f"{uh} units a head: the kernel takes 1 to {MAX_UNITS}")
     if b < 1 or hh < 1:
@@ -170,8 +192,9 @@ def plan(b: int, hh: int, uh: int, w_bytes: int,
     if w_bytes not in (2, 4):
         raise ValueError(f"wr of {w_bytes} bytes a weight: the kernel reads float32 or bfloat16")
     cluster = next(c for c in (1, 2, 4, MAX_CLUSTER) if _ceil(uh, c) <= MAX_SHARE)
-    role_threads = _ceil(4 * _ceil(uh, cluster), 32) * 32
+    role_threads = half_threads(uh, cluster, backward)
     slice_, slices = slices_of(uh, cluster, backward)
+    fixed, chunk_row, chunk = BWD_CLOCKS if backward else CLOCKS
     best, best_cost = None, math.inf
     for halves in range(1, MAX_HALVES + 1):
         for groups in sorted({_ceil(b, r) for r in range(1, MAX_ROWS * halves + 1)}):
@@ -183,8 +206,7 @@ def plan(b: int, hh: int, uh: int, w_bytes: int,
                 continue
             resident = max_clusters(cluster, groups, halves, smem) if max_clusters else None
             resident = resident if resident and resident > 0 else RESIDENT[cluster]
-            position = FIXED_CLOCKS + halves * _ceil(slice_, 4) * (
-                CHUNK_ROW_CLOCKS * rows + CHUNK_CLOCKS)
+            position = fixed + halves * _ceil(slice_, 4) * (chunk_row * rows + chunk)
             cost = _ceil(hh * groups, resident) * position
             if cost < best_cost:
                 best_cost = cost

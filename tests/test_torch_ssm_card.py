@@ -288,6 +288,84 @@ def test_slstm_scan_bwd_kernel_matches_plain(cuda, b, s, hh, uh, dtype):
     assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
 
 
+def _slstm_bwd_case(b, s, hh, uh, dtype, seed, dev):
+    """Inputs, the forward kernel's residuals and a seeded dhs."""
+    xproj, wr, bias = _slstm_inputs(b, s, hh, uh, dtype, seed, dev)
+    hs, pre, states = SS.slstm_scan_residuals(xproj, wr, bias)
+    dhs = torch.randn(hs.shape, generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                      device=dev)
+    return xproj, wr, bias, hs, pre, states, dhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hh,uh,dtype", [
+    (16, 64, 4, 256, torch.float32),  # f32 wr at uh = 256: the largest shared memory
+    (3, 40, 4, 256, torch.bfloat16),  # B = 3 at xlstm-350m's 4 x 256
+    (5, 40, 4, 256, torch.bfloat16),  # groups of 1, 2 and 2 rows: the first not filled
+    (2, 33, 2, 70, torch.bfloat16),   # 70 units over 4 CTAs (17, 18, 17, 18): scalar sends
+    (2, 33, 2, 70, torch.float32),
+])
+def test_slstm_scan_bwd_kernel_at_the_plans_edges(cuda, b, s, hh, uh, dtype):
+    """The backward plan's edges, as the forward's: the largest shared
+    memory, row groups the batch does not fill, a uh the cluster does not
+    divide (each unit's partial sent to its owner alone); against the plain
+    backward, one launch counted a call, equal bits on a rerun, and the dpre
+    kernel allocating nothing but dpre (no copy of a contiguous input; the
+    allocator may round dpre's block up)."""
+    xproj, wr, bias, hs, pre, states, dhs = _slstm_bwd_case(b, s, hh, uh, dtype, 31, cuda)
+    p = SS.card_plan(cuda.index or 0, 0, SS._DTYPE_CODES[dtype], b, hh, uh, backward=True)
+    if (b, uh) == (5, 256):
+        assert min(count for _, count in p.row_ranges(b)) < p.rows
+    if uh == 70:
+        assert p.cluster == 4 and uh % p.cluster
+    before = LAUNCH_COUNTS["slstm_scan_bwd"]
+    got = SS.slstm_scan_bwd(xproj, wr, bias, pre, states, hs, dhs)
+    assert LAUNCH_COUNTS["slstm_scan_bwd"] == before + 1
+    p_hs, p_pre, p_states = ref.slstm_scan_fwd_plain(xproj, wr, bias)
+    want = ref.slstm_scan_bwd_plain(xproj, wr, bias, p_pre, p_states, p_hs, dhs)
+    for name, g, w in zip(("dxproj", "dwr", "dbias"), got, want):
+        _grad_close(g, w, name)
+    again = SS.slstm_scan_bwd(xproj, wr, bias, pre, states, hs, dhs)
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dpre = SS._launch_bwd(wr, pre, states, dhs)
+    assert torch.cuda.max_memory_allocated() == torch.cuda.memory_allocated()
+    assert torch.cuda.memory_allocated() - held >= dpre.numel() * 4
+
+
+@pytest.mark.cuda
+def test_slstm_scan_bwd_rows_do_not_depend_on_the_plan(cuda):
+    """The backward's sums run in an order that depends on uh alone, so a
+    row's dpre is the same bits whatever batch (and so plan) it runs in: 16
+    rows against each row alone and against the first five."""
+    xproj, wr, bias, hs, pre, states, dhs = _slstm_bwd_case(16, 48, 4, 256, torch.bfloat16, 12,
+                                                            cuda)
+    full = SS._launch_bwd(wr, pre, states, dhs)
+
+    def rows(i, j):
+        return SS._launch_bwd(wr, pre[i:j], tuple(t[i:j] for t in states), dhs[i:j])
+
+    assert torch.equal(full[:5], rows(0, 5))
+    for i in (0, 7, 15):
+        assert torch.equal(full[i:i + 1], rows(i, i + 1))
+
+
+@pytest.mark.cuda
+def test_slstm_scan_bwd_reruns_give_equal_bits(cuda):
+    """No float atomics: three runs of the backward at xlstm-350m's width
+    and training microbatch (4 rows of 300 positions, bf16) give equal bits
+    in all three gradients, and through autograd the same bits again."""
+    xproj, wr, bias, hs, pre, states, dhs = _slstm_bwd_case(4, 300, 4, 256, torch.bfloat16, 41,
+                                                            cuda)
+    runs = [SS.slstm_scan_bwd(xproj, wr, bias, pre, states, hs, dhs) for _ in range(3)]
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+    leaves = [t.clone().requires_grad_() for t in (xproj, wr, bias)]
+    got = torch.autograd.grad(slstm_scan(*leaves), leaves, dhs)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], got))
+
+
 SEL_BWD_SHAPES = [(2, 40, 128, 4), (3, 37, 200, 16), (1, 1, 64, 1), (2, 70, 96, 7)]
 
 

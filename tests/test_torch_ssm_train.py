@@ -96,55 +96,63 @@ def test_slstm_scan_bwd_plain_matches_the_reference_vjp():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4, rtol=1e-3, err_msg=name)
 
 
-def _split_order_bwd(xproj, wr, bias, pre, states, hs, dhs, slice_):
+def _split_order_bwd(xproj, wr, bias, pre, states, hs, dhs, cluster, slice_):
     """``slstm_scan_bwd_plain`` with the backward kernel's recurrent
-    product: per unit, fmaf chains over consecutive slices of ``slice_``
-    gate columns (ascending, from 0; an fmaf emulated as the float64 sum of
-    the exact product, rounded to float32), added in slice order, then the
-    position's ``dhs``."""
+    product, a reduce-scatter over the cluster: CTA k of ``cluster`` owns
+    units [k uh / C, (k + 1) uh / C) and their 4 gate columns, in its local
+    order (gate, then unit; padded with zero columns to whole slices); its
+    partial dh of every unit of the head is the sum, in slice order, of fmaf
+    chains over consecutive slices of ``slice_`` of its columns (ascending;
+    an fmaf emulated as the float64 sum of the exact product, rounded to
+    float32); a unit's dh adds the cluster's partials in rank order, then
+    the position's ``dhs`` (the last position's dh is its ``dhs``)."""
     b, s, _ = xproj.shape
     hh, uh, g4 = wr.shape
-    k = -(-g4 // slice_)
-    w = torch.zeros((hh, k * slice_, uh), dtype=torch.float64)
-    w[:, :g4] = wr.to(torch.float64).transpose(1, 2)
-    w = w.reshape(hh, k, slice_, uh)
+    share = -(-uh // cluster)
+    slices = -(-4 * share // slice_)
+    cols = []
+    for k in range(cluster):
+        lo, n = k * uh // cluster, (k + 1) * uh // cluster - k * uh // cluster
+        own = [q * uh + lo + i for q in range(4) for i in range(n)]
+        cols.append(own + [g4] * (slices * slice_ - len(own)))  # g4: a zero column
+    cols = torch.tensor(cols)  # (C, slices x slice)
+    w = torch.cat([wr.to(torch.float64), torch.zeros((hh, uh, 1), dtype=torch.float64)], dim=2)
+    w = w[:, :, cols].permute(0, 2, 3, 1).reshape(hh, cluster, slices, slice_, uh)
     c, n, m = states
     pre4 = pre.reshape(b, s, hh, g4)
     dpre = torch.empty_like(pre4)
     z = torch.zeros((b, hh, uh))
-    dh_next, dst = z, (z, z, z)
+    dh_next, dst = None, (z, z, z)
     for t in reversed(range(s)):
         prev = (c[:, t - 1], n[:, t - 1], m[:, t - 1]) if t else (z, z, torch.full_like(z, -1e30))
-        dp, dst = ref.slstm_cell_bwd(pre4[:, t], prev, (c[:, t], n[:, t], m[:, t]),
-                                     dh_next + dhs[:, t], dst)
+        dh = dhs[:, t] if dh_next is None else dh_next + dhs[:, t]
+        dp, dst = ref.slstm_cell_bwd(pre4[:, t], prev, (c[:, t], n[:, t], m[:, t]), dh, dst)
         dpre[:, t] = dp
-        dpp = torch.zeros((b, hh, k * slice_), dtype=torch.float64)
-        dpp[..., :g4] = dp.to(torch.float64)
-        dpp = dpp.reshape(b, hh, k, slice_)
-        acc = torch.zeros((b, hh, k, uh), dtype=torch.float32)
+        x = torch.cat([dp.to(torch.float64), torch.zeros((b, hh, 1), dtype=torch.float64)],
+                      dim=2)[:, :, cols].reshape(b, hh, cluster, slices, slice_)
+        acc = torch.zeros((b, hh, cluster, slices, uh), dtype=torch.float32)
         for j in range(slice_):
-            acc = (dpp[..., j, None] * w[None, :, :, j] + acc.to(torch.float64)).to(torch.float32)
-        dh_next = acc[:, :, 0]
-        for i in range(1, k):
-            dh_next = dh_next + acc[:, :, i]
+            acc = (x[..., j, None] * w[None, :, :, :, j] + acc.to(torch.float64)).to(torch.float32)
+        part = acc[:, :, :, 0]
+        for i in range(1, slices):
+            part = part + acc[:, :, :, i]
+        dh_next = part[:, :, 0]
+        for k in range(1, cluster):
+            dh_next = dh_next + part[:, :, k]
     dwr, dbias = ref.slstm_weight_grads(hs, dpre)
     return dpre.reshape(b, s, -1), dwr, dbias
 
 
-def test_slstm_scan_bwd_split_order_matches_the_plain_and_the_reference():
-    """The backward kernel's order of ``dpre wr^T`` (``plan(backward=True)``'s
-    32 slices of 32 gate columns at xlstm-350m's 4 heads of 256 units),
-    emulated, against ``slstm_scan_bwd_plain`` and the reference's
-    ``jax.vjp`` within SCAN_GRAD_TOL of each gradient's scale: 2 rows of 16
-    positions (S cut from the layer's 2,048), float32, wr at the model's
-    initial scale 1/sqrt(uh)."""
-    cfg = get_config("xlstm-350m")
-    hh, uh = cfg.n_heads, cfg.d_model // cfg.n_heads
+def _check_split_order_bwd(hh, uh, cut):
+    """The emulated order at ``plan(4, hh, uh, 2, backward=True)`` (its
+    ``(cluster, slice, slices)`` is ``cut``) against the plain backward and
+    the reference's ``jax.vjp``: 2 rows of 16 positions, float32, wr at the
+    model's initial scale 1/sqrt(uh)."""
     p = SS.plan(4, hh, uh, 2, backward=True)
-    assert (p.slice, p.slices) == (32, 32)
+    assert (p.cluster, p.slice, p.slices) == cut
     xproj, wr, bias, dhs = _slstm_args(2, 16, hh, uh, torch.float32, 3)
     hs, pre, states = ref.slstm_scan_fwd_plain(xproj, wr, bias)
-    got = _split_order_bwd(xproj, wr, bias, pre, states, hs, dhs, p.slice)
+    got = _split_order_bwd(xproj, wr, bias, pre, states, hs, dhs, p.cluster, p.slice)
     plain = ref.slstm_scan_bwd_plain(xproj, wr, bias, pre, states, hs, dhs)
     _, vjp = jax.vjp(lambda a, w, c: RS._slstm_scan_p(a, w, c, hh, uh),
                      *(jnp.asarray(t.numpy()) for t in (xproj, wr, bias)))
@@ -152,6 +160,23 @@ def test_slstm_scan_bwd_split_order_matches_the_plain_and_the_reference():
     for other in (plain, want):
         for name, g, w in zip(("dxproj", "dwr", "dbias"), got, other):
             _grad_close(g, w, SCAN_GRAD_TOL, name)
+
+
+def test_slstm_scan_bwd_split_order_matches_the_plain_and_the_reference():
+    """The backward kernel's order of ``dpre wr^T`` at xlstm-350m's 4 heads
+    of 256 units (clusters of 8, each CTA's 128 gate columns in 4 slices of
+    32, the 8 CTAs' partials added in rank order), emulated, against
+    ``slstm_scan_bwd_plain`` and the reference's ``jax.vjp`` within
+    SCAN_GRAD_TOL of each gradient's scale (S cut from the layer's 2,048)."""
+    cfg = get_config("xlstm-350m")
+    _check_split_order_bwd(cfg.n_heads, cfg.d_model // cfg.n_heads, (8, 32, 4))
+
+
+def test_slstm_scan_bwd_split_order_at_an_uneven_share():
+    """The same at 2 heads of 70 units: 4 CTAs of 17 or 18 units (their
+    columns padded to 9 slices of 8), so the partials go to owners one unit
+    at a time."""
+    _check_split_order_bwd(2, 70, (4, 8, 9))
 
 
 def _scan_args(b, s, di, n, dtype, seed):
@@ -264,18 +289,24 @@ def test_mamba_grads_through_the_plain_backward_match_the_reference(dtype, monke
                                      (16, 4, 256), (5, 4, 256), (2, 2, 70), (9, 2, 200)])
 def test_slstm_scan_bwd_plan_covers_every_shape(b, hh, uh, w_bytes):
     """``plan(backward=True)`` for the card tests' shapes and xlstm-350m's:
-    the forward's cluster and rows; a half's threads hold every (row,
-    unit) cell and every (8 units, slice) product thread; the slices cover
-    the 4 uh gate columns, a multiple of 4 each; the shared memory the
-    source's BwdLayout gives, within the H100's 232,448 bytes (float32 wr
-    at 4 x 256 by fewer rows)."""
+    the forward's cluster; a half's threads are the forward's product
+    threads and half as many cell threads (warps each), the product threads
+    holding every (8 of the head's units, slice) product and, 8 items each
+    at most, the reduce-scatter's items, the cell threads every (row, unit)
+    cell, two each at most; the slices cover the CTA's 4 share gate columns,
+    a multiple of 4 each; the shared memory the source's BwdLayout gives,
+    within the H100's 232,448 bytes (float32 wr at 4 x 256 by fewer rows)."""
     p = SS.plan(b, hh, uh, w_bytes, backward=True)
     f = SS.plan(b, hh, uh, w_bytes)
-    assert p.cluster == f.cluster and p.threads // p.halves == f.threads // f.halves
+    assert p.cluster == f.cluster
     share = -(-uh // p.cluster)
-    half_threads = p.threads // p.halves
-    assert p.rows * share <= half_threads and -(-share // 8) * p.slices <= half_threads
-    assert p.slice % 4 == 0 and (p.slices - 1) * p.slice < 4 * uh <= p.slices * p.slice
+    product = f.threads // f.halves
+    cell = p.threads // p.halves - product
+    assert product % 32 == 0 and cell % 32 == 0 and 2 * cell >= product
+    assert p.rows * share <= 2 * cell and -(-uh // 8) * p.slices <= product
+    width = 4 if uh % (4 * p.cluster) == 0 else 1
+    assert p.rows * uh // width <= 8 * product
+    assert p.slice % 4 == 0 and (p.slices - 1) * p.slice < 4 * share <= p.slices * p.slice
     assert p.smem == SS.smem_bytes(uh, p.cluster, p.rows, p.halves, w_bytes, backward=True)
     assert SS.ONE_PER_SM <= p.smem <= SS.MAX_SMEM
     ranges = p.row_ranges(b)
@@ -336,6 +367,31 @@ def test_the_backward_wrappers_refuse_what_the_kernels_do_not_take(case):
           "gated": SEL.selective_scan_gated_bwd}[entry]
     with pytest.raises(error):
         fn(*args)
+
+
+def test_scan_probe_bwd_patches_apply():
+    """``scan_probe --bwd --split`` patches the sLSTM backward's source by
+    text: every variant still finds its anchors and differs from the kernel
+    and from the others, and the instrumented copy marks every section
+    once, its product threads' and its cell threads' positions counted."""
+    import re
+
+    from repro_torch.kernels import scan_probe
+
+    src = scan_probe.BWD_SOURCE.read_text()
+    design = scan_probe.bwd_design(src)
+    assert design["sections"] == scan_probe.BWD_SECTIONS
+    sources = scan_probe.bwd_patches(src)
+    kernel = sources.pop("kernel")
+    assert kernel == src
+    assert set(sources) == set(design["variants"]) - {"kernel"} | {"sections"}
+    assert {"no product", "no exchange", "no cell math", "no residual prefetch"} <= set(sources)
+    assert all(text != kernel for text in sources.values())
+    assert len(set(sources.values())) == len(sources)
+    marks = [int(m) for m in re.findall(r"MARK\((\d+)\);", sources["sections"])]
+    assert sorted(marks) == list(range(len(scan_probe.BWD_SECTIONS)))
+    assert sources["sections"].count("probe[15] += 1;") == 1
+    assert sources["sections"].count("probe[14] += 1;") == 1
 
 
 def test_residuals_are_skipped_only_inside_the_context():

@@ -1113,13 +1113,13 @@ def _gated_bwd_bound(b: int, s: int, di: int, n: int, x_bytes: int):
     """selective_scan_bwd's least ms (gated): the bytes of the gradient's
     own operands (x1, the raw dt, z, dout, dx1, dz and ddt_raw a position
     and channel; b, c, db and dc a position; a, da, dd, ddd, dt_bias and its
-    gradient) at 3.35 TB/s against its 2 B S di n exponentials (the states
-    recomputed, then decay in the walk) at the special-function units'
-    rate.  The states the forward saves for it (n bytes a position and
-    channel at one every 4 positions) are the design's cost, not the
-    function's, and are not counted."""
+    gradient) at 3.35 TB/s against its B S di n exponentials (each decay
+    exp(dt a) once: the walk's decay_t is the recomputed state's) at the
+    special-function units' rate.  The states the forward saves for it (n
+    bytes a position and channel at one every 4 positions) are the design's
+    cost, not the function's, and are not counted."""
     per = 5 * x_bytes + 8
-    return bound(per * b * s * di + 16 * b * s * n + 4 * di * (2 * n + 4), 2 * b * s * di * n,
+    return bound(per * b * s * di + 16 * b * s * n + 4 * di * (2 * n + 4), b * s * di * n,
                  SFU_OPS_PER_S)
 
 

@@ -17,52 +17,76 @@
 //   g      = dh[k] h_{t-1}[k] decay_t[k];   da[k] += g dt;   ddt = sum_k g a[k]
 //   ddt   += d(dt x) x;   dx = d(dt x) dt;   dh[k] = dh[k] decay_t[k]
 // with dy the gradient of ys.  The gated entry (G) first differentiates the
-// epilogue in the same thread, ys recomputed from h_t as the forward sums it:
+// epilogue, ys recomputed from h_t:
 //   s = 1 / (1 + expf(-z));   dy = dout z s;   y2 = ys + dd x
 //   dz = (dout y2) (s (1 + z (1 - s)));   ddd += dy x;   dx = dy dd + d(dt x) dt
 //   ddt_raw = ddt / (1 + expf(-(dt_raw + dt_bias)))   (softplus' = sigmoid)
 // These are the formulas of kernels/ref.py::selective_scan_bwd_plain and
-// selective_scan_gated_bwd_plain, in the same order but for the sums over
-// channels and over k (d(dt x), ddt), whose order differs from torch's.
+// selective_scan_gated_bwd_plain; the sums over channels, over k and over
+// positions run in other (fixed) orders, FMAs contract the products into
+// the sums, and decay_t = 2^(dt a log2 e) by the SFU's ex2.approx, whose
+// error over the gradients' scales chip_smoke.py phase 2 reports beside
+// SCAN_GRAD_TOL.
 //
 // The forward saves the state entering every stage of kSpan = 4 positions
 // (ref.SCAN_SPAN; (B, S / 4, n, di) float32: 537 MB for one row of 2,048 at
-// jamba's width).  A stage here recomputes its 4 states from the saved one
-// (shared memory, a thread's own column), then walks them in reverse: two
-// exponentials a state and position, one for the recompute and one for
-// decay_t in the walk.
+// jamba's width); a stage here recomputes its 4 states from the saved one,
+// then walks them in reverse.
 //
 // Bound on an H100: the larger of the bytes of the gradient's own operands
-// at 3.35 TB/s and its 2 B S di n exponentials (the states recomputed, then
-// decay_t in the walk) at the special-function units' 4.18e12 a second (16
-// a clock per SM, 132 SMs, 1,980 MHz).  At di 16,384, n 16, bf16, the
-// exponentials bound it: 4.11 ms for 16 rows of 2,048 positions and 0.257
-// ms for one, against 18 bytes a position and channel (x, z, dout, dx and
-// dz 2 each; the raw dt and ddt 4 each: 2.89 and 0.18 ms).  The saved
-// states the kernel also reads (16 bytes a position and channel) are this
-// design's cost, not the function's, and are not in the bound.
+// at 3.35 TB/s and its B S di n exponentials (each decay once) at the
+// special-function units' 4.18e12 a second (16 a clock per SM, 132 SMs,
+// 1,980 MHz).  At di 16,384, n 16, bf16 the bytes bind: 18 a position and
+// channel (x, z, dout, dx and dz 2 each; the raw dt and ddt 4 each), 2.888
+// ms for 16 rows of 2,048 positions and 0.181 ms for one, against 2.054
+// and 0.128 ms of exponentials.  The saved states the kernel also reads (16
+// bytes a position and channel) are this design's cost, not the
+// function's, and are not in the bound.
 //
-// Design.  The forward's unit and pipeline, walked backwards: a unit is a
-// batch row and a tile of kTile = 128 channels, a thread a channel with its
-// n <= 16 rows of a, da and dh in registers (n a template parameter); a
-// producer warp fills a ring of kStages stages, each one stage's x, dt (raw
-// when gated), z, dout (or dys) and b and c rows and its saved state, by
-// bulk copies on mbarriers, from the last stage back.  dc and db of a
-// position (2 n values) are summed over a warp by a reduce-scatter of
-// shuffles (lane l ends with value l; 31 shuffles), then over the four
-// warps in warp order, and written as the tile's partial sums; da, ddd and
-// d dt_bias are each thread's own sums over positions, written for its
-// batch row.  A second launch (scan_bwd_reduce) adds the tiles' partials in
-// tile order and the rows' in row order: a call makes two launches, and no
-// sum depends on timing (no float atomics), so reruns give equal bits.
+// Design.  The first port gave a thread a channel and its 16 states: 128
+// units (a row and 128 channels) at one row, a warp a scheduler, every
+// position a chain of dependent sums (y, d(dt x), ddt over k, a
+// reduce-scatter of 31 shuffles), each decay computed twice.  Here:
+// - a channel's states are split over kLanes = 4 lanes (lanes c, c + 8,
+//   c + 16, c + 24 of a warp; each holds n / 4 states and their rows of a,
+//   da and dh): a warp is 8 channels, a unit a batch row and kTile = 64
+//   channels, a block 8 compute warps and a producer warp, 2 blocks an SM:
+//   16 compute warps an SM at one row (256 units) as at 16;
+// - the channel's own work of a position (dt's softplus and, from the same
+//   exponential, its sigmoid; the gate's sigmoid, dy, d x, the epilogue's
+//   gradients and the stores) is done once, by the lane whose group number
+//   is the position's place in its stage, and shuffled to the other three;
+// - a stage's 4 states and decays are recomputed into registers (each
+//   decay once), then walked in reverse;
+// - y, d(dt x) and ddt are summed over a lane's states, then over the 4
+//   lanes by a reduce-scatter of 9 shuffles that leaves each position's sums
+//   with its lane;
+// - dc and db go to shared memory ([kSpan][kTile][2 NP + 4] float32, two
+//   buffers, the padding keeping the stores and the reads free of bank
+//   conflicts); once every thread has arrived on the buffer's mbarrier
+//   (arrivals after the walk, the wait after the channel's gradients, so a
+//   warp's lead is not lost every stage), each compute thread sums half of
+//   one output's 64 channels (4 accumulators, constant offsets), a shuffle
+//   adds the halves, and the tile's sums go to part (B, S, tiles, 32); a
+//   second launch (scan_bwd_reduce) adds the tiles' partials in tile order
+//   and the rows' da, ddd and d dt_bias in row order.  No float atomics:
+//   reruns give equal bits, and a row's bits do not depend on the others
+//   (but da, ddd and d dt_bias, summed over rows).
+// The producer warp fills a ring of kStages stages (x, dt, z, dout, b, c
+// and the saved state) by bulk copies on mbarriers, from the last stage
+// back, as the first port did.
 //
-// What it reaches (chip_smoke.py phase 2, CUDA events around one call;
-// PERF.md row 7b): 25.0 ms at 16 rows of 2,048 (6.1x the exponentials'
-// 4.11 ms) and 3.65 ms at one row (14x its 0.257 ms: its 128 units fill
-// half the card's 264 block slots, and a unit's positions are a chain).
-// Not split yet: the recompute's share, the saved states' reads, the
-// shuffles' (31 a position and warp) and the registers that hold it to 2
-// blocks an SM (118-127, no spills).
+// What holds it (kernels/scan_probe.py --bwd --split selective): the
+// issue rate.  Its loop over stages is about 709 SASS instructions a lane
+// and stage (a channel and position): an issue floor of 11.4 ms at 16 rows
+// of jamba's width, of which some 250 are integer and control work.  Nine
+// warps a block at 2 blocks an SM cap ptxas at 96 registers (an SM
+// sub-partition's 16,384 over 5 warps), so the loop spills 12 bytes and
+// re-derives its indices; 112 registers cut the loop to 629 instructions
+// but leave one block an SM, and dropping the producer warp (warp 0
+// issuing the copies) made warp 0 every stage's straggler.
+// What it reaches: see PERF.md row 7b (kernels/scan_probe.py --bwd --split
+// and --paired; chip_smoke.py phase 2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,29 +101,36 @@ namespace {
 using namespace hopper;
 
 constexpr int kMaxState = 16;  // states a channel (the forward's kMaxState)
-constexpr int kCompute = 128;  // compute threads a block (4 warps), a channel each
+constexpr int kLanes = 4;      // lanes a channel, its states split among them
+constexpr int kWarps = 8;      // compute warps a block
+constexpr int kCompute = 32 * kWarps;    // compute threads a block
 constexpr int kThreads = kCompute + 32;  // and the producer warp
-constexpr int kTile = kCompute;          // channels a unit
+constexpr int kTile = kCompute / kLanes; // channels a unit
 constexpr int kSpan = 4;       // positions a stage, and between saved states (the forward's)
-constexpr int kStages = 2;     // stages in the ring
+constexpr int kStages = 3;     // stages in the ring
 constexpr int kMinBlocks = 2;  // blocks an SM should hold (ptxas's register target)
-constexpr int kValues = 32;    // a position's dc (k) and db (16 + k): one a lane
+constexpr int kValues = 32;    // a position's dc (k) and db (16 + k) in part
 constexpr int kReduceThreads = 256;  // the second pass's blocks
-static_assert(2 * kMaxState <= kValues, "dc and db of a position fill one value a lane");
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kSpan == kLanes, "a channel's lane g does position g of a stage");
+static_assert(2 * kMaxState <= kValues, "dc and db of a position fill one part row");
+static_assert(kCompute / 2 >= kSpan * 2 * kMaxState, "a stage's sums: two threads an output");
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
 // Shared memory, in bytes from its base: the barriers (full and empty a
-// stage, full and empty of the unit's parameters), the ring (a stage: x
+// stage, full and empty of the unit's parameters, two of the stages' sums
+// of dc and db), the ring (a stage: x
 // [kSpan][kTile], dt [kSpan][kTile], z [kSpan][kTile] when gated, dout or
 // dys [kSpan][kTile], b and c [kSpan][NP], the saved state [N][kTile]),
-// the unit's parameters (a [kTile][N], dd and dt_bias [kTile] when gated),
-// the recomputed states [kSpan][N][kTile] and the warps' sums of dc and db,
-// two sets of [4][kSpan][kValues].
+// the unit's parameters (a [kTile][N], dd and dt_bias [kTile] when gated)
+// and two buffers of a stage's dc and db, [kSpan][kTile][RV].
 template <int N, typename T, bool G>
 struct Layout {
   using TD = typename std::conditional<G, T, float>::type;  // dout (gated) or dys
-  static constexpr int NP = (N + 3) / 4 * 4;
+  static constexpr int NP = (N + 3) / 4 * 4;  // states padded to kLanes lanes' shares
+  static constexpr int KL = NP / kLanes;      // states a lane
+  static constexpr int RV = 2 * NP + 4;       // a channel's row of dc and db (RV = 4 mod 8)
   static constexpr int xrow = kTile * (int)sizeof(T);
   static constexpr int drow = kTile * 4;
   static constexpr int grow = kTile * (int)sizeof(TD);
@@ -111,13 +142,13 @@ struct Layout {
   static constexpr int c_off = b_off + kSpan * NP * 4;
   static constexpr int h_off = c_off + kSpan * NP * 4;
   static constexpr int stage = round16(h_off + N * drow);
-  static constexpr int ring_off = (16 * kStages + 16 + 127) / 128 * 128;  // after the barriers
+  static constexpr int ring_off = (16 * kStages + 32 + 127) / 128 * 128;  // after the barriers
   static constexpr int a_off = ring_off + kStages * stage;
   static constexpr int dd_off = a_off + round16(kTile * N * 4);
   static constexpr int bias_off = dd_off + (G ? kTile * 4 : 0);
-  static constexpr int st_off = bias_off + (G ? kTile * 4 : 0);
-  static constexpr int red_off = st_off + kSpan * N * drow;
-  static constexpr int bytes = red_off + 2 * (kCompute / 32) * kSpan * kValues * 4;
+  static constexpr int red_off = round16(bias_off + (G ? kTile * 4 : 0));
+  static constexpr int red = kSpan * kTile * RV;  // floats a buffer
+  static constexpr int bytes = red_off + 2 * red * 4;
 };
 
 struct Args {
@@ -135,7 +166,7 @@ struct Args {
   void* dx;           // (B, S, di) T
   void* dz;           // gated: (B, S, di) T
   float* ddt;         // (B, S, di): ddt, or ddt_raw when gated
-  float* part;        // (B, tiles, S, kValues): a tile's sums of dc (k) and db (16 + k)
+  float* part;        // (B, S, tiles, kValues): a tile's sums of dc (k) and db (16 + k)
   float* part_a;      // (B, di, n): a row's da
   float* part_dd;     // gated: (B, di): a row's ddd
   float* part_bias;   // gated: (B, di): a row's d dt_bias
@@ -147,6 +178,13 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void narrow(float v, float* p) { *p = v; }
 __device__ __forceinline__ void narrow(float v, __nv_bfloat16* p) { *p = __float2bfloat16_rn(v); }
+
+// 2^x on the special-function unit (ex2.approx, denormals flushed).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // The producer warp: a unit's parameters, then its stages from the last back.
 template <int N, typename T, bool G>
@@ -209,7 +247,7 @@ __device__ void produce(const Args& p, uint8_t* smem) {
         } else if (lane >= 8 && lane < 8 + N) {  // lane 8 + k copies the saved state's row k
           const int k = lane - 8;
           bulk_load(ssg + L::h_off + k * L::drow, hq + (size_t)k * p.di, 4 * cnt, full);
-        } else if (lane == 31) {  // the stage's b and c rows are contiguous
+        } else if (lane == 31) {  // the stage's b and c rows are contiguous (n = NP)
           bulk_load(ssg + L::b_off, p.bm + (row + t0) * N, np * N * 4, full);
           bulk_load(ssg + L::c_off, p.cm + (row + t0) * N, np * N * 4, full);
         }
@@ -228,9 +266,12 @@ __device__ void produce(const Args& p, uint8_t* smem) {
             T* sz = reinterpret_cast<T*>(sg + L::z_off + q * L::xrow);
             for (int e = lane; e < cnt; e += 32) sz[e] = z[(row + t0 + q) * p.z_step + i0 + e];
           }
-          for (int k = lane; k < N; k += 32) {
-            reinterpret_cast<float*>(sg + L::b_off)[q * L::NP + k] = p.bm[(row + t0 + q) * N + k];
-            reinterpret_cast<float*>(sg + L::c_off)[q * L::NP + k] = p.cm[(row + t0 + q) * N + k];
+          for (int k = lane; k < L::NP; k += 32) {  // the padding states read b = c = 0
+            const bool in = k < N;
+            reinterpret_cast<float*>(sg + L::b_off)[q * L::NP + k] =
+                in ? p.bm[(row + t0 + q) * N + k] : 0.f;
+            reinterpret_cast<float*>(sg + L::c_off)[q * L::NP + k] =
+                in ? p.cm[(row + t0 + q) * N + k] : 0.f;
           }
         }
         float* sh = reinterpret_cast<float*>(sg + L::h_off);
@@ -244,63 +285,70 @@ __device__ void produce(const Args& p, uint8_t* smem) {
   }
 }
 
-// One step of reduce_scatter: lanes with bit W keep values W .. 2W - 1,
-// the others 0 .. W - 1, each adding its partner's copy (lane ^ W) into
-// v[0 .. W - 1].  A template, so every index is a constant and v stays in
-// registers.
-template <int W>
-__device__ __forceinline__ void scatter_step(float (&v)[kValues], int lane) {
-  const bool upper = lane & W;
+// A lane's KL consecutive floats of a row in shared memory.
+template <int KL>
+__device__ __forceinline__ void load_share(const float* src, float (&v)[KL]) {
+  if constexpr (KL == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = upper ? v[i] : v[i + W];
-    const float keep = upper ? v[i + W] : v[i];
-    v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, W));
+    for (int i = 0; i < KL; ++i) v[i] = src[i];
   }
-  if constexpr (W > 1) scatter_step<W / 2>(v, lane);
 }
 
-// Every lane holds 32 values; afterwards lane l holds the sum over the warp
-// of value l (a reduce-scatter of shuffles, the same pattern on every call).
-__device__ __forceinline__ float reduce_scatter(float (&v)[kValues]) {
-  scatter_step<kValues / 2>(v, threadIdx.x & 31);
-  return v[0];
+template <int KL>
+__device__ __forceinline__ void store_share(float* dst, const float (&v)[KL]) {
+  if constexpr (KL == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < KL; ++i) dst[i] = v[i];
+  }
 }
 
-// ref.softplus of dt_raw + dt_bias, as the forward computes it.
-__device__ __forceinline__ float softplus(float t) {
-  return __fadd_rn(fmaxf(t, 0.f), log1pf(expf(-fabsf(t))));
-}
-
-// A compute thread: one channel of each unit, stage by stage from the last.
+// A compute thread: lane group g = lane / 8 of channel cb = 8 warp + lane % 8
+// of each unit, holding states g KL .. g KL + KL - 1, stage by stage from
+// the last.
 template <int N, typename T, bool G>
 __device__ void consume(const Args& p, uint8_t* smem) {
   using L = Layout<N, T, G>;
   using TD = typename L::TD;
+  constexpr int KL = L::KL, NP = L::NP, RV = L::RV;
+  constexpr int M = G ? 3 : 2;  // sums over k a position: (y,) d(dt x), ddt
   const uint32_t base = smem_u32(smem);
   const uint32_t full0 = base, empty0 = base + 8 * kStages;
   const uint32_t pfull = base + 16 * kStages, pempty = pfull + 8;
-  const int c0 = threadIdx.x, lane = c0 & 31, warp = c0 >> 5;
-  float* hst = reinterpret_cast<float*>(smem + L::st_off) + c0;  // [kSpan][N][kTile]
+  const uint32_t summed0 = pempty + 8;  // two: every thread's dc and db are in red[it & 1]
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int grp = lane >> 3, cb = (tid >> 5) * 8 + (lane & 7), k0 = grp * KL;
+  const int src0 = lane & 7;  // lane of group 0 of this channel
   float* red = reinterpret_cast<float*>(smem + L::red_off);
   T* dxo = static_cast<T*>(p.dx);
   T* dzo = static_cast<T*>(p.dz);
+  // The stage's sums: output o = (q, v) of kSpan * 2 NP, half hf of the 64
+  // channels (the halves in lanes l and l ^ 16).
+  const int o = (tid >> 5) * 16 + (lane & 15), hf = (lane >> 4) & 1;
+  const int oq = o / (2 * NP), ov = o - oq * (2 * NP);
+  const bool summer = o < kSpan * 2 * NP && (ov < NP ? ov : ov - NP) < N;
+  const int pv = ov < NP ? ov : kMaxState + ov - NP;  // its place in a part row
   int it = 0, j = 0;
   for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++j) {
     const int b = u / p.tiles, tile = u - b * p.tiles, i0 = tile * kTile;
-    const bool valid = c0 < min(kTile, p.di - i0);
+    const bool valid = cb < min(kTile, p.di - i0);
     const size_t row = (size_t)b * p.seq;
-    float av[N], da[N], dh[N];
+    float av[KL], a2[KL], da[KL], dh[KL];
     mbar_wait(pfull, j & 1);
-    const float* sa = reinterpret_cast<const float*>(smem + L::a_off) + c0 * N;
+    const float* sa = reinterpret_cast<const float*>(smem + L::a_off) + cb * N;
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      av[k] = sa[k];
-      da[k] = 0.f;
-      dh[k] = 0.f;
+    for (int kk = 0; kk < KL; ++kk) {
+      av[kk] = valid && k0 + kk < N ? sa[k0 + kk] : 0.f;
+      a2[kk] = av[kk] * kLog2e;
+      da[kk] = 0.f;
+      dh[kk] = 0.f;
     }
-    const float ddv = G ? reinterpret_cast<const float*>(smem + L::dd_off)[c0] : 0.f;
-    const float biasv = G ? reinterpret_cast<const float*>(smem + L::bias_off)[c0] : 0.f;
+    const float ddv = G ? reinterpret_cast<const float*>(smem + L::dd_off)[cb] : 0.f;
+    const float biasv = G ? reinterpret_cast<const float*>(smem + L::bias_off)[cb] : 0.f;
     mbar_arrive(pempty);
     float dd_acc = 0.f, bias_acc = 0.f;
     for (int st = p.nst - 1; st >= 0; --st, ++it) {
@@ -308,107 +356,158 @@ __device__ void consume(const Args& p, uint8_t* smem) {
       mbar_wait(full0 + 8 * s, (it / kStages) & 1);
       const int t0 = st * kSpan, np = min(kSpan, p.seq - t0);
       const uint8_t* sg = smem + L::ring_off + s * L::stage;
-      const float* hsv = reinterpret_cast<const float*>(sg + L::h_off) + c0;
-      // 1. The stage's states, forward from the saved one, as the forward
-      // computes them: h_q after position t0 + q into hst[q].
-      {
-        float h[N];
+      // 1. The channel's own work of this lane's position, q = grp.
+      const float raw = reinterpret_cast<const float*>(sg + L::dt_off + grp * L::drow)[cb];
+      const float xv = widen(reinterpret_cast<const T*>(sg + L::x_off + grp * L::xrow)[cb]);
+      const float gin = widen(reinterpret_cast<const TD*>(sg + L::g_off + grp * L::grow)[cb]);
+      float d = raw, dy = gin, zv = 0.f, sig = 0.f, sgt = 0.f;
+      if (G) {  // softplus(tt) and its derivative sigmoid(tt) from one exp
+        const float tt = raw + biasv, e = expf(-fabsf(tt)), r = __frcp_rn(1.f + e);
+        d = fmaxf(tt, 0.f) + log1pf(e);
+        sgt = tt >= 0.f ? r : e * r;
+        zv = widen(reinterpret_cast<const T*>(sg + L::z_off + grp * L::xrow)[cb]);
+        sig = __frcp_rn(1.f + __expf(-zv));
+        dy = gin * (zv * sig);
+      }
+      // A channel off the tile's end walks zeros (its smem is stale).
+      d = valid ? d : 0.f;
+      dy = valid ? dy : 0.f;
+      const float dtx = valid ? d * xv : 0.f;
+      // 2. Every position's d, dy and dt x, from its lane.
+      float dq[kSpan], yq[kSpan], xq[kSpan];
 #pragma unroll
-        for (int k = 0; k < N; ++k) h[k] = hsv[k * kTile];
+      for (int q = 0; q < kSpan; ++q) {
+        dq[q] = __shfl_sync(0xffffffffu, d, q * 8 + src0);
+        yq[q] = __shfl_sync(0xffffffffu, dy, q * 8 + src0);
+        xq[q] = __shfl_sync(0xffffffffu, dtx, q * 8 + src0);
+      }
+      // 3. The stage's states and decays from the saved state, in registers.
+      float h0[KL], hq[kSpan][KL], dec[kSpan][KL];
+      {
+        const float* hs = reinterpret_cast<const float*>(sg + L::h_off) + cb;
+#pragma unroll
+        for (int kk = 0; kk < KL; ++kk)
+          h0[kk] = valid && k0 + kk < N ? hs[(k0 + kk) * kTile] : 0.f;
 #pragma unroll
         for (int q = 0; q < kSpan; ++q) {
           if (q >= np) break;
-          float d = reinterpret_cast<const float*>(sg + L::dt_off + q * L::drow)[c0];
-          const float xv = widen(reinterpret_cast<const T*>(sg + L::x_off + q * L::xrow)[c0]);
-          if (G) d = softplus(__fadd_rn(d, biasv));
-          const float dx = __fmul_rn(d, xv);
-          const float* sb = reinterpret_cast<const float*>(sg + L::b_off + q * L::NP * 4);
+          float bv[KL];
+          load_share<KL>(reinterpret_cast<const float*>(sg + L::b_off) + q * NP + k0, bv);
 #pragma unroll
-          for (int k = 0; k < N; ++k) {
-            const float decay = expf(__fmul_rn(d, av[k]));
-            h[k] = __fadd_rn(__fmul_rn(h[k], decay), __fmul_rn(dx, sb[k]));
-            hst[(q * N + k) * kTile] = h[k];
+          for (int kk = 0; kk < KL; ++kk) {
+            dec[q][kk] = ex2(dq[q] * a2[kk]);
+            hq[q][kk] = fmaf(q ? hq[q - 1][kk] : h0[kk], dec[q][kk], xq[q] * bv[kk]);
           }
         }
       }
-      // 2. The reverse walk over the stage's positions.
-      float* rb = red + (it & 1) * (kCompute / 32) * kSpan * kValues;
+      // 4. The reverse walk; dc and db to this stage's buffer.
+      float* rb = red + (it & 1) * L::red;
+      float sums[kSpan][M];
 #pragma unroll
       for (int q = kSpan - 1; q >= 0; --q) {
+#pragma unroll
+        for (int m = 0; m < M; ++m) sums[q][m] = 0.f;
         if (q >= np) continue;
-        const size_t at = (row + t0 + q) * p.di + i0 + c0;
-        const float raw = reinterpret_cast<const float*>(sg + L::dt_off + q * L::drow)[c0];
-        const float xv = widen(reinterpret_cast<const T*>(sg + L::x_off + q * L::xrow)[c0]);
-        const float gin = widen(reinterpret_cast<const TD*>(sg + L::g_off + q * L::grow)[c0]);
-        const float tt = __fadd_rn(raw, biasv);
-        const float d = G ? softplus(tt) : raw;
-        const float* ht = hst + q * N * kTile;
-        const float* hp = q ? hst + (q - 1) * N * kTile : hsv;
-        const float* sb = reinterpret_cast<const float*>(sg + L::b_off + q * L::NP * 4);
-        const float* sc = reinterpret_cast<const float*>(sg + L::c_off + q * L::NP * 4);
-        float dy, dxv = 0.f;
-        if (G) {  // the skip term and the gate
-          const float zv = widen(reinterpret_cast<const T*>(sg + L::z_off + q * L::xrow)[c0]);
-          float y = 0.f;
+        float bv[KL], cv[KL], vc[KL], vb[KL];
+        load_share<KL>(reinterpret_cast<const float*>(sg + L::b_off) + q * NP + k0, bv);
+        load_share<KL>(reinterpret_cast<const float*>(sg + L::c_off) + q * NP + k0, cv);
+        float y = 0.f, dsum = 0.f, gsum = 0.f;
 #pragma unroll
-          for (int k = 0; k < N; ++k) y = fmaf(ht[k * kTile], sc[k], y);
-          const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-zv)));
-          const float y2 = __fadd_rn(y, __fmul_rn(ddv, xv));
-          dy = __fmul_rn(gin, __fmul_rn(zv, sig));
-          const float dzv = __fmul_rn(__fmul_rn(gin, y2),
-                                      __fmul_rn(sig, __fadd_rn(1.f, __fmul_rn(zv, __fsub_rn(1.f, sig)))));
-          dd_acc = __fadd_rn(dd_acc, __fmul_rn(dy, xv));
-          dxv = __fmul_rn(dy, ddv);
-          if (valid) narrow(dzv, dzo + at);
-        } else {
-          dy = gin;
+        for (int kk = 0; kk < KL; ++kk) {
+          dh[kk] = fmaf(yq[q], cv[kk], dh[kk]);
+          vc[kk] = yq[q] * hq[q][kk];
+          vb[kk] = dh[kk] * xq[q];
+          if (G) y = fmaf(hq[q][kk], cv[kk], y);
+          dsum = fmaf(dh[kk], bv[kk], dsum);
+          dh[kk] = dh[kk] * dec[q][kk];
+          const float g = dh[kk] * (q ? hq[q - 1][kk] : h0[kk]);
+          da[kk] = fmaf(g, dq[q], da[kk]);
+          gsum = fmaf(g, av[kk], gsum);
         }
-        const float dtx = __fmul_rn(d, xv);
-        float v[kValues], dsum = 0.f, ddt = 0.f;
+        float* w = rb + (q * kTile + cb) * RV + k0;
+        store_share<KL>(w, vc);
+        store_share<KL>(w + NP, vb);
+        if (G) sums[q][0] = y;
+        sums[q][M - 2] = dsum;
+        sums[q][M - 1] = gsum;
+      }
+      mbar_arrive(empty0 + 8 * s);  // the stage's ring slot is read
+      mbar_arrive(summed0 + 8 * (it & 1));  // this thread's dc and db are in rb
+      // 5. Each position's sums over the channel's 4 lanes, left with the
+      // position's lane: a reduce-scatter over lane bits 4, then 3.
+      float pair[2][M], tot[M];
+      {
+        const bool hi = grp & 2, lo = grp & 1;
 #pragma unroll
-        for (int k = 0; k < N; ++k) {
-          dh[k] = __fadd_rn(dh[k], __fmul_rn(dy, sc[k]));
-          v[k] = valid ? __fmul_rn(dy, ht[k * kTile]) : 0.f;
-          v[kMaxState + k] = valid ? __fmul_rn(dh[k], dtx) : 0.f;
-          dsum = __fadd_rn(dsum, __fmul_rn(dh[k], sb[k]));
-          const float decay = expf(__fmul_rn(d, av[k]));
-          const float g = __fmul_rn(__fmul_rn(dh[k], hp[k * kTile]), decay);
-          da[k] = __fadd_rn(da[k], __fmul_rn(g, d));
-          ddt = __fadd_rn(ddt, __fmul_rn(g, av[k]));
-          dh[k] = __fmul_rn(dh[k], decay);
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const float send = hi ? sums[i][m] : sums[2 + i][m];
+            const float keep = hi ? sums[2 + i][m] : sums[i][m];
+            pair[i][m] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+          }
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const float send = lo ? pair[0][m] : pair[1][m];
+          const float keep = lo ? pair[1][m] : pair[0][m];
+          tot[m] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
         }
-#pragma unroll
-        for (int k = N; k < kMaxState; ++k) v[k] = v[kMaxState + k] = 0.f;
-        ddt = __fadd_rn(ddt, __fmul_rn(dsum, xv));
-        dxv = __fadd_rn(dxv, __fmul_rn(dsum, d));
+      }
+      // 6. The channel's gradients at this lane's position.
+      if (grp < np) {
+        const float dsum = tot[M - 2];
+        float dxv = dsum * d, ddt = fmaf(dsum, xv, tot[M - 1]);
+        const size_t at = (row + t0 + grp) * p.di + i0 + cb;
         if (G) {
-          ddt = __fmul_rn(ddt, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-tt))));
-          bias_acc = __fadd_rn(bias_acc, ddt);
+          const float y2 = fmaf(ddv, xv, tot[0]);
+          const float dzv = (gin * y2) * (sig * fmaf(zv, 1.f - sig, 1.f));
+          dd_acc = fmaf(dy, xv, dd_acc);
+          dxv = fmaf(dy, ddv, dxv);
+          ddt = ddt * sgt;
+          bias_acc += ddt;
+          if (valid) narrow(dzv, dzo + at);
         }
-        rb[(warp * kSpan + q) * kValues + lane] = reduce_scatter(v);
         if (valid) {
           narrow(dxv, dxo + at);
           p.ddt[at] = ddt;
         }
       }
-      mbar_arrive(empty0 + 8 * s);  // the stage's ring slot is read
-      named_bar_sync(2, kCompute);  // every warp's sums of the stage are in rb
-      // 3. The tile's sums of the stage: the four warps' in warp order.
+      mbar_wait(summed0 + 8 * (it & 1), (it >> 1) & 1);  // every thread's are
+      // 7. The tile's sums of the stage over its channels, in a fixed order.
       {
-        const int q = c0 / kValues, e = c0 % kValues;
-        if (q < np) {
-          const float* r = rb + q * kValues + e;
-          const int w = kSpan * kValues;
-          p.part[(((size_t)b * p.tiles + tile) * p.seq + t0 + q) * kValues + e] =
-              __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[w]), r[2 * w]), r[3 * w]);
+        float mine = 0.f;
+        if (o < kSpan * 2 * NP) {
+          // Half 1 reads its channels 36..63, then 32..35: rotated by 4
+          // channels, its reads fall in other banks than half 0's.
+          const float* r = rb + (oq * kTile + hf * (kTile / 2)) * RV + ov;
+          const float* r0 = r + 4 * hf * RV;
+          const float* r1 = r0 - (kTile / 2) * hf * RV;
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int jj = 0; jj < kTile / 2 - 4; ++jj) acc[jj & 3] += r0[jj * RV];
+#pragma unroll
+          for (int jj = kTile / 2 - 4; jj < kTile / 2; ++jj) acc[jj & 3] += r1[jj * RV];
+          mine = (acc[0] + acc[1]) + (acc[2] + acc[3]);
         }
+        const float other = __shfl_xor_sync(0xffffffffu, mine, 16);
+        if (summer && hf == 0 && oq < np)
+          p.part[((row + t0 + oq) * p.tiles + tile) * kValues + pv] = mine + other;
       }
     }
-    if (valid) {  // the row's own sums over positions
-      const size_t i = (size_t)b * p.di + i0 + c0;
+    // The row's own sums over positions: da a lane's states; ddd and
+    // d dt_bias over the channel's 4 lanes.
+    if (G) {
+      dd_acc += __shfl_xor_sync(0xffffffffu, dd_acc, 8);
+      dd_acc += __shfl_xor_sync(0xffffffffu, dd_acc, 16);
+      bias_acc += __shfl_xor_sync(0xffffffffu, bias_acc, 8);
+      bias_acc += __shfl_xor_sync(0xffffffffu, bias_acc, 16);
+    }
+    if (valid) {
+      const size_t i = (size_t)b * p.di + i0 + cb;
 #pragma unroll
-      for (int k = 0; k < N; ++k) p.part_a[i * N + k] = da[k];
-      if (G) {
+      for (int kk = 0; kk < KL; ++kk)
+        if (k0 + kk < N) p.part_a[i * N + k0 + kk] = da[kk];
+      if (G && grp == 0) {
         p.part_dd[i] = dd_acc;
         p.part_bias[i] = bias_acc;
       }
@@ -427,7 +526,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_bwd_kernel(const Ar
       mbar_init(base + 8 * (kStages + s), kCompute);
     }
     mbar_init(base + 16 * kStages, copied);
-    mbar_init(base + 16 * kStages + 8, kCompute);
+    for (int i = 1; i < 4; ++i) mbar_init(base + 16 * kStages + 8 * i, kCompute);
     fence_barrier_init();
   }
   named_bar_sync(1, kThreads);  // the barriers are initialised (once, before the roles split)
@@ -451,12 +550,13 @@ __global__ void __launch_bounds__(kReduceThreads) scan_bwd_reduce(
        e += (long long)gridDim.x * blockDim.x) {
     if (e < n1) {
       const long long bt = e / n;
-      const int k = (int)(e - bt * n), b = (int)(bt / seq), t = (int)(bt - (long long)b * seq);
-      const float* q = part + ((size_t)b * tiles * seq + t) * kValues;
+      const int k = (int)(e - bt * n);
+      const float* q = part + (size_t)bt * tiles * kValues;
       float sc = 0.f, sb = 0.f;
+#pragma unroll 8
       for (int tile = 0; tile < tiles; ++tile) {
-        sc = __fadd_rn(sc, q[(size_t)tile * seq * kValues + k]);
-        sb = __fadd_rn(sb, q[(size_t)tile * seq * kValues + kMaxState + k]);
+        sc = __fadd_rn(sc, q[(size_t)tile * kValues + k]);
+        sb = __fadd_rn(sb, q[(size_t)tile * kValues + kMaxState + k]);
       }
       dcm[e] = sc;
       dbm[e] = sb;
@@ -581,7 +681,7 @@ bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 // dt_bias, dz, ddd, dbias and part_dd, part_bias unused.  gated 1: dt raw,
 // z as the forward takes it, dy the output's gradient (B, S, di) in x's
 // dtype; also writes dz (x's dtype, contiguous), ddd and dbias (di), and
-// ddt is the raw dt's gradient.  Scratch: part (B, ceil(di / 128), S, 32),
+// ddt is the raw dt's gradient.  Scratch: part (B, S, ceil(di / 64), 32),
 // part_a (B, di, n), part_dd and part_bias (B, di), float32.  Returns the
 // first launch error (cudaGetLastError()).
 extern "C" int selective_scan_bwd_launch(

@@ -12,24 +12,23 @@ _NAMES = re.compile(r"(filter_rows_kernel|filter_kernel|bitmap_batch_kernel|bitm
 
 def device_ms(torch, fn: Callable, calls: int = 20, before: Callable = None) -> Dict[str, float]:
     """Device milliseconds a call by kernel or copy (``torch.profiler``),
-    each summed over its launches and divided by ``calls``; empty if the
-    profiler saw no device activity.  ``before()`` runs ahead of each call
-    and must launch nothing but device-to-device copies, which are not
+    each summed over its launches and divided by ``calls``; empty if no
+    trace saw device activity.  ``before()`` runs ahead of each call and
+    must launch nothing but device-to-device copies, which are not
     counted."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             if before is not None:
                 before()
             fn()
-        torch.cuda.synchronize()
+
     per: Dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA or "Memcpy DtoD" in e.name:
+    for e in _device_trace(torch, run):
+        if "Memcpy DtoD" in e.name:
             continue
         mark = _NAMES.search(e.name)
         name = mark.group(0) if mark else e.name[:40]
@@ -40,14 +39,26 @@ def device_ms(torch, fn: Callable, calls: int = 20, before: Callable = None) -> 
 def device_events(torch, fn: Callable) -> int:
     """Device events (kernels, copies, memsets) of one call of ``fn``, after
     a warm-up call (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return len(_device_trace(torch, fn))
+
+
+def _device_trace(torch, run: Callable, traces: int = 3) -> list:
+    """The device events ``torch.profiler`` records while ``run()`` runs.
+    A trace that holds no device event at all is taken again, up to
+    ``traces`` times: on the H100 a process's first trace has come back
+    empty though the call launched its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    return []
 
 
 def bitmap_sectors(prov) -> int:

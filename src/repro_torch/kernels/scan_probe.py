@@ -2,7 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.scan_probe [--paired DIR | --plans]
     PYTHONPATH=src python -m repro_torch.kernels.scan_probe --selective [--paired DIR]
-    PYTHONPATH=src python -m repro_torch.kernels.scan_probe --bwd [--paired DIR]
+    PYTHONPATH=src python -m repro_torch.kernels.scan_probe --bwd [--paired DIR | --plans]
+    PYTHONPATH=src python -m repro_torch.kernels.scan_probe --bwd --split [slstm | selective]
+        [--tree DIR]
 
 The sLSTM scan (``csrc/slstm_scan.cu``), by default: at xlstm-350m's layer
 (:data:`SHAPES`: 16 rows of 2,048 positions, 4 heads of 256 units, bf16,
@@ -73,11 +75,21 @@ backward over each gradient's scale, a rerun's bits and the launch plan.
 ``DIR`` in turns, each run a process of its own: both forwards with no
 gradient asked for, with digests of their outputs (the trees compared bit
 for bit), and the forward with residuals and the backward where a tree has
-them.
+them.  ``--bwd --split`` splits both backward kernels (``slstm`` or
+``selective`` only one): the source and its patched variants, each built
+and timed by CUDA events at xlstm-350m's 4 and 16 rows (the dpre kernel)
+and at jamba-1.5-large's 1 and 16 rows (:data:`SEL_BWD_SPLIT_SHAPES`, the
+whole call), two rounds, then an instrumented copy's ``clock64`` sections a
+position; the selective one also prints each variant's registers, spills,
+resident blocks and the SASS count of its loop over stages with the issue
+floor it gives.  ``--bwd --plans`` times every sLSTM backward plan.
+``--tree DIR`` runs any of these on the checkout at DIR (its package,
+sources and build directory) with this probe.
 
-A patch that no longer finds its text in the source raises; the CPU test
-``tests/test_torch_ssm.py::test_scan_probe_patches_apply`` applies every
-patch without building.  The patched kernels compute wrong results on
+A patch that no longer finds its text in the source raises; the CPU tests
+``tests/test_torch_ssm.py::test_scan_probe_patches_apply`` and
+``tests/test_torch_ssm_train.py::test_scan_probe_*bwd_patches_apply`` apply
+every patch without building.  The patched kernels compute wrong results on
 purpose: nothing here is on any path.
 """
 from __future__ import annotations
@@ -421,13 +433,13 @@ def sel_patches() -> Dict[str, str]:
     return {name: patch(src) for name, patch in SEL_VARIANTS.items()}
 
 
-def _sel_build(sources: Dict[str, str]) -> Dict[str, tuple]:
-    """Each source's 16-state build, in parallel: its library and the
-    compiler's log."""
+def _sel_build(sources: Dict[str, str], kernel: str = SEL_NAME) -> Dict[str, tuple]:
+    """Each source's 16-state build, in parallel, bound with ``kernel``'s
+    signatures: its library, its path and the compiler's log."""
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for i, (name, text) in enumerate(sources.items()):
-        cu, so = PROBE_DIR / f"sel{i}.cu", PROBE_DIR / f"sel{i}.so"
+        cu, so = PROBE_DIR / f"{kernel}{i}.cu", PROBE_DIR / f"{kernel}{i}.so"
         cu.write_text(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-DSCAN_ONE_STATE_COUNT={SEL_STATES}", "-I",
                str(build.CSRC), "-o", str(so), str(cu)]
@@ -439,7 +451,7 @@ def _sel_build(sources: Dict[str, str]) -> Dict[str, tuple]:
         if proc.returncode != 0:
             raise build.KernelBuildError(f"{name}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn, (restype, argtypes) in build.SIGNATURES[SEL_NAME].items():
+        for fn, (restype, argtypes) in build.SIGNATURES[kernel].items():
             f = getattr(lib, fn)
             f.restype, f.argtypes = restype, argtypes
         out[name] = (lib, so, log)
@@ -494,11 +506,12 @@ def sass_functions(so: Path) -> Dict[str, list]:
     return out
 
 
-def loop_counts(instrs, states: int, gated: bool) -> dict:
+def loop_counts(instrs, states: int, gated: bool, ex2_per_position: float = None) -> dict:
     """The loop over positions: the smallest backward branch's body that
-    holds at least ``states`` MUFU.EX2 (one a state, and the softplus's and
-    the gate's when gated); its instructions per position and per state
-    and position, and its MUFU.EX2 a position."""
+    holds at least ``states`` MUFU.EX2, or given ``ex2_per_position`` (its
+    count a position, by default one a state and the softplus's and the
+    gate's when gated) that many; its instructions per position and per
+    state and position, and its MUFU.EX2 a position."""
     best = None
     for at, text in instrs:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
@@ -506,12 +519,12 @@ def loop_counts(instrs, states: int, gated: bool) -> dict:
             continue
         body = [t for a, t in instrs if int(m.group(1), 16) <= a <= at]
         ex2 = sum("MUFU.EX2" in t for t in body)
-        if ex2 >= states and (best is None or len(body) < len(best[0])):
+        if ex2 >= (ex2_per_position or states) and (best is None or len(body) < len(best[0])):
             best = (body, ex2)
     if best is None:
         return {}
     body, ex2 = best
-    per_pos = ex2 / (states + (2 if gated else 0))
+    per_pos = ex2 / (ex2_per_position or states + (2 if gated else 0))
     return dict(instructions=len(body), positions=per_pos,
                 per_position=len(body) / per_pos, per_state=len(body) / per_pos / states,
                 ex2=ex2 / per_pos, lds=sum(t.startswith("LDS") for t in body) / per_pos)
@@ -845,57 +858,6 @@ BWD_SOURCE = build.CSRC / "slstm_scan_bwd.cu"
 # --bwd --split: xlstm-350m's sLSTM layer at its training microbatch and at
 # the forward row's 16 rows, bf16.
 BWD_SPLIT_SHAPES = {"4 rows": (4, 2048, 4, 256), "16 rows": (16, 2048, 4, 256)}
-# The all-gather design (each CTA's dpre to every peer, dh from the whole of
-# dpre_{t+1} over wr's rows transposed) is split by its own anchors, so
-# ``--bwd --split --tree DIR`` splits a checkout that still has it.
-_ALLGATHER = "for (int k = 0; k < cluster; ++k) st_async(map_rank(dst, k), v, map_rank(bar, k));"
-BWD_SECTIONS_ALLGATHER = tuple((name, 15) for name in (
-    "loads and wait for dpre", "wait for the turn", "product", "barrier", "reduction and cell",
-    "barrier", "all-gather"))
-
-
-def _allgather_no_exchange(src: str) -> str:
-    """The all-gather design with each CTA sending its dpre to itself only."""
-    src = _sub(src, "  const uint32_t bytes = (uint32_t)rows * g4 * 4;",
-               "  const uint32_t bytes = (uint32_t)rows * 4 * n * 4;")
-    if src.count(_ALLGATHER) != 2:
-        raise ValueError("scan_probe: the backward's sends moved")
-    return src.replace(_ALLGATHER, _ALLGATHER.replace("int k = 0; k < cluster; ++k",
-                                                      "int k = rank; k == rank; k = cluster"))
-
-
-_AG_CELL_HEAD = "      const float zt = pr[0], itv = pr[1], ft = pr[2], ot = pr[3];\n"
-_AG_CELL_TAIL = "      dm = dlm;\n"
-
-
-def _allgather_no_cell(src: str) -> str:
-    """The all-gather design with dpre a scaled sum of dh and pre."""
-    if src.count(_AG_CELL_HEAD) != 1 or src.count(_AG_CELL_TAIL) != 1:
-        raise ValueError("scan_probe: the backward cell's body moved")
-    return (src[:src.index(_AG_CELL_HEAD)]
-            + "      (void)c1; (void)n1; (void)m1; (void)c0; (void)n0; (void)m0;\n"
-            + "      const float d_z = __fmul_rn(dh, 1e-3f), d_i = __fadd_rn(pr[1], dh), "
-              "d_f = __fmul_rn(pr[2], dh), d_o = __fsub_rn(pr[3], dh);\n"
-            + src[src.index(_AG_CELL_TAIL) + len(_AG_CELL_TAIL):])
-
-
-def _allgather_instrument(src: str) -> str:
-    """The all-gather design's clock64 sections (BWD_SECTIONS_ALLGATHER)."""
-    src = _probe_header(src, '#include "slstm_scan.cu"\n')
-    src = _probe_start(src, "  cluster_sync();  // every CTA's barriers are initialised, its dpre "
-                            "zeroed and wr copied\n")
-    marks = (("      if (tid == 0 && it + 2 < seq) mbar_expect_tx(bar, bytes);  // dpre of "
-              "position t - 1\n    }\n", 0),
-             ("    if (turns) named_bar_sync(3 + half, 2 * half_threads);  // the other half's "
-              "product is done\n", 1),
-             ("        out_s[(cr * 4 + q) * n + ci] = dp[q];\n      }\n    }\n", 4),
-             ("      named_bar_sync(1 + half, half_threads);  // out is whole; the partial sums "
-              "are read\n", 5))
-    for anchor, i in marks:
-        src = _sub(src, anchor, anchor + f"    MARK({i});\n")
-    anchor = "    named_bar_sync(1 + half, half_threads);  // the partial sums are whole\n"
-    src = _sub(src, anchor, "    MARK(2);\n" + anchor + "    MARK(3);\n")
-    return _probe_end(src, 6)
 
 
 def _probe_header(src: str, anchor: str) -> str:
@@ -909,18 +871,6 @@ def _probe_start(src: str, anchor: str) -> str:
     """A thread's sums and clock after ``anchor``."""
     return _sub(src, anchor, anchor + "  unsigned long long probe[16] = {0};\n"
                                       "  long long t_prev = clock64();\n")
-
-
-def _probe_end(src: str, last: int) -> str:
-    """The loop's last mark (``MARK(last)``), a count of positions in slot 15
-    and thread 0 of CTA (0, 0) writing ``g_probe``; ``probe_read``."""
-    src = _sub(src, _LOOP_END,
-               f"    }}\n    MARK({last});\n    probe[15] += 1;\n  }}\n"
-               "  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)\n"
-               "    for (int i = 0; i < 16; ++i) g_probe[i] = probe[i];\n"
-               "  cluster_sync();  // no CTA leaves")
-    return src + ('\nextern "C" int probe_read(void* out) {\n'
-                  "  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n")
 
 
 # The reduce-scatter design (csrc/slstm_scan_bwd.cu as it stands): its
@@ -1086,11 +1036,6 @@ def bwd_design(src: str) -> dict:
                               "no weight loads": _bwd_xchunk(1), "no widening": _bwd_xchunk(2),
                               "float32 weights": bwd_float32_weights},
                     instrument=bwd_instrument, sections=BWD_SECTIONS)
-    if _ALLGATHER in src:
-        return dict(variants={"kernel": lambda s: s, "no product": no_product,
-                              "no exchange": _allgather_no_exchange,
-                              "no cell math": _allgather_no_cell},
-                    instrument=_allgather_instrument, sections=BWD_SECTIONS_ALLGATHER)
     raise ValueError("scan_probe: the backward source's design is not known here")
 
 
@@ -1131,7 +1076,7 @@ def bwd_split(torch) -> None:
     kept = build._LIBS.get(SS.BWD_NAME)
     try:
         for rnd in range(2):
-            for name in design["variants"]:
+            for name in SEL_BWD_VARIANTS:
                 build._LIBS[SS.BWD_NAME] = libs[name]
                 times = [f"{label} {_event_ms(torch, case['dpre'], 5):.4f} ms"
                          for label, case in cases.items()]
@@ -1158,6 +1103,175 @@ def bwd_split(torch) -> None:
             build._LIBS.pop(SS.BWD_NAME, None)
         else:
             build._LIBS[SS.BWD_NAME] = kept
+
+
+# ---- the selective backward's split ------------------------------------------
+
+SEL_BWD_SOURCE = build.CSRC / "selective_scan_bwd.cu"
+# --bwd --split: jamba-1.5-large's mamba layer at its cut's training
+# microbatch and at the forward row's 16 rows, bf16 (BWD_SHAPES' gated rows).
+SEL_BWD_SPLIT_SHAPES = {"1 row": (1, 2048, 16384, 16), "16 rows": (16, 2048, 16384, 16)}
+
+
+def _sel_probe(src: str, start: str, marks, stage_end: str, count: str, finish: str) -> str:
+    """A selective-backward source that sums clock64 deltas per section:
+    the thread's sums and clock after ``start``, ``MARK(i)`` after the i-th
+    anchor of ``marks``, the last mark and slot 15 adding ``count``
+    positions before ``stage_end`` (the stage loop's end), thread 0 of
+    block 0 writing its sums to ``g_probe`` after ``finish``; and
+    ``probe_read``."""
+    src = _probe_start(_probe_header(src, '#include "hopper.cuh"\n'), start)
+    for i, anchor in enumerate(marks):
+        src = _sub(src, anchor, anchor + f"MARK({i});\n")
+    src = _sub(src, stage_end, f"MARK({len(marks)});\nprobe[15] += {count};\n" + stage_end)
+    src = _sub(src, finish, finish + "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+                                     "    for (int i = 0; i < 16; ++i) g_probe[i] = probe[i];\n")
+    return src + ('\nextern "C" int probe_read(void* out) {\n'
+                  "  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n")
+
+
+# The sections of a stage (a lane's position of it, its channel's 4 lanes
+# sharing the rest) and MUFU.EX2 a lane and stage (= a channel and
+# position): 16 decays, the softplus's (its sigmoid shares it) and the gate's.
+SEL_BWD_SECTIONS = ("wait on the ring", "the channel's work of a position", "shuffles of d, dy, dt x",
+                "recompute", "walk", "sums over a channel's lanes", "gradients and stores",
+                "wait for every thread's dc and db", "channel sums and partials' store")
+SEL_BWD_EX2 = 18
+_LS_EXP = "            dec[q][kk] = ex2(dq[q] * a2[kk]);\n"
+
+
+def sel_bwd_instrument(src: str) -> str:
+    """The backward with SEL_BWD_SECTIONS' clock64 sums (thread 0 of block
+    0: lane group 0 of channel 0, the first position of each stage)."""
+    return _sel_probe(
+        src, "  T* dzo = static_cast<T*>(p.dz);\n",
+        ("      mbar_wait(full0 + 8 * s, (it / kStages) & 1);\n",
+         "      const float dtx = valid ? d * xv : 0.f;\n",
+         "      // 3. The stage's states and decays from the saved state, in registers.\n",
+         "      // 4. The reverse walk; dc and db to this stage's buffer.\n",
+         "      mbar_arrive(summed0 + 8 * (it & 1));  // this thread's dc and db are in rb\n",
+         "      // 6. The channel's gradients at this lane's position.\n",
+         "          p.ddt[at] = ddt;\n        }\n      }\n",
+         "      mbar_wait(summed0 + 8 * (it & 1), (it >> 1) & 1);  // every thread's are\n"),
+        "    }\n    // The row's own sums over positions", "np",
+        "        p.part_bias[i] = bias_acc;\n      }\n    }\n  }\n")
+
+
+SEL_BWD_VARIANTS: Dict[str, Callable[[str], str]] = {
+        "kernel": lambda s: s,
+        "no recompute": _sel_patch(
+            _LS_EXP + "            hq[q][kk] = fmaf(q ? hq[q - 1][kk] : h0[kk], dec[q][kk], "
+                      "xq[q] * bv[kk]);\n",
+            "            dec[q][kk] = 0.5f;\n            hq[q][kk] = h0[kk] + bv[kk];\n"),
+        "no exponential": _sel_patch(_LS_EXP, "            dec[q][kk] = dq[q] * a2[kk];\n"),
+        "expf, not ex2.approx": _sel_patch(_LS_EXP,
+                                           "            dec[q][kk] = expf(dq[q] * av[kk]);\n"),
+        "no channel work (softplus, sigmoids)": _chain(
+            _sel_patch("e = expf(-fabsf(tt)), r = __frcp_rn(1.f + e);", "e = tt, r = tt;"),
+            _sel_patch("        d = fmaxf(tt, 0.f) + log1pf(e);\n", "        d = tt;\n"),
+            _sel_patch("sig = __frcp_rn(1.f + __expf(-zv));", "sig = zv;")),
+        "no shuffles between a channel's lanes": _chain(
+            _sel_patch("pair[i][m] = keep + __shfl_xor_sync(0xffffffffu, send, 16);",
+                       "pair[i][m] = keep + send;"),
+            _sel_patch("tot[m] = keep + __shfl_xor_sync(0xffffffffu, send, 8);",
+                       "tot[m] = keep + send;")),
+        "no channel sums": _chain(
+            _sel_patch("acc[jj & 3] += r0[jj * RV];", "acc[jj & 3] = r0[0];"),
+            _sel_patch("acc[jj & 3] += r1[jj * RV];", "acc[jj & 3] = r1[0];")),
+        "no part stores, no second launch": _chain(
+            _sel_patch("        if (summer && hf == 0 && oq < np)",
+                       "        if (false && summer && hf == 0 && oq < np)"),
+            _sel_patch("  scan_bwd_reduce<<<grid, kReduceThreads, 0, s>>>(",
+                       "  if (false) scan_bwd_reduce<<<grid, kReduceThreads, 0, s>>>(")),
+        "no saved-state loads": _chain(
+            _sel_patch(" + N * 4 * cnt);", ");"),
+            _sel_patch("} else if (lane >= 8 && lane < 8 + N) {", "} else if (lane < 0) {")),
+        "2 stages in the ring": _sel_patch("constexpr int kStages = 3;",
+                                           "constexpr int kStages = 2;"),
+        "kMinBlocks 1 (no register cap, one block an SM)": _sel_patch(
+            "constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;"),
+}
+
+
+def sel_bwd_patches() -> Dict[str, str]:
+    """Every patched selective-backward source by name (no build), and
+    "sections"."""
+    src = SEL_BWD_SOURCE.read_text()
+    out = {name: patch(src) for name, patch in SEL_BWD_VARIANTS.items()}
+    out["sections"] = sel_bwd_instrument(src)
+    return out
+
+
+def bwd_sass_counts(so: Path, states: int = SEL_STATES) -> dict:
+    """:func:`loop_counts` of the selective backward's bf16 gated instance
+    of ``states`` states in the library at ``so``: its loop over stages,
+    SEL_BWD_EX2 MUFU.EX2 a lane and stage; empty without ``cuobjdump``."""
+    for name, instrs in sass_functions(so).items():
+        if re.search(rf"scan_bwd_kernelILi{states}E13__nv_bfloat16Lb1E", name):
+            return loop_counts(instrs, states, True, SEL_BWD_EX2)
+    return {}
+
+
+def sel_bwd_split(torch) -> None:
+    """``--bwd --split``'s selective half: this tree's selective backward
+    and its variants (16-state builds), each with its registers, spills and
+    resident blocks and the SASS count of its loop over positions, timed by
+    CUDA events (the whole call, 5 after 2, two rounds) at
+    SEL_BWD_SPLIT_SHAPES, then the instrumented copy's clock64 sections a
+    position in thread 0 of block 0."""
+    from repro_torch.kernels import selective_scan as SEL
+
+    built = _sel_build(sel_bwd_patches(), SEL.BWD_NAME)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (lib, so, log) in built.items():
+        if name == "sections":
+            continue
+        buf = (ctypes.c_int * 5)()
+        build.check(lib.selective_scan_bwd_occupancy(0, 1, 1, SEL_STATES, buf), name)
+        regs = [line for line in _registers(log, "scan_bwd_kernel")
+                if f"ILi{SEL_STATES}E13__nv_bfloat16Lb1E" in line]
+        print(f"[sel bwd build] {name}: {'; '.join(regs)}; plan [blocks an SM, SMs, shared "
+              f"bytes, threads, channels a unit] {list(buf)}", flush=True)
+        c = bwd_sass_counts(so)
+        if c:
+            floors = ", ".join(f"{label} {issue_floor_ms(shape, c['per_position'], sms):.3f} ms"
+                               for label, shape in SEL_BWD_SPLIT_SHAPES.items())
+            print(f"[sel bwd sass] {name}: loop of {c['instructions']} instructions for "
+                  f"{c['positions']:g} channel-positions: {c['per_position']:.1f} a channel and "
+                  f"position ({c['ex2']:g} MUFU.EX2, {c['lds']:g} LDS); issue floor {floors}",
+                  flush=True)
+        else:
+            print(f"[sel bwd sass] {name}: no loop found (or no cuobjdump)", flush=True)
+    cases = {label: bwd_case(torch, "gated", shape)
+             for label, shape in SEL_BWD_SPLIT_SHAPES.items()}
+    kept = build._LIBS.get(SEL.BWD_NAME)
+    try:
+        for rnd in range(2):
+            for name in SEL_BWD_VARIANTS:
+                build._LIBS[SEL.BWD_NAME] = built[name][0]
+                times = [f"{label} {_event_ms(torch, case['backward'], 5):.4f} ms"
+                         for label, case in cases.items()]
+                print(f"[sel bwd split] round {rnd}, {name}: " + "; ".join(times), flush=True)
+        lib = built["sections"][0]
+        lib.probe_read.argtypes = [ctypes.c_void_p]
+        build._LIBS[SEL.BWD_NAME] = lib
+        for label, case in cases.items():
+            case["backward"]()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * 16)()
+            build.check(lib.probe_read(buf), "probe_read")
+            p = list(buf)
+            steps = max(p[15], 1)
+            per = [p[i] / steps for i in range(len(SEL_BWD_SECTIONS))]
+            print(f"[sel bwd sections] {label}, block 0, thread 0: {p[15]} positions; cycles a "
+                  "position: " + ", ".join(f"{name} {c:.0f}" for name, c in
+                                           zip(SEL_BWD_SECTIONS, per))
+                  + f"; total {sum(per):.0f}", flush=True)
+    finally:
+        if kept is None:
+            build._LIBS.pop(SEL.BWD_NAME, None)
+        else:
+            build._LIBS[SEL.BWD_NAME] = kept
 
 
 def bwd_time_plans(torch, shape) -> None:
@@ -1230,7 +1344,12 @@ def bwd_main(torch) -> int:
         tree = Path(sys.argv[at + 1]).resolve()
         return _in_tree(tree, sys.argv[1:at] + sys.argv[at + 2:])
     if "--split" in sys.argv:
-        bwd_split(torch)
+        at = sys.argv.index("--split")
+        which = sys.argv[at + 1] if at + 1 < len(sys.argv) else ""
+        if which != "selective":
+            bwd_split(torch)
+        if which != "slstm":
+            sel_bwd_split(torch)
         _smi()
         return 0
     if "--plans" in sys.argv:

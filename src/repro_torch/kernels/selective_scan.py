@@ -29,10 +29,10 @@ the kernel runs inside an autograd function: its forward also saves the
 state entering every 4 positions ((B, S / 4, n, di) float32), and its
 backward is :func:`selective_scan_bwd` or :func:`selective_scan_gated_bwd`,
 ``csrc/selective_scan_bwd.cu``: the reverse walk a stage at a time from the
-saved states, the gated entry's epilogue and softplus differentiated in the
-same thread, then a second launch adding the tiles' and rows' partial sums
-in order (one call, two launches, counted once under
-``LAUNCH_COUNTS["selective_scan_bwd"]``).  ``LAUNCH_COUNTS
+saved states, a channel's states split over four lanes and its epilogue
+and softplus differentiated once a position, then a second launch adding
+the tiles' and rows' partial sums in order (one call, two launches, counted
+once under ``LAUNCH_COUNTS["selective_scan_bwd"]``).  ``LAUNCH_COUNTS
 ["selective_scan.residuals"]`` counts the forwards that saved states (not
 those under ``residuals.skipped``).
 """
@@ -52,7 +52,7 @@ BWD_NAME = "selective_scan_bwd"
 RESIDUALS_COUNTER = "selective_scan.residuals"  # forwards that saved the backward's states
 MAX_STATE = 16  # states a channel keeps in registers (the source's kMaxState)
 MAX_BATCH = 65535
-TILE = 128  # channels a unit of the backward (its source's kTile)
+TILE = 64  # channels a unit of the backward (its source's kTile)
 VALUES = 32  # a position's dc and db partial sums a tile (its source's kValues)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -176,7 +176,7 @@ def _launch_bwd(x1, dt, a, bmat, cmat, grad, hsave, z=None, dt_bias=None, dd=Non
             if t is not None and t.dtype == torch.float32:
                 t.zero_()
         return outs
-    part = torch.empty((b, -(-di // TILE), s, VALUES), **f32)
+    part = torch.empty((b, s, -(-di // TILE), VALUES), **f32)
     part_a = torch.empty((b, di, n), **f32)
     part_dd = torch.empty((b, di), **f32) if gated else None
     part_bias = torch.empty((b, di), **f32) if gated else None

@@ -964,3 +964,50 @@ def test_filter_probe_patches_apply():
         kernel = sources.pop("kernel")
         assert kernel == (build.CSRC / f"{name}.cu").read_text()
         assert sources and all(text != kernel for text in sources.values())
+
+
+@pytest.mark.parametrize("empty_traces,want", [(0, 1), (1, 1), (2, 1), (3, 0)])
+def test_device_timing_takes_an_empty_trace_again(monkeypatch, empty_traces, want):
+    """``measure.device_ms`` and ``device_events`` trace again when the
+    profiler records no device event at all, up to three traces, and report
+    nothing when every trace is empty (a fake profiler stands in for the
+    card's)."""
+    from types import SimpleNamespace
+
+    import torch.profiler
+
+    from repro_torch.kernels import measure
+
+    cuda_type = object()
+    traces = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            traces.append(None)
+
+        def events(self):
+            if len(traces) <= empty_traces:
+                return [SimpleNamespace(device_type="cpu", name="aten::empty")]
+            span = SimpleNamespace(start=0.0, end=2000.0 * calls)
+            return [SimpleNamespace(device_type=cuda_type, name="void bitmap_kernel<8>(...)",
+                                    time_range=span),
+                    SimpleNamespace(device_type="cpu", name="aten::empty")]
+
+    fake_torch = SimpleNamespace(cuda=SimpleNamespace(synchronize=lambda: None),
+                                 autograd=SimpleNamespace(DeviceType=SimpleNamespace(CUDA=cuda_type)))
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    called = []
+    calls = 4
+    per = measure.device_ms(fake_torch, lambda: called.append(1), calls=calls)
+    assert per == ({"bitmap_kernel": 2.0} if want else {})
+    assert len(traces) == min(empty_traces + 1, 3)
+    assert len(called) == 3 + calls * len(traces)
+    traces.clear()
+    calls = 1
+    assert measure.device_events(fake_torch, lambda: None) == want

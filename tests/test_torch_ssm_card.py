@@ -366,7 +366,12 @@ def test_slstm_scan_bwd_reruns_give_equal_bits(cuda):
     assert all(torch.equal(a, b) for a, b in zip(runs[0], got))
 
 
-SEL_BWD_SHAPES = [(2, 40, 128, 4), (3, 37, 200, 16), (1, 1, 64, 1), (2, 70, 96, 7)]
+# Ragged S against the 4-position stage (37, 1, 70, 6, 33), di off the
+# backward's 64-channel tile (200, 96, 72), n of 1, 7, 13 and 16 (a lane
+# holding 1, 2, 4 and 4 of a channel's states, padded), and a full-width
+# row whose 64 units are fewer than the card's SMs (4,096 channels).
+SEL_BWD_SHAPES = [(2, 40, 128, 4), (3, 37, 200, 16), (1, 1, 64, 1), (2, 70, 96, 7),
+                  (1, 6, 72, 16), (2, 33, 64, 13), (1, 300, 4096, 16)]
 
 
 @pytest.mark.cuda
@@ -425,6 +430,37 @@ def test_selective_scan_gated_bwd_kernel_matches_plain(cuda, b, s, di, n, dtype)
         _grad_close(g, w, name)
     again = SEL.selective_scan_gated_bwd(*args, dout, hsave)
     assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_selective_scan_bwd_rows_do_not_depend_on_the_batch(cuda, gated):
+    """A row's gradients are the same bits alone as inside a batch of 3
+    (ragged S, di off the tile, bf16): every gradient but the sums over
+    rows (da, and gated ddd and ddt_bias)."""
+    b, s, di, n = 3, 70, 200, 16
+    if gated:
+        args = _gated_inputs(b, s, di, n, torch.bfloat16, 31, cuda)
+        _, hsave = _gated_states(args)
+        dout = torch.randn((b, s, di), generator=torch.Generator(device=cuda).manual_seed(32),
+                           device=cuda).to(torch.bfloat16)
+        grad, per_row = SEL.selective_scan_gated_bwd, GATED_GRADS
+        shared = (3, 4, 7)  # ddt_bias, da, ddd
+    else:
+        x1, dt, a, bmat, cmat = _mamba_inputs(b, s, di, n, torch.bfloat16, 31, cuda)
+        args = (x1, dt, a, bmat, cmat)
+        _, hsave = SEL.selective_scan_states_of(*args)
+        dout = torch.randn((b, s, di), generator=torch.Generator(device=cuda).manual_seed(32),
+                           device=cuda)
+        grad, per_row = SEL.selective_scan_bwd, ("dx1", "ddt", "da", "dbmat", "dcmat")
+        shared = (2,)  # da
+    full = grad(*args, dout, hsave)
+    for i in range(b):
+        rows = [t[i:i + 1] if t.dim() == 3 else t for t in args]
+        alone = grad(*rows, dout[i:i + 1], hsave[i:i + 1])
+        for j, name in enumerate(per_row):
+            if j not in shared:
+                assert torch.equal(full[j][i:i + 1], alone[j]), (i, name)
 
 
 @pytest.mark.cuda

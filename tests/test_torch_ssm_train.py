@@ -394,6 +394,28 @@ def test_scan_probe_bwd_patches_apply():
     assert sources["sections"].count("probe[14] += 1;") == 1
 
 
+def test_scan_probe_selective_bwd_patches_apply():
+    """``scan_probe --bwd --split selective`` patches the selective
+    backward's source by text: every variant still finds its anchors and
+    differs from the kernel and from the others, and the instrumented copy
+    marks every section once and counts the stages' positions once."""
+    import re
+
+    from repro_torch.kernels import scan_probe
+
+    sources = scan_probe.sel_bwd_patches()
+    kernel = sources.pop("kernel")
+    assert kernel == scan_probe.SEL_BWD_SOURCE.read_text()
+    assert set(sources) == set(scan_probe.SEL_BWD_VARIANTS) - {"kernel"} | {"sections"}
+    assert {"no recompute", "no exponential", "no channel sums",
+            "no part stores, no second launch", "no saved-state loads"} <= set(sources)
+    assert all(text != kernel for text in sources.values())
+    assert len(set(sources.values())) == len(sources)
+    marks = [int(m) for m in re.findall(r"MARK\((\d+)\);", sources["sections"])]
+    assert sorted(marks) == list(range(len(scan_probe.SEL_BWD_SECTIONS)))
+    assert sources["sections"].count("probe[15] += np;") == 1
+
+
 def test_residuals_are_skipped_only_inside_the_context():
     """``residuals.skipped`` (what ``lm._remat``'s first forward runs under)
     nests and restores; a placeholder owns no memory."""
